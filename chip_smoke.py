@@ -13,12 +13,24 @@ Phases, one JSON line each:
               4,194,304 rows, with its time, the plain version's time,
               the least time the card could take, and a library call's
               time where one PyTorch call computes the same function;
-  4. main_path  a VerificationSuite over the flagship analyzers on a
-              --rows table (float64 x and y with every 11th x null, int64
-              id, string cat, int64 grp), run twice on CUDA: every kernel
-              launches once per batch, the two runs agree bit for bit,
-              the metrics agree with a numpy reference, and HLL registers,
-              check statuses and messages equal a device="cpu" run.
+              hist16 also on a one-value and a five-value column (atomic
+              contention), whose counts must match exactly too;
+  4. main_path  a VerificationSuite on a --rows table (float64 x and y
+              with every 11th x null, int64 id, string cat, int64 grp)
+              over the flagship analyzers, two approximate-quantile
+              analyzers, a Compliance, a containment, a pattern and the
+              frequency analyzers (uniqueness, distinct values, entropy),
+              run twice on CUDA: every moment and HLL kernel launches once
+              per batch and hist16 once per batch and quantile analyzer,
+              the two runs agree bit for bit, the metrics agree with a
+              numpy reference, and quantiles, HLL registers, count
+              metrics, check statuses and messages equal a device="cpu"
+              run. The second run's wall time is split into the fused
+              pass and, inside it, the host's predicate evaluation, wire
+              packing and quantile selection (host_finish_batch), and the
+              grouping pass;
+  5. basic_example  the README's example (examples/basic_example.py's
+              checks) on the card, with BASELINE.md's outcome.
 Then the kernels' summary line and, last, the device line. Any failed
 check raises: the script exits non-zero and prints no result. Without
 CUDA it exits non-zero at once.
@@ -27,6 +39,7 @@ CUDA it exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -182,6 +195,68 @@ def kernel_phase(torch, ck, hll, device, rng, timer):
     return rows
 
 
+def hist16_phase(torch, ck, device, rng, timer):
+    """hist16 against its plain version: normal data at every n, then the
+    two contention cases at the main path's batch. Counts are integers and
+    must match exactly; two launches must agree. Returns the summary row."""
+    import numpy as np
+
+    def inputs(kind, n):
+        if kind == "normal":
+            x = rng.normal(3.0, 2.0, n)
+        elif kind == "one-value":
+            x = np.full(n, 2.5)
+        else:  # five values, the shape of the main path's grp column
+            x = rng.integers(0, 5, n).astype(np.float64)
+        live = np.ones(n, dtype=bool)
+        live[::11] = False  # excluded rows: the sentinel bin
+        return torch.from_numpy(x).to(device), torch.from_numpy(live).to(device)
+
+    cases = [("normal", n) for n in (0, 1, BATCH - 37, BATCH)]
+    cases += [("one-value", BATCH), ("five-value", BATCH)]
+    timed = {}
+    worst = 0.0
+    for kind, n in cases:
+        x, live = inputs(kind, n)
+        got = ck.hist16(x, live)
+        again = ck.hist16(x, live)
+        want = ck.hist16_plain(x, live)
+        if not (torch.equal(got, want) and torch.equal(got, again)):
+            raise AssertionError(f"hist16 {kind} n={n}: counts differ from the plain version")
+        err = float((got - want).abs().max()) if n else 0.0
+        worst = max(worst, err)
+        emit({"phase": "kernel_check", "kernel": "hist16", "case": kind, "n": n,
+              "max_abs_err": err, "excluded": int(got[ck.HIST_SENTINEL])})
+        if n == BATCH:
+            bins = ck.f32_sortable_bin16_plain(x.float(), live).long()
+            library_counts = torch.bincount(bins, minlength=ck.HIST_BINS)
+            if not torch.equal(library_counts.int(), got):
+                raise AssertionError(f"hist16 {kind}: torch.bincount disagrees")
+            n_live = int(live.sum())
+            # the bytes this data needs: the mask, x where live, the counts
+            bound, by = bound_ms(n + 8 * n_live + ck.HIST_BINS * 4, 4 * n, INT32_OPS_PER_S)
+            timed[kind] = {
+                "ms": timer.ms(lambda: ck.hist16(x, live)),
+                "plain_ms": timer.ms(lambda: ck.hist16_plain(x, live)),
+                "library_ms": timer.ms(lambda: torch.bincount(bins, minlength=ck.HIST_BINS)),
+                "bound_ms": bound,
+                "bound_by": by,
+            }
+    emit({"phase": "kernel_contention", "kernel": "hist16", "rows": BATCH, "cases": timed})
+    row = {
+        "name": "hist16",
+        "route": "cuda",
+        "source": "deequ_tpu_torch/csrc/kernels.cu",
+        "replaces": "deequ_tpu/ops/pallas_kernels.py:165",
+        "launches": None,
+        "max_abs_err": worst,
+        **timed["normal"],
+        "held_against_plain": True,
+    }
+    emit({"phase": "kernel", **row, "rows": BATCH})
+    return row
+
+
 def flagship_table(rows: int, seed: int):
     import numpy as np
 
@@ -219,7 +294,81 @@ def numpy_reference(data):
     }
 
 
+def numpy_slice2_reference(data):
+    """Counts and entropy of the second slice's analyzers, from numpy."""
+    import numpy as np
+
+    n = len(data["x"])
+    x, cat, ids, grp = data["x"], data["cat"], data["id"], data["grp"]
+    present = np.array([c is not None for c in cat])
+    labels, cat_counts = np.unique(cat[present].astype(str), return_counts=True)
+    _, id_counts = np.unique(ids, return_counts=True)
+    p = cat_counts / n
+    with np.errstate(invalid="ignore"):
+        positive = np.isnan(x) | (np.nan_to_num(x) > 0)
+    in_set = np.isin(cat[present].astype(str), ["ok", "warn", "err", "skip"]).sum()
+    ok_warn = np.isin(cat[present].astype(str), ["ok", "warn"]).sum()
+    return {
+        "Compliance(x positive or null,x > 0 OR x IS NULL,None)": float(positive.sum()) / n,
+        CONTAINED: float((~present).sum() + in_set) / n,
+        "PatternMatch(cat,^(ok|warn)$,None)": float(ok_warn) / n,
+        "Uniqueness(List(id))": float((id_counts == 1).sum()) / n,
+        "Histogram(grp,None,1000)": float(len(np.unique(grp))),
+        "Entropy(cat)": float(-(p * np.log(p)).sum()),
+    }
+
+
+CONTAINED = (
+    "Compliance(cat contained in ok,warn,err,skip,"
+    "`cat` IS NULL OR `cat` IN ('ok','warn','err','skip'),None)"
+)
+QUANTILES = {"ApproxQuantile(x,0.5,0.01)": ("x", (0.5,)),
+             "ApproxQuantiles(y,List(0.1, 0.5, 0.9),0.01)": ("y", (0.1, 0.5, 0.9))}
+
+
 EXACT = ("Size(None)", "Completeness(x,None)", "Minimum(x,None)", "Maximum(x,None)")
+
+
+def metric_values(result):
+    """{analyzer repr: value}: a float, a {quantile: float} dict for
+    ApproxQuantiles, and a Histogram's number of bins."""
+    out = {}
+    for analyzer, metric in result.metrics.items():
+        value = metric.value.get()
+        if isinstance(value, dict):
+            out[repr(analyzer)] = value
+        elif hasattr(value, "number_of_bins"):
+            out[repr(analyzer)] = float(value.number_of_bins)
+        else:
+            out[repr(analyzer)] = value
+    return out
+
+
+def same_bits(a, b) -> bool:
+    import numpy as np
+
+    if isinstance(a, dict):
+        return list(a) == list(b) and all(same_bits(a[k], b[k]) for k in a)
+    return np.float64(a).tobytes() == np.float64(b).tobytes()
+
+
+@contextlib.contextmanager
+def timed_calls(owner, name, totals):
+    """Accumulate the wall time of every call of owner.<name> in totals[name]."""
+    original = getattr(owner, name)
+
+    def wrapper(*args, **kwargs):
+        start = time.perf_counter()
+        try:
+            return original(*args, **kwargs)
+        finally:
+            totals[name] = totals.get(name, 0.0) + time.perf_counter() - start
+
+    setattr(owner, name, wrapper)
+    try:
+        yield totals
+    finally:
+        setattr(owner, name, original)
 
 
 def main_path_phase(torch, ck, rows: int, seed: int, card: str, power_limit: str):
@@ -227,11 +376,14 @@ def main_path_phase(torch, ck, rows: int, seed: int, card: str, power_limit: str
 
     from deequ_tpu_torch import Check, CheckLevel, CheckStatus, VerificationSuite
     from deequ_tpu_torch.analyzers import (
-        ApproxCountDistinct, Completeness, Correlation, Maximum, Mean, Minimum,
-        Size, StandardDeviation, Sum,
+        ApproxCountDistinct, ApproxQuantiles, Completeness, Correlation, Maximum, Mean,
+        Minimum, Size, StandardDeviation, Sum,
     )
-    from deequ_tpu_torch.ops import runtime
+    from deequ_tpu_torch.analyzers.sketch import _QuantileAnalyzerBase
+    from deequ_tpu_torch.data.expr import Predicate
+    from deequ_tpu_torch.ops import fused, runtime
     from deequ_tpu_torch.ops.fused import FusedScanPass
+    from deequ_tpu_torch.runners import analysis_runner
 
     t0 = time.perf_counter()
     data, table = flagship_table(rows, seed)
@@ -248,29 +400,54 @@ def main_path_phase(torch, ck, rows: int, seed: int, card: str, power_limit: str
         .has_standard_deviation("x", lambda v: 1.9 < v < 2.1)
         .has_correlation("x", "y", lambda r: r > 0.5)
         .has_approx_count_distinct("id", lambda v: v > 0.5 * rows)
+        .has_approx_quantile("x", 0.5, lambda m: 2.9 < m < 3.1)
+        .satisfies("x > 0 OR x IS NULL", "x positive or null", lambda r: r > 0.9)
+        .is_contained_in("cat", ["ok", "warn", "err", "skip"])
+        .has_pattern("cat", "^(ok|warn)$", lambda r: 0.35 < r < 0.45)
+        .is_unique("id")  # fails: ids are drawn with repeats
+        .has_number_of_distinct_values("grp", lambda b: b == 5)
+        .has_entropy("cat", lambda e: e > 1.0)
     )
+    quantiles_y = ApproxQuantiles("y", [0.1, 0.5, 0.9])
     batches = -(-rows // BATCH)
+    expected_launches = {
+        "masked_moments": batches,
+        "masked_centered_sumsq": batches,
+        "hll_register_max": batches,
+        "hist16": 2 * batches,  # one per batch and quantile analyzer
+    }
 
     def run(device):
         ck.reset_launch_counts()
         torch.cuda.synchronize()
         start = time.perf_counter()
-        result = VerificationSuite.on_data(table, device=device).add_check(check).run()
+        result = (
+            VerificationSuite.on_data(table, device=device)
+            .add_check(check)
+            .add_required_analyzer(quantiles_y)
+            .run()
+        )
         wall = time.perf_counter() - start
         return result, wall, ck.launch_counts()
 
     runs = []
-    for _ in range(2):
-        result, wall, counts = run("cuda")
-        for name, launches in counts.items():
-            if launches != batches:
-                raise AssertionError(f"{name} launched {launches} times, expected {batches}")
+    split = {}
+    for i in range(2):
+        with contextlib.ExitStack() as stack:
+            if i == 1:  # the warm run: where its wall time goes
+                stack.enter_context(timed_calls(FusedScanPass, "run", split))
+                stack.enter_context(timed_calls(Predicate, "eval_mask", split))
+                stack.enter_context(timed_calls(Predicate, "eval", split))
+                stack.enter_context(timed_calls(fused, "pack_batch_inputs", split))
+                stack.enter_context(timed_calls(_QuantileAnalyzerBase, "host_finish_batch", split))
+                stack.enter_context(timed_calls(analysis_runner, "run_grouping_analyzers", split))
+            result, wall, counts = run("cuda")
+        if counts != expected_launches:
+            raise AssertionError(f"launches {counts}, expected {expected_launches}")
         runs.append((result, wall, counts))
-    metrics = [
-        {repr(a): m.value.get() for a, m in r.metrics.items()} for r, _w, _c in runs
-    ]
+    metrics = [metric_values(r) for r, _w, _c in runs]
     for key, value in metrics[0].items():
-        if np.float64(value).tobytes() != np.float64(metrics[1][key]).tobytes():
+        if not same_bits(value, metrics[1][key]):
             raise AssertionError(f"{key}: runs differ, {value!r} vs {metrics[1][key]!r}")
 
     want = numpy_reference(data)
@@ -278,10 +455,27 @@ def main_path_phase(torch, ck, rows: int, seed: int, card: str, power_limit: str
         got = metrics[0][key]
         if not (got == ref if key in EXACT else close(got, ref, METRIC_RTOL)):
             raise AssertionError(f"{key}: port {got!r} vs numpy {ref!r}")
+    for key, ref in numpy_slice2_reference(data).items():
+        got = metrics[0][key]
+        exact = not key.startswith("Entropy")
+        if not (got == ref if exact else abs(got - ref) <= 1e-9):
+            raise AssertionError(f"{key}: port {got!r} vs numpy {ref!r}")
+    for key, (column, qs) in QUANTILES.items():
+        got = metrics[0][key]
+        values = [got] if not isinstance(got, dict) else [got[repr(q)] for q in qs]
+        col = np.sort(data[column][~np.isnan(data[column])])
+        for q, value in zip(qs, values):
+            rank = float(np.searchsorted(col, value))
+            if abs(rank - q * len(col)) > 0.01 * len(col):
+                raise AssertionError(f"{key} q={q}: rank {rank} off {q * len(col)} by more than 1%")
 
     cpu_result, cpu_wall, cpu_counts = run("cpu")
     if any(cpu_counts.values()):
         raise AssertionError(f"a device='cpu' run launched kernels: {cpu_counts}")
+    cpu_metrics = metric_values(cpu_result)
+    for key in list(QUANTILES) + [k for k in numpy_slice2_reference(data) if not k.startswith("Entropy")]:
+        if not same_bits(metrics[0][key], cpu_metrics[key]):
+            raise AssertionError(f"{key}: cuda {metrics[0][key]!r} vs cpu {cpu_metrics[key]!r}")
 
     def verdicts(result):
         return [
@@ -294,6 +488,9 @@ def main_path_phase(torch, ck, rows: int, seed: int, card: str, power_limit: str
         raise AssertionError(f"verdicts differ: {verdicts(runs[0][0])} vs {verdicts(cpu_result)}")
     if runs[0][0].status != CheckStatus.ERROR:  # is_complete("x") must fail
         raise AssertionError(f"unexpected suite status {runs[0][0].status}")
+    failed = [msg for status, msg in verdicts(runs[0][0]) if status == "Failure"]
+    if len(failed) != 2:  # is_complete("x") and is_unique("id") only
+        raise AssertionError(f"expected two failed constraints, got {failed}")
 
     flagship = [
         Size(), Completeness("x"), Mean("x"), Minimum("x"), Maximum("x"), Sum("x"),
@@ -310,6 +507,7 @@ def main_path_phase(torch, ck, rows: int, seed: int, card: str, power_limit: str
         if gpu_state != cpu_state:  # Size and Completeness counts: exact
             raise AssertionError(f"count states differ: {gpu_state} vs {cpu_state}")
 
+    second = runs[1][1]
     out = {
         "phase": "main_path",
         "rows": rows,
@@ -320,8 +518,17 @@ def main_path_phase(torch, ck, rows: int, seed: int, card: str, power_limit: str
         "fold_variant": runtime.fold_variant(runtime.resolve_device("cuda")),
         "table_setup_s": setup_s,
         "first_run_s": runs[0][1],
-        "second_run_s": runs[1][1],
-        "rows_per_s_second_run": rows / runs[1][1],
+        "second_run_s": second,
+        "rows_per_s_second_run": rows / second,
+        # predicates, packing and host_finish_batch run inside the fused pass
+        "second_run_split_s": {
+            "fused_pass": split.get("run", 0.0),
+            "predicates": split.get("eval_mask", 0.0) + split.get("eval", 0.0),
+            "pack_batch_inputs": split.get("pack_batch_inputs", 0.0),
+            "host_finish_batch": split.get("host_finish_batch", 0.0),
+            "grouping_pass": split.get("run_grouping_analyzers", 0.0),
+        },
+        "host_finish_batch_share": split.get("host_finish_batch", 0.0) / second,
         "cpu_run_s": cpu_wall,
         "launches_per_run": runs[0][2],
         "metrics": metrics[0],
@@ -329,6 +536,78 @@ def main_path_phase(torch, ck, rows: int, seed: int, card: str, power_limit: str
     }
     emit(out)
     return runs[0][2]
+
+
+def basic_example_phase(torch, ck):
+    """The README's example on the card, with BASELINE.md's outcome: the
+    ERROR check fails on Completeness(name) = 0.8, the WARNING check on
+    containsURL(description) = 0.4; size 5, id unique and complete, the
+    median of numViews at most 10."""
+    import numpy as np
+
+    from deequ_tpu_torch import Check, CheckLevel, CheckStatus, Table, VerificationSuite
+
+    items = [
+        (1, "Thingy A", "awesome thing.", "high", 0),
+        (2, "Thingy B", "available at http://thingb.com", None, 0),
+        (3, None, None, "low", 5),
+        (4, "Thingy D", "checkout https://thingd.ca", "low", 10),
+        (5, "Thingy E", None, "high", 12),
+    ]
+    cols = list(zip(*items))
+    table = Table.from_numpy({
+        "id": np.array(cols[0], dtype=np.int64),
+        "name": np.array(cols[1], dtype=object),
+        "description": np.array(cols[2], dtype=object),
+        "priority": np.array(cols[3], dtype=object),
+        "numViews": np.array(cols[4], dtype=np.int64),
+    })
+    ck.reset_launch_counts()
+    result = (
+        VerificationSuite()
+        .on_data(table)
+        .add_check(
+            Check(CheckLevel.ERROR, "integrity checks")
+            .has_size(lambda size: size == 5)
+            .is_complete("id")
+            .is_unique("id")
+            .is_complete("name")
+            .is_contained_in("priority", ["high", "low"])
+            .is_non_negative("numViews")
+        )
+        .add_check(
+            Check(CheckLevel.WARNING, "distribution checks")
+            .contains_url("description", lambda ratio: ratio >= 0.5)
+            .has_approx_quantile("numViews", 0.5, lambda median: median <= 10)
+        )
+        .run()
+    )
+    launches = ck.launch_counts()
+    failed = {
+        repr(cr.constraint): cr.message
+        for res in result.check_results.values()
+        for cr in res.constraint_results
+        if cr.status.value == "Failure"
+    }
+    want = {
+        "CompletenessConstraint(Completeness(name,None))":
+            "Value: 0.8 does not meet the constraint requirement!",
+        "containsURL(description)": "Value: 0.4 does not meet the constraint requirement!",
+    }
+    statuses = {c.description: r.status for c, r in result.check_results.items()}
+    metrics = metric_values(result)
+    if failed != want or result.status != CheckStatus.ERROR:
+        raise AssertionError(f"basic example: failed {failed}, status {result.status}")
+    if statuses != {"integrity checks": CheckStatus.ERROR, "distribution checks": CheckStatus.WARNING}:
+        raise AssertionError(f"basic example: check statuses {statuses}")
+    if not (metrics["Size(None)"] == 5 and metrics["Uniqueness(List(id))"] == 1.0
+            and metrics["Completeness(id,None)"] == 1.0
+            and metrics["ApproxQuantile(numViews,0.5,0.01)"] <= 10):
+        raise AssertionError(f"basic example: metrics {metrics}")
+    if launches["hist16"] != 1:
+        raise AssertionError(f"basic example: launches {launches}")
+    emit({"phase": "basic_example", "status": result.status.value, "failed": failed,
+          "metrics": metrics, "launches": launches})
 
 
 def main() -> int:
@@ -368,8 +647,12 @@ def main() -> int:
           "library": os.path.relpath(cuda_build.library_path())})
 
     rng = np.random.default_rng(args.seed)
-    summary = kernel_phase(torch, ck, hll, device, rng, Timer(torch, device))
+    timer = Timer(torch, device)
+    summary = kernel_phase(torch, ck, hll, device, rng, timer)
+    summary.append(hist16_phase(torch, ck, device, rng, timer))
+    del timer  # frees the 256 MB L2 flush buffer before the main path
     launches = main_path_phase(torch, ck, args.rows, args.seed, card, power_limit)
+    basic_example_phase(torch, ck)
     for row in summary:
         row["launches"] = launches[row["name"]]
         if not row["launches"]:

@@ -3,10 +3,12 @@ PyTorch and CUDA.
 
 The PyTorch counterpart of `deequ_tpu`. A verification run packs each
 batch of an in-memory table into a compact wire format, folds it on the
-GPU in one fused pass whose numeric moments and HLL registers run as
-hand-written CUDA kernels (ops/cuda_kernels.py, csrc/kernels.cu), and
-judges the checks' constraints on the host. Runs use CUDA unless the
-caller passes ``device="cpu"``.
+GPU in one fused pass whose numeric moments, HLL registers and quantile
+histograms run as hand-written CUDA kernels (ops/cuda_kernels.py,
+csrc/kernels.cu), groups the frequency analyzers' columns on the host
+and aggregates their counts on the GPU, and judges the checks'
+constraints on the host. Runs use CUDA unless the caller passes
+``device="cpu"``.
 
     from deequ_tpu_torch import Check, CheckLevel, Table, VerificationSuite
 

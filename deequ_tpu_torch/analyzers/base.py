@@ -18,12 +18,15 @@ import numpy as np
 from deequ_tpu_torch.analyzers.states import State
 from deequ_tpu_torch.core.exceptions import (
     EmptyStateException,
+    NoColumnsSpecifiedException,
     NoSuchColumnException,
+    NumberOfSpecifiedColumnsException,
     WrongColumnTypeException,
     wrap_if_necessary,
 )
 from deequ_tpu_torch.core.maybe import Failure
 from deequ_tpu_torch.core.metrics import DoubleMetric, Entity, Metric
+from deequ_tpu_torch.data.expr import Predicate
 from deequ_tpu_torch.data.table import ColumnType, Table
 
 
@@ -31,6 +34,11 @@ def render_where(where: Optional[str]) -> str:
     """Scala Option rendering — part of the analyzer identity string
     (reference: NullHandlingTests.scala:131-140)."""
     return f"Some({where})" if where is not None else "None"
+
+
+def entity_from(columns: Sequence[str]) -> Entity:
+    """reference: analyzers/Analyzer.scala:381-382."""
+    return Entity.COLUMN if len(columns) == 1 else Entity.MULTICOLUMN
 
 
 # ---------------------------------------------------------------------------
@@ -60,6 +68,40 @@ class Preconditions:
                     f"Expected type of column {column} to be one of "
                     f"(ByteType,ShortType,IntegerType,LongType,FloatType,"
                     f"DoubleType,DecimalType), but found {ctype.value} instead!"
+                )
+
+        return check
+
+    @staticmethod
+    def is_string(column: str) -> Callable[[Table], None]:
+        def check(table: Table) -> None:
+            ctype = table.column(column).ctype
+            if ctype != ColumnType.STRING:
+                raise WrongColumnTypeException(
+                    f"Expected type of column {column} to be StringType, "
+                    f"but found {ctype.value} instead!"
+                )
+
+        return check
+
+    @staticmethod
+    def at_least_one(columns: Sequence[str]) -> Callable[[Table], None]:
+        def check(table: Table) -> None:
+            if len(columns) == 0:
+                raise NoColumnsSpecifiedException(
+                    "At least one column needs to be specified!"
+                )
+
+        return check
+
+    @staticmethod
+    def exactly_n_columns(columns: Sequence[str], n: int) -> Callable[[Table], None]:
+        def check(table: Table) -> None:
+            if len(columns) != n:
+                raise NumberOfSpecifiedColumnsException(
+                    f"{n} columns have to be specified! "
+                    f"Currently, columns contains only {len(columns)} column(s): "
+                    f"{','.join(columns)}!"
                 )
 
         return check
@@ -102,6 +144,22 @@ class Analyzer:
 
     def compute_metric_from(self, state: Optional[State]) -> Metric:
         raise NotImplementedError
+
+    def compute_state_from(self, table: Table) -> Optional[State]:
+        """This analyzer's state over a whole table, outside the fused pass
+        (the grouping analyzers)."""
+        raise NotImplementedError
+
+    def calculate(self, table: Table) -> Metric:
+        """reference: Analyzer.scala:63-83, without state persistence."""
+        failing = Preconditions.find_first_failing(table, self.preconditions())
+        if failing is not None:
+            return self.to_failure_metric(failing)
+        try:
+            state = self.compute_state_from(table)
+        except Exception as e:  # noqa: BLE001
+            return self.to_failure_metric(e)
+        return self.compute_metric_from(state)
 
     def to_failure_metric(self, exception: BaseException) -> Metric:
         return DoubleMetric(
@@ -158,16 +216,16 @@ def where_key(where: Optional[str]) -> str:
 
 
 def where_spec(where: Optional[str]) -> InputSpec:
-    """Row mask for an optional filter; None = all real rows (padding rows
-    are False). Filter predicates are not ported yet."""
-    if where is not None:
-        raise NotImplementedError(
-            f"where predicates are not ported yet (where={where!r})"
+    """Row mask for an optional filter, NULL counting as False (SQL WHERE);
+    None = all real rows. Padding rows are False either way (the
+    conditionalSelection analogue, reference: Analyzer.scala:385-402)."""
+    if where is None:
+        return InputSpec(
+            key=where_key(None),
+            build=lambda t: np.ones(t.num_rows, dtype=np.bool_),
         )
-    return InputSpec(
-        key=where_key(None),
-        build=lambda t: np.ones(t.num_rows, dtype=np.bool_),
-    )
+    pred = Predicate(where)
+    return InputSpec(key=where_key(where), build=pred.eval_mask)
 
 
 class ScanShareableAnalyzer(Analyzer):

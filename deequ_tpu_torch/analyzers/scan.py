@@ -12,13 +12,18 @@ batch's inputs dict (in eager PyTorch nothing merges common
 subexpressions the way XLA does for the JAX package). StandardDeviation
 adds one `masked_centered_sumsq` launch.
 
-reference: analyzers/Size.scala, Completeness.scala, Mean.scala,
-Sum.scala, Minimum.scala, Maximum.scala, StandardDeviation.scala,
-Correlation.scala.
+Completeness, Compliance and PatternMatch are masked counts over bool
+masks the host built (validity, a SQL predicate, a regex over the
+dictionary), summed on the device: they need no kernel of their own.
+
+reference: analyzers/Size.scala, Completeness.scala, Compliance.scala,
+PatternMatch.scala, Mean.scala, Sum.scala, Minimum.scala, Maximum.scala,
+StandardDeviation.scala, Correlation.scala.
 """
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional
 
@@ -48,8 +53,10 @@ from deequ_tpu_torch.analyzers.states import (
 )
 from deequ_tpu_torch.core.maybe import Success
 from deequ_tpu_torch.core.metrics import DoubleMetric, Entity, Metric
-from deequ_tpu_torch.data.table import Table
+from deequ_tpu_torch.data.expr import Predicate
+from deequ_tpu_torch.data.table import Table, cached_column_encode, gather_with_null
 from deequ_tpu_torch.ops import cuda_kernels
+from deequ_tpu_torch.ops.strings import match_pattern
 
 
 def _double_metric(analyzer: ScanShareableAnalyzer, state: Optional[State]) -> Metric:
@@ -103,16 +110,58 @@ class Size(ScanShareableAnalyzer):
 
 
 # ---------------------------------------------------------------------------
-# Completeness
+# Ratio analyzers: Completeness / Compliance / PatternMatch
 # ---------------------------------------------------------------------------
 
 
-@dataclass(frozen=True)
-class Completeness(ScanShareableAnalyzer):
-    """Fraction non-NULL (reference: analyzers/Completeness.scala:26).
+class _RatioAnalyzer(ScanShareableAnalyzer):
+    """matches/count with a guard count for the empty-state rule.
 
-    The guard mirrors SQL `sum` nullability: the state is empty exactly
-    when no row was scanned (`isNotNull(...)` is never NULL)."""
+    The guard mirrors SQL `sum` nullability in the reference's aggregation
+    expressions: the state is empty (None -> EmptyStateException) exactly
+    when every row's criterion was NULL. For Completeness the criterion
+    (`isNotNull(...)`) is never NULL, so the guard is "any row scanned"; for
+    Compliance/PatternMatch non-matching `where` rows and NULL inputs make
+    the criterion NULL, so the guard is "any row with where and a non-null
+    input" (reference: analyzers/Completeness.scala:36-41,
+    Compliance.scala:50, PatternMatch.scala:42-50)."""
+
+    def _match_mask_key(self) -> str:
+        raise NotImplementedError
+
+    def _extra_specs(self) -> List[InputSpec]:
+        raise NotImplementedError
+
+    def _guard(self, inputs: Dict[str, Any]) -> torch.Tensor:
+        """Mask of rows whose criterion is non-NULL."""
+        raise NotImplementedError
+
+    def input_specs(self) -> List[InputSpec]:
+        return self._extra_specs() + [where_spec(self.where), where_spec(None)]
+
+    def device_reduce(self, inputs: Dict[str, Any]) -> Dict[str, Any]:
+        w = inputs[where_key(self.where)]
+        return {
+            "matches": (inputs[self._match_mask_key()] & w).sum(),
+            "count": w.sum(),
+            "guard": self._guard(inputs).sum(),
+        }
+
+    def merge_agg(self, a, b):
+        return {k: a[k] + b[k] for k in ("matches", "count", "guard")}
+
+    def state_from_aggregates(self, agg) -> Optional[State]:
+        if int(agg["guard"]) == 0:
+            return None
+        return NumMatchesAndCount(int(agg["matches"]), int(agg["count"]))
+
+    def compute_metric_from(self, state: Optional[State]) -> Metric:
+        return _double_metric(self, state)
+
+
+@dataclass(frozen=True)
+class Completeness(_RatioAnalyzer):
+    """Fraction non-NULL (reference: analyzers/Completeness.scala:26)."""
 
     column: str
     where: Optional[str] = None
@@ -128,30 +177,145 @@ class Completeness(ScanShareableAnalyzer):
     def preconditions(self) -> List[Callable[[Table], None]]:
         return [Preconditions.has_column(self.column)]
 
-    def input_specs(self) -> List[InputSpec]:
-        return [col_valid_spec(self.column), where_spec(self.where), where_spec(None)]
+    def _match_mask_key(self) -> str:
+        return f"valid:{self.column}"
 
-    def device_reduce(self, inputs: Dict[str, Any]) -> Dict[str, Any]:
-        w = inputs[where_key(self.where)]
-        return {
-            "matches": (inputs[f"valid:{self.column}"] & w).sum(),
-            "count": w.sum(),
-            "guard": inputs[where_key(None)].sum(),
-        }
+    def _extra_specs(self) -> List[InputSpec]:
+        return [col_valid_spec(self.column)]
 
-    def merge_agg(self, a, b):
-        return {k: a[k] + b[k] for k in ("matches", "count", "guard")}
-
-    def state_from_aggregates(self, agg) -> Optional[State]:
-        if int(agg["guard"]) == 0:
-            return None
-        return NumMatchesAndCount(int(agg["matches"]), int(agg["count"]))
-
-    def compute_metric_from(self, state: Optional[State]) -> Metric:
-        return _double_metric(self, state)
+    def _guard(self, inputs: Dict[str, Any]) -> torch.Tensor:
+        # isNotNull(...) is never NULL: empty only when nothing was scanned
+        return inputs[where_key(None)]
 
     def __repr__(self) -> str:
         return f"Completeness({self.column},{render_where(self.where)})"
+
+
+def _pred_spec(predicate: str) -> InputSpec:
+    return InputSpec(key=f"pred:{predicate}", build=Predicate(predicate).eval_mask)
+
+
+def _pred_nonnull_spec(predicate: str) -> InputSpec:
+    pred = Predicate(predicate)
+
+    def build(t: Table) -> np.ndarray:
+        _, null, _ = pred.eval(t)
+        return ~null
+
+    return InputSpec(key=f"prednn:{predicate}", build=build)
+
+
+@dataclass(frozen=True)
+class Compliance(_RatioAnalyzer):
+    """Fraction of rows satisfying an arbitrary SQL predicate
+    (reference: analyzers/Compliance.scala:37)."""
+
+    instance_name: str
+    predicate: str
+    where: Optional[str] = None
+
+    @property
+    def name(self) -> str:
+        return "Compliance"
+
+    @property
+    def instance(self) -> str:
+        return self.instance_name
+
+    def _match_mask_key(self) -> str:
+        return f"pred:{self.predicate}"
+
+    def _extra_specs(self) -> List[InputSpec]:
+        return [_pred_spec(self.predicate), _pred_nonnull_spec(self.predicate)]
+
+    def _guard(self, inputs: Dict[str, Any]) -> torch.Tensor:
+        # criterion NULL on where-misses and NULL predicate results
+        return inputs[where_key(self.where)] & inputs[f"prednn:{self.predicate}"]
+
+    def __repr__(self) -> str:
+        return f"Compliance({self.instance_name},{self.predicate},{render_where(self.where)})"
+
+
+class Patterns:
+    """Built-in patterns (reference: analyzers/PatternMatch.scala:57-70;
+    the regexes are cited third-party public constants)."""
+
+    # http://emailregex.com
+    EMAIL = (
+        r"""(?:[a-z0-9!#$%&'*+/=?^_`{|}~-]+(?:\.[a-z0-9!#$%&'*+/=?^_`{|}~-]+)*"""
+        r"""|"(?:[\x01-\x08\x0b\x0c\x0e-\x1f\x21\x23-\x5b\x5d-\x7f]|\\[\x01-\x09\x0b\x0c\x0e-\x7f])*")"""
+        r"""@(?:(?:[a-z0-9](?:[a-z0-9-]*[a-z0-9])?\.)+[a-z0-9](?:[a-z0-9-]*[a-z0-9])?"""
+        r"""|\[(?:(?:25[0-5]|2[0-4][0-9]|[01]?[0-9][0-9]?)\.){3}"""
+        r"""(?:25[0-5]|2[0-4][0-9]|[01]?[0-9][0-9]?|[a-z0-9-]*[a-z0-9]:"""
+        r"""(?:[\x01-\x08\x0b\x0c\x0e-\x1f\x21-\x5a\x53-\x7f]|\\[\x01-\x09\x0b\x0c\x0e-\x7f])+)\])"""
+    )
+
+    # https://mathiasbynens.be/demo/url-regex (@stephenhay)
+    URL = r"""(https?|ftp)://[^\s/$.?#].[^\s]*"""
+
+    SOCIAL_SECURITY_NUMBER_US = (
+        r"""((?!219-09-9999|078-05-1120)(?!666|000|9\d{2})\d{3}-(?!00)\d{2}-(?!0{4})\d{4})"""
+        r"""|((?!219 09 9999|078 05 1120)(?!666|000|9\d{2})\d{3} (?!00)\d{2} (?!0{4})\d{4})"""
+        r"""|((?!219099999|078051120)(?!666|000|9\d{2})\d{3}(?!00)\d{2}(?!0{4})\d{4})"""
+    )
+
+    # http://www.richardsramblings.com/regex/credit-card-numbers/
+    CREDITCARD = (
+        r"""\b(?:3[47]\d{2}([\ \-]?)\d{6}\1\d|(?:(?:4\d|5[1-5]|65)\d{2}|6011)"""
+        r"""([\ \-]?)\d{4}\2\d{4}\2)\d{4}\b"""
+    )
+
+
+def _match_spec(column: str, pattern: str) -> InputSpec:
+    re.compile(pattern)  # fail fast on a bad pattern, at spec-build time
+
+    def compute(col) -> np.ndarray:
+        # regex only the unique values (typically << rows), gather to
+        # rows; null rows map to False
+        codes, uniques = col.dict_encode()
+        return gather_with_null(match_pattern(uniques, pattern), codes, False)
+
+    def build(t: Table) -> np.ndarray:
+        return cached_column_encode(t.column(column), f"match:{pattern}", compute)
+
+    return InputSpec(key=f"match:{column}:{pattern}", build=build)
+
+
+@dataclass(frozen=True)
+class PatternMatch(_RatioAnalyzer):
+    """Fraction of values matching a regex
+    (reference: analyzers/PatternMatch.scala:37)."""
+
+    column: str
+    pattern: str
+    where: Optional[str] = None
+
+    @property
+    def name(self) -> str:
+        return "PatternMatch"
+
+    @property
+    def instance(self) -> str:
+        return self.column
+
+    def preconditions(self) -> List[Callable[[Table], None]]:
+        return [
+            Preconditions.has_column(self.column),
+            Preconditions.is_string(self.column),
+        ]
+
+    def _match_mask_key(self) -> str:
+        return f"match:{self.column}:{self.pattern}"
+
+    def _extra_specs(self) -> List[InputSpec]:
+        return [_match_spec(self.column, self.pattern), col_valid_spec(self.column)]
+
+    def _guard(self, inputs: Dict[str, Any]) -> torch.Tensor:
+        # regexp_extract(NULL) is NULL: criterion non-NULL iff where and a value
+        return inputs[where_key(self.where)] & inputs[f"valid:{self.column}"]
+
+    def __repr__(self) -> str:
+        return f"PatternMatch({self.column},{self.pattern},{render_where(self.where)})"
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,7 @@ from dataclasses import dataclass
 from typing import Callable, List, Optional, Set
 
 from deequ_tpu_torch.analyzers.base import Analyzer
+from deequ_tpu_torch.analyzers.scan import Patterns
 from deequ_tpu_torch.constraints import constraint as C
 from deequ_tpu_torch.constraints.constraint import (
     AnalysisBasedConstraint,
@@ -109,6 +110,60 @@ class Check:
             lambda filter_: C.completeness_constraint(column, assertion, filter_, hint)
         )
 
+    def is_unique(self, column, hint=None) -> "Check":
+        # :139
+        return self.add_constraint(C.uniqueness_constraint([column], is_one, hint))
+
+    def is_primary_key(self, column, *columns, hint=None) -> "Check":
+        # :151/:164
+        return self.add_constraint(
+            C.uniqueness_constraint([column] + list(columns), is_one, hint)
+        )
+
+    def has_uniqueness(self, columns, assertion, hint=None) -> "Check":
+        # :176/:189/:206/:219
+        if isinstance(columns, str):
+            columns = [columns]
+        return self.add_constraint(C.uniqueness_constraint(columns, assertion, hint))
+
+    def has_distinctness(self, columns, assertion, hint=None) -> "Check":
+        # :232
+        if isinstance(columns, str):
+            columns = [columns]
+        return self.add_constraint(C.distinctness_constraint(columns, assertion, hint))
+
+    def has_unique_value_ratio(self, columns, assertion, hint=None) -> "Check":
+        # :249
+        if isinstance(columns, str):
+            columns = [columns]
+        return self.add_constraint(
+            C.unique_value_ratio_constraint(columns, assertion, hint)
+        )
+
+    def has_number_of_distinct_values(
+        self, column, assertion, binning_udf=None, max_bins=1000, hint=None
+    ) -> "Check":
+        # :269
+        return self.add_constraint(
+            C.histogram_bin_constraint(column, assertion, binning_udf, max_bins, hint)
+        )
+
+    def has_entropy(self, column, assertion, hint=None) -> "Check":
+        # :353
+        return self.add_constraint(C.entropy_constraint(column, assertion, hint))
+
+    def has_mutual_information(self, column_a, column_b, assertion, hint=None) -> "Check":
+        # :371
+        return self.add_constraint(
+            C.mutual_information_constraint(column_a, column_b, assertion, hint)
+        )
+
+    def has_approx_quantile(self, column, quantile, assertion, hint=None) -> "Check":
+        # :391
+        return self.add_constraint(
+            C.approx_quantile_constraint(column, quantile, assertion, hint)
+        )
+
     def has_min(self, column, assertion, hint=None) -> "CheckWithLastConstraintFilterable":
         # :409
         return self._add_filterable_constraint(
@@ -161,6 +216,141 @@ class Check:
             lambda filter_: C.correlation_constraint(
                 column_a, column_b, assertion, filter_, hint
             )
+        )
+
+    def satisfies(
+        self, column_condition, constraint_name, assertion=None, hint=None
+    ) -> "CheckWithLastConstraintFilterable":
+        # :538
+        assertion = assertion if assertion is not None else is_one
+        return self._add_filterable_constraint(
+            lambda filter_: C.compliance_constraint(
+                constraint_name, column_condition, assertion, filter_, hint
+            )
+        )
+
+    def has_pattern(
+        self, column, pattern, assertion=None, name=None, hint=None
+    ) -> "CheckWithLastConstraintFilterable":
+        # :560
+        assertion = assertion if assertion is not None else is_one
+        return self._add_filterable_constraint(
+            lambda filter_: C.pattern_match_constraint(
+                column, pattern, assertion, filter_, name, hint
+            )
+        )
+
+    def contains_credit_card_number(self, column, assertion=None, hint=None) -> "Check":
+        # :581
+        return self.has_pattern(
+            column,
+            Patterns.CREDITCARD,
+            assertion,
+            name=f"containsCreditCardNumber({column})",
+            hint=hint,
+        )
+
+    def contains_email(self, column, assertion=None, hint=None) -> "Check":
+        # :599
+        return self.has_pattern(
+            column, Patterns.EMAIL, assertion, name=f"containsEmail({column})", hint=hint
+        )
+
+    def contains_url(self, column, assertion=None, hint=None) -> "Check":
+        # :616
+        return self.has_pattern(
+            column, Patterns.URL, assertion, name=f"containsURL({column})", hint=hint
+        )
+
+    def contains_social_security_number(self, column, assertion=None, hint=None) -> "Check":
+        # :634
+        return self.has_pattern(
+            column,
+            Patterns.SOCIAL_SECURITY_NUMBER_US,
+            assertion,
+            name=f"containsSocialSecurityNumber({column})",
+            hint=hint,
+        )
+
+    def is_non_negative(self, column, hint=None) -> "CheckWithLastConstraintFilterable":
+        # :670 (NULL-coalescing predicate :676)
+        return self.satisfies(
+            f"COALESCE({column}, 0.0) >= 0", f"{column} is non-negative", hint=hint
+        )
+
+    def is_positive(self, column) -> "CheckWithLastConstraintFilterable":
+        # :685
+        return self.satisfies(f"COALESCE({column}, 1.0) > 0", f"{column} is positive")
+
+    def is_less_than(self, column_a, column_b, hint=None) -> "CheckWithLastConstraintFilterable":
+        # :699
+        return self.satisfies(
+            f"{column_a} < {column_b}", f"{column_a} is less than {column_b}", hint=hint
+        )
+
+    def is_less_than_or_equal_to(
+        self, column_a, column_b, hint=None
+    ) -> "CheckWithLastConstraintFilterable":
+        # :717
+        return self.satisfies(
+            f"{column_a} <= {column_b}",
+            f"{column_a} is less than or equal to {column_b}",
+            hint=hint,
+        )
+
+    def is_greater_than(self, column_a, column_b, hint=None) -> "CheckWithLastConstraintFilterable":
+        # :735
+        return self.satisfies(
+            f"{column_a} > {column_b}", f"{column_a} is greater than {column_b}", hint=hint
+        )
+
+    def is_greater_than_or_equal_to(
+        self, column_a, column_b, hint=None
+    ) -> "CheckWithLastConstraintFilterable":
+        # :754
+        return self.satisfies(
+            f"{column_a} >= {column_b}",
+            f"{column_a} is greater than or equal to {column_b}",
+            hint=hint,
+        )
+
+    def is_contained_in(
+        self,
+        column,
+        allowed_values=None,
+        assertion=None,
+        hint=None,
+        lower_bound=None,
+        upper_bound=None,
+        include_lower_bound=True,
+        include_upper_bound=True,
+    ) -> "CheckWithLastConstraintFilterable":
+        # values overloads :772-842, numeric range overload :855-871
+        if allowed_values is not None:
+            assertion = assertion if assertion is not None else is_one
+            value_list = ",".join(
+                "'" + str(v).replace("'", "''") + "'" for v in allowed_values
+            )
+            predicate = f"`{column}` IS NULL OR `{column}` IN ({value_list})"
+            return self.satisfies(
+                predicate,
+                f"{column} contained in {','.join(str(v) for v in allowed_values)}",
+                assertion,
+                hint,
+            )
+        if lower_bound is None or upper_bound is None:
+            raise ValueError(
+                "isContainedIn requires allowed_values or lower_bound+upper_bound"
+            )
+        left_operand = ">=" if include_lower_bound else ">"
+        right_operand = "<=" if include_upper_bound else "<"
+        predicate = (
+            f"`{column}` IS NULL OR "
+            f"(`{column}` {left_operand} {lower_bound} AND "
+            f"`{column}` {right_operand} {upper_bound})"
+        )
+        return self.satisfies(
+            predicate, f"{column} between {lower_bound} and {upper_bound}", hint=hint
         )
 
     # -- evaluation ----------------------------------------------------------

@@ -10,18 +10,27 @@ from __future__ import annotations
 
 import enum
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence
 
 from deequ_tpu_torch.analyzers import (
     ApproxCountDistinct,
+    ApproxQuantile,
     Completeness,
+    Compliance,
     Correlation,
+    Distinctness,
+    Entropy,
+    Histogram,
     Maximum,
     Mean,
     Minimum,
+    MutualInformation,
+    PatternMatch,
     Size,
     StandardDeviation,
     Sum,
+    UniqueValueRatio,
+    Uniqueness,
 )
 from deequ_tpu_torch.analyzers.base import Analyzer
 from deequ_tpu_torch.core.metrics import Metric
@@ -272,3 +281,114 @@ def correlation_constraint(
     correlation = Correlation(column_a, column_b, where)
     constraint = AnalysisBasedConstraint(correlation, assertion, hint=hint)
     return NamedConstraint(constraint, f"CorrelationConstraint({correlation!r})")
+
+
+def uniqueness_constraint(
+    columns: Sequence[str],
+    assertion: Callable[[float], bool],
+    hint: Optional[str] = None,
+) -> Constraint:
+    uniqueness = Uniqueness(list(columns))
+    constraint = AnalysisBasedConstraint(uniqueness, assertion, hint=hint)
+    return NamedConstraint(constraint, f"UniquenessConstraint({uniqueness!r})")
+
+
+def distinctness_constraint(
+    columns: Sequence[str],
+    assertion: Callable[[float], bool],
+    hint: Optional[str] = None,
+) -> Constraint:
+    distinctness = Distinctness(list(columns))
+    constraint = AnalysisBasedConstraint(distinctness, assertion, hint=hint)
+    return NamedConstraint(constraint, f"DistinctnessConstraint({distinctness!r})")
+
+
+def unique_value_ratio_constraint(
+    columns: Sequence[str],
+    assertion: Callable[[float], bool],
+    hint: Optional[str] = None,
+) -> Constraint:
+    ratio = UniqueValueRatio(list(columns))
+    constraint = AnalysisBasedConstraint(ratio, assertion, hint=hint)
+    # missing ")" is deliberate: mirrors the reference's own toString typo
+    # (reference: constraints/Constraint.scala:254) for output parity
+    return NamedConstraint(constraint, f"UniqueValueRatioConstraint({ratio!r}")
+
+
+def compliance_constraint(
+    name: str,
+    column_condition: str,
+    assertion: Callable[[float], bool],
+    where: Optional[str] = None,
+    hint: Optional[str] = None,
+) -> Constraint:
+    compliance = Compliance(name, column_condition, where)
+    constraint = AnalysisBasedConstraint(compliance, assertion, hint=hint)
+    return NamedConstraint(constraint, f"ComplianceConstraint({compliance!r})")
+
+
+def pattern_match_constraint(
+    column: str,
+    pattern: str,
+    assertion: Callable[[float], bool],
+    where: Optional[str] = None,
+    name: Optional[str] = None,
+    hint: Optional[str] = None,
+) -> Constraint:
+    pattern_match = PatternMatch(column, pattern, where)
+    constraint = AnalysisBasedConstraint(pattern_match, assertion, hint=hint)
+    constraint_name = (
+        name if name is not None else f"PatternMatchConstraint({column}, {pattern})"
+    )
+    return NamedConstraint(constraint, constraint_name)
+
+
+def entropy_constraint(
+    column: str,
+    assertion: Callable[[float], bool],
+    hint: Optional[str] = None,
+) -> Constraint:
+    entropy = Entropy(column)
+    constraint = AnalysisBasedConstraint(entropy, assertion, hint=hint)
+    return NamedConstraint(constraint, f"EntropyConstraint({entropy!r})")
+
+
+def mutual_information_constraint(
+    column_a: str,
+    column_b: str,
+    assertion: Callable[[float], bool],
+    hint: Optional[str] = None,
+) -> Constraint:
+    mutual_information = MutualInformation(column_a, column_b)
+    constraint = AnalysisBasedConstraint(mutual_information, assertion, hint=hint)
+    return NamedConstraint(
+        constraint, f"MutualInformationConstraint({mutual_information!r})"
+    )
+
+
+def approx_quantile_constraint(
+    column: str,
+    quantile: float,
+    assertion: Callable[[float], bool],
+    hint: Optional[str] = None,
+) -> Constraint:
+    approx_quantile = ApproxQuantile(column, quantile)
+    constraint = AnalysisBasedConstraint(approx_quantile, assertion, hint=hint)
+    return NamedConstraint(constraint, f"ApproxQuantileConstraint({approx_quantile!r})")
+
+
+def histogram_bin_constraint(
+    column: str,
+    assertion: Callable[[int], bool],
+    binning_udf=None,
+    max_bins: int = 1000,
+    hint: Optional[str] = None,
+) -> Constraint:
+    histogram = Histogram(column, binning_udf, max_bins)
+    constraint = AnalysisBasedConstraint(
+        histogram,
+        assertion,
+        value_picker=lambda d: d.number_of_bins,
+        hint=hint,
+    )
+    return NamedConstraint(constraint, f"HistogramBinConstraint({histogram!r})")

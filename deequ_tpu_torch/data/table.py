@@ -126,19 +126,23 @@ def _compute_dict_encode(col: "Column") -> Tuple[np.ndarray, np.ndarray]:
             np.full(len(col.values), -1, dtype=np.int64),
             np.array([], dtype=object),
         )
+    arr = None
     if col.ctype == ColumnType.STRING:
         # arrow's hash-based dictionary encode is far faster than numpy's
-        # sort-based unique over object arrays
-        import pyarrow as pa
-
+        # sort-based unique over object arrays; without pyarrow, numpy below
         try:
-            arr = pa.array(
-                col.values,
-                type=pa.string(),
-                mask=None if col.valid.all() else ~col.valid,
-            )
-        except pa.lib.ArrowException:
-            arr = None  # backing values that are not str: numpy below
+            import pyarrow as pa
+        except ImportError:
+            pa = None
+        if pa is not None:
+            try:
+                arr = pa.array(
+                    col.values,
+                    type=pa.string(),
+                    mask=None if col.valid.all() else ~col.valid,
+                )
+            except pa.lib.ArrowException:
+                pass  # backing values that are not str: numpy below
         if arr is not None:
             encoded = arr.dictionary_encode()
             codes = (

@@ -1,10 +1,16 @@
 """Carry a JAX-package state across into the port.
 
 `state_from_reference(kind, fields)` turns the fields of a `deequ_tpu`
-state — given as plain numpy arrays and numbers, so the port imports
-nothing of that package — into the port's state of the same kind. Both
-packages then merge and finish the same states: a run can continue from
-a state the JAX package computed.
+state — given as plain numpy arrays, lists and numbers, so the port
+imports nothing of that package — into the port's state of the same
+kind. Both packages then merge and finish the same states: a run can
+continue from a state the JAX package computed.
+
+The dataclass states carry their own fields. Two states are not
+dataclasses and take these fields:
+
+  ApproxQuantileState    k, n, levels (the KLL sketch's `to_arrays()`)
+  FrequenciesAndNumRows  columns, key_columns, counts, num_rows
 """
 
 from __future__ import annotations
@@ -14,7 +20,8 @@ from typing import Any, Dict
 
 import numpy as np
 
-from deequ_tpu_torch.analyzers.sketch import ApproxCountDistinctState
+from deequ_tpu_torch.analyzers.frequency import FrequenciesAndNumRows
+from deequ_tpu_torch.analyzers.sketch import ApproxCountDistinctState, ApproxQuantileState
 from deequ_tpu_torch.analyzers.states import (
     CorrelationState,
     MaxState,
@@ -26,6 +33,7 @@ from deequ_tpu_torch.analyzers.states import (
     State,
     SumState,
 )
+from deequ_tpu_torch.ops.sketches.kll import KLLSketch
 
 STATE_KINDS = {
     cls.__name__: cls
@@ -43,6 +51,24 @@ STATE_KINDS = {
 }
 
 
+def _quantile_state(k, n, levels) -> ApproxQuantileState:
+    return ApproxQuantileState(KLLSketch.from_arrays(int(k), int(n), list(levels)))
+
+
+def _frequencies(columns, key_columns, counts, num_rows) -> FrequenciesAndNumRows:
+    return FrequenciesAndNumRows(columns, list(key_columns), counts, int(num_rows))
+
+
+# kind -> (field names, constructor) for the states that are not dataclasses
+OTHER_KINDS: Dict[str, tuple] = {
+    "ApproxQuantileState": (("k", "n", "levels"), _quantile_state),
+    "FrequenciesAndNumRows": (
+        ("columns", "key_columns", "counts", "num_rows"),
+        _frequencies,
+    ),
+}
+
+
 def _convert(field: dataclasses.Field, value: Any):
     kind = field.type if isinstance(field.type, str) else field.type.__name__
     if kind == "int":
@@ -55,10 +81,16 @@ def _convert(field: dataclasses.Field, value: Any):
 
 def state_from_reference(kind: str, fields: Dict[str, Any]) -> State:
     """The port's state for a JAX-package state of class name `kind` with
-    field values `fields` (name -> numpy array or number)."""
+    field values `fields` (name -> numpy array, list or number)."""
+    if kind in OTHER_KINDS:
+        names, build = OTHER_KINDS[kind]
+        if set(fields) != set(names):
+            raise ValueError(f"{kind} has fields {sorted(names)}, got {sorted(fields)}")
+        return build(**fields)
     cls = STATE_KINDS.get(kind)
     if cls is None:
-        raise ValueError(f"unknown state kind {kind!r}; expected one of {sorted(STATE_KINDS)}")
+        known = sorted(set(STATE_KINDS) | set(OTHER_KINDS))
+        raise ValueError(f"unknown state kind {kind!r}; expected one of {known}")
     declared = {f.name: f for f in dataclasses.fields(cls)}
     if set(fields) != set(declared):
         raise ValueError(

@@ -95,5 +95,7 @@ def load() -> ctypes.CDLL:
             lib.dq_centered_sumsq.restype = i32
             lib.dq_hll_register_max.argtypes = [ptr, ptr, i64, i32, ptr, ptr]
             lib.dq_hll_register_max.restype = i32
+            lib.dq_hist16.argtypes = [ptr, ptr, i64, i32, ptr, ptr]
+            lib.dq_hist16.restype = i32
             _LIB = lib
         return _LIB

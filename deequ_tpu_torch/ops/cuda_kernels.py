@@ -15,6 +15,7 @@ went through the kernels; `reset_launch_counts()` zeroes them.
 | masked_moments        | masked_moments (:231)                      |
 | masked_centered_sumsq | masked_centered_sumsq (:269)               |
 | hll_register_max      | hll_register_max (:58)                     |
+| hist16                | hist16 (:165), fed by f32_sortable_bin16   |
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ from typing import Dict
 import torch
 
 N_REGISTERS = 512  # HLL++ p = 9 (ops/sketches/hll.M)
+HIST_BINS = 65536  # the full 16-bit sortable-key space
+HIST_SENTINEL = HIST_BINS - 1  # the bin of excluded rows
 # Partial slots per reduction: 8 blocks of 256 threads on each of the
 # H100's 132 SMs. A constant, so the grid — and with it the summation
 # order — depends on the row count alone.
@@ -201,7 +204,49 @@ def hll_register_max(codes: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
 
 hll_register_max.launches = 0
 
-KERNELS = (masked_moments, masked_centered_sumsq, hll_register_max)
+# ---------------------------------------------------------------------------
+# K4: 16-bit sortable-key histogram
+# ---------------------------------------------------------------------------
+
+
+def f32_sortable_bin16_plain(x32: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+    """Top 16 bits of each float32 value's order-preserving key (bin
+    order is value order); rows not `live` get the sentinel 65535. int32."""
+    u = x32.view(torch.int32)
+    key = torch.where(u < 0, ~u, u | torch.tensor(-(1 << 31), dtype=torch.int32))
+    bins = (key >> 16) & 0xFFFF  # logical shift of the 32-bit key
+    return torch.where(live, bins, HIST_SENTINEL)
+
+
+def hist16_plain(x: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+    """(65536,) int32 counts of the bins of float32(x) where `live`;
+    excluded rows count in bin 65535."""
+    bins = f32_sortable_bin16_plain(x.to(torch.float32), live)
+    return torch.bincount(bins.long(), minlength=HIST_BINS).to(torch.int32)
+
+
+def hist16(x: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+    """The 65536-bin histogram of float32(x)'s sortable-key bins under
+    the bool mask `live`, binned inline from one read of x (float64)."""
+    _check_pair(x, live, (torch.float64,))
+    if x.device.type == "cpu":
+        return hist16_plain(x, live)
+    _require_cuda(x)
+    from deequ_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load()
+    out = torch.zeros(HIST_BINS, dtype=torch.int32, device=x.device)
+    err = lib.dq_hist16(
+        x.data_ptr(), live.data_ptr(), x.numel(), MAX_BLOCKS, out.data_ptr(), _stream(x),
+    )
+    _raise_on(err, "hist16")
+    hist16.launches += 1
+    return out
+
+
+hist16.launches = 0
+
+KERNELS = (masked_moments, masked_centered_sumsq, hll_register_max, hist16)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,0 +1,43 @@
+"""Shared aggregation over a frequencies table.
+
+Every requested frequency aggregation of one grouping set (uniqueness,
+distinctness, entropy, ...) runs over ONE float64 copy of the counts on
+the run's device, and every result comes back in one copy — the
+analogue of the reference sharing `frequencies.agg(all fns)`
+(reference: runners/AnalysisRunner.scala:466-534, esp. :497-500). The
+JAX counterpart is deequ_tpu/ops/freq_agg.py.
+"""
+
+from __future__ import annotations
+
+from typing import TYPE_CHECKING, List, Sequence
+
+import torch
+
+from deequ_tpu_torch.core.metrics import Metric
+
+if TYPE_CHECKING:
+    from deequ_tpu_torch.analyzers.frequency import (
+        FrequenciesAndNumRows,
+        ScanShareableFrequencyBasedAnalyzer,
+    )
+
+
+def run_shared_freq_agg(
+    state: "FrequenciesAndNumRows",
+    analyzers: Sequence["ScanShareableFrequencyBasedAnalyzer"],
+    device: torch.device,
+) -> List[Metric]:
+    """One shared aggregation on `device` -> one metric per analyzer (in order)."""
+    counts = torch.from_numpy(state.counts).to(device=device, dtype=torch.float64)
+    num_rows = torch.tensor(float(state.num_rows), dtype=torch.float64, device=device)
+    outs = [a.freq_reduce(counts, num_rows) for a in analyzers]
+    leaves = [value for out in outs for value in out.values()]
+    flat = torch.stack(leaves).cpu().tolist() if leaves else []
+    metrics = []
+    pos = 0
+    for analyzer, out in zip(analyzers, outs):
+        agg = dict(zip(out, flat[pos : pos + len(out)]))
+        pos += len(out)
+        metrics.append(analyzer.metric_from_freq_agg(agg, state))
+    return metrics

@@ -10,6 +10,11 @@ every partial into ONE float64 buffer, so a batch costs one
 device-to-host copy. `PipelinedAggFold` starts that copy into pinned
 memory and folds batch N-1 on the host while the device runs batch N.
 
+Device-assisted members (the quantile sketches) ride the same program:
+their `device_batch` output (a histogram) joins the packed buffer, and
+the fold finishes each against the batch's host inputs, which stay alive
+until that batch folds (`host_finish_batch`, then `host_consume`).
+
 reference: runners/AnalysisRunner.scala:279-326 (all scan-shareable
 analyzers in one `df.agg(...)`); the JAX counterpart is
 deequ_tpu/ops/fused.py.
@@ -72,9 +77,12 @@ class AnalyzerRunResult:
 @dataclass
 class ScanMemberPlan:
     """A pass's members and their deduplicated input specs. An analyzer
-    whose spec construction fails sits in `spec_errors` and fails alone."""
+    whose spec construction fails sits in `spec_errors` and fails alone.
+    `merge_idx` members fold partials with `merge_agg`; `assisted_idx`
+    members (device-assisted) fold on the host with `host_consume`."""
 
     merge_idx: List[int] = field(default_factory=list)
+    assisted_idx: List[int] = field(default_factory=list)
     specs: Dict[str, Any] = field(default_factory=dict)
     spec_errors: Dict[int, BaseException] = field(default_factory=dict)
 
@@ -96,16 +104,21 @@ def plan_scan_members(analyzers: Sequence[Any], mode: Optional[str] = None) -> S
         except Exception as e:  # noqa: BLE001
             plan.spec_errors[i] = e
             continue
-        plan.merge_idx.append(i)
+        if getattr(analyzer, "device_assisted", False):
+            plan.assisted_idx.append(i)
+        else:
+            plan.merge_idx.append(i)
         for spec in analyzer_specs:
             plan.specs.setdefault(spec.key, spec)
     return plan
 
 
-def plan_shape_key(analyzers: Sequence[ScanShareableAnalyzer], layout: Any) -> Tuple[Any, ...]:
-    """What decides a batch's device program: the analyzers (by repr, in
+def plan_shape_key(
+    analyzers: Sequence[ScanShareableAnalyzer], layout: Any, assisted: Sequence[Any] = ()
+) -> Tuple[Any, ...]:
+    """What decides a batch's device program: the members (by repr, in
     pass order) and the wire layout."""
-    return (tuple(repr(a) for a in analyzers), layout)
+    return (tuple(repr(a) for a in analyzers), tuple(repr(a) for a in assisted), layout)
 
 
 # ---------------------------------------------------------------------------
@@ -181,8 +194,15 @@ class FusedProgram:
     Eager PyTorch compiles nothing, so what is cached per plan shape is
     the decoded layout and the output layout."""
 
-    def __init__(self, analyzers: Sequence[ScanShareableAnalyzer], layout, device: torch.device):
+    def __init__(
+        self,
+        analyzers: Sequence[ScanShareableAnalyzer],
+        layout,
+        device: torch.device,
+        assisted: Sequence[ScanShareableAnalyzer] = (),
+    ):
         self.analyzers = list(analyzers)
+        self.assisted = list(assisted)
         self.groups, self.const_keys, self.padded = layout
         self.device = device
         # big-endian bit order of np.packbits: bit 7 is the first row
@@ -209,19 +229,25 @@ class FusedProgram:
         return inputs
 
     def __call__(self, wire: Dict[str, torch.Tensor], num_rows: int):
-        """-> (flat float64 partials on the device, their layout)."""
+        """-> (flat float64 partials on the device, their layout): the
+        merge members' partials, then the assisted members' outputs."""
         inputs = self.unpack(wire, num_rows)
-        return pack_outputs([a.device_reduce(inputs) for a in self.analyzers], self.device)
+        outs = [a.device_reduce(inputs) for a in self.analyzers]
+        outs += [a.device_batch(inputs) for a in self.assisted]
+        return pack_outputs(outs, self.device)
 
 
 def get_fused_fn(
-    analyzers: Sequence[ScanShareableAnalyzer], layout, device: torch.device
+    analyzers: Sequence[ScanShareableAnalyzer],
+    layout,
+    device: torch.device,
+    assisted: Sequence[ScanShareableAnalyzer] = (),
 ) -> FusedProgram:
-    key = (plan_shape_key(analyzers, layout), str(device))
+    key = (plan_shape_key(analyzers, layout, assisted), str(device))
     with _PLAN_CACHE_LOCK:
         program = _PLAN_CACHE.get(key)
         if program is None:
-            program = FusedProgram(analyzers, layout, device)
+            program = FusedProgram(analyzers, layout, device, assisted)
             _PLAN_CACHE[key] = program
             while len(_PLAN_CACHE) > _PLAN_CACHE_MAX:
                 _PLAN_CACHE.pop(next(iter(_PLAN_CACHE)))
@@ -230,8 +256,8 @@ def get_fused_fn(
 
 def pack_outputs(outs: Sequence[Dict[str, torch.Tensor]], device: torch.device):
     """Every partial as float64 in ONE flat device tensor (registers,
-    counts and flags are all exact in float64) -> (flat, meta); `meta`
-    lists (analyzer position, key, shape) in pack order."""
+    counts, histograms and flags are all exact in float64) -> (flat,
+    meta); `meta` lists (analyzer position, key, shape) in pack order."""
     leaves: List[torch.Tensor] = []
     meta: List[Tuple[int, str, Tuple[int, ...]]] = []
     for i, out in enumerate(outs):
@@ -259,15 +285,26 @@ class PipelinedAggFold:
     `submit` starts the batch's device-to-host copy into pinned memory
     behind a CUDA event, then folds the PREVIOUS batch, whose copy has had
     a batch of device time to land. Partials merge in float64 through
-    each analyzer's `merge_agg`, in batch order."""
+    each analyzer's `merge_agg`, in batch order. Each assisted member's
+    output is finished against the batch's host inputs (`host_ctx`, kept
+    alive until the batch folds) and consumed into its host state."""
 
-    def __init__(self, analyzers: Sequence[ScanShareableAnalyzer], device: torch.device):
+    def __init__(
+        self,
+        analyzers: Sequence[ScanShareableAnalyzer],
+        device: torch.device,
+        assisted: Sequence[ScanShareableAnalyzer] = (),
+    ):
         self.analyzers = list(analyzers)
+        self.assisted = list(assisted)
         self.device = device
         self._total: Optional[List[Dict[str, np.ndarray]]] = None
+        self._assisted_states: List[Optional[State]] = [None] * len(self.assisted)
         self._pending = None
 
-    def submit(self, flat: torch.Tensor, meta) -> None:
+    def submit(
+        self, flat: torch.Tensor, meta, host_ctx: Optional[Dict[str, np.ndarray]] = None
+    ) -> None:
         if self.device.type == "cuda":
             host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
             host.copy_(flat, non_blocking=True)
@@ -277,13 +314,19 @@ class PipelinedAggFold:
             host, landed = flat, None
         if self._pending is not None:
             self._fold(self._pending)
-        self._pending = (host, landed, meta)
+        self._pending = (host, landed, meta, host_ctx)
 
     def _fold(self, pending) -> None:
-        host, landed, meta = pending
+        host, landed, meta, host_ctx = pending
         if landed is not None:
             landed.synchronize()
-        batch_aggs = unpack_outputs(host.numpy(), meta, len(self.analyzers))
+        n_merge = len(self.analyzers)
+        outs = unpack_outputs(host.numpy(), meta, n_merge + len(self.assisted))
+        batch_aggs = outs[:n_merge]
+        for i, (analyzer, out) in enumerate(zip(self.assisted, outs[n_merge:])):
+            self._assisted_states[i] = analyzer.host_consume(
+                self._assisted_states[i], analyzer.host_finish_batch(out, host_ctx)
+            )
         if self._total is None:
             self._total = batch_aggs
         else:
@@ -292,11 +335,12 @@ class PipelinedAggFold:
                 for a, t, b in zip(self.analyzers, self._total, batch_aggs)
             ]
 
-    def finish(self) -> List[Dict[str, np.ndarray]]:
+    def finish(self) -> Tuple[List[Dict[str, np.ndarray]], List[Optional[State]]]:
+        """-> (folded merge partials, assisted members' states)."""
         if self._pending is not None:
             self._fold(self._pending)
             self._pending = None
-        return self._total if self._total is not None else []
+        return (self._total if self._total is not None else []), self._assisted_states
 
 
 # ---------------------------------------------------------------------------
@@ -330,29 +374,35 @@ class FusedScanPass:
         for i, err in plan.spec_errors.items():
             results[i] = AnalyzerRunResult(self.analyzers[i], error=err)
         members = [self.analyzers[i] for i in plan.merge_idx]
-        if members:
-            aggs, build_error = self._run_pass(table, members, plan.specs)
-            for pos, (i, analyzer) in enumerate(zip(plan.merge_idx, members)):
-                if build_error is not None:
-                    # a failed input build fails every analyzer of the
-                    # shared program (reference: AnalysisRunner.scala:310-313)
-                    results[i] = AnalyzerRunResult(analyzer, error=build_error)
-                    continue
-                try:
-                    state = analyzer.state_from_aggregates(aggs[pos])
-                except Exception as e:  # noqa: BLE001
-                    results[i] = AnalyzerRunResult(analyzer, error=e)
-                else:
-                    results[i] = AnalyzerRunResult(analyzer, state=state)
+        assisted = [self.analyzers[i] for i in plan.assisted_idx]
+        if not (members or assisted):
+            return [results[i] for i in range(len(self.analyzers))]
+        folded, build_error = self._run_pass(table, members, assisted, plan.specs)
+        if build_error is not None:
+            # a failed input build fails every analyzer of the shared
+            # program (reference: AnalysisRunner.scala:310-313)
+            for i in plan.merge_idx + plan.assisted_idx:
+                results[i] = AnalyzerRunResult(self.analyzers[i], error=build_error)
+            return [results[i] for i in range(len(self.analyzers))]
+        aggs, assisted_states = folded
+        for i, analyzer, agg in zip(plan.merge_idx, members, aggs):
+            try:
+                state = analyzer.state_from_aggregates(agg)
+            except Exception as e:  # noqa: BLE001
+                results[i] = AnalyzerRunResult(analyzer, error=e)
+            else:
+                results[i] = AnalyzerRunResult(analyzer, state=state)
+        for i, analyzer, state in zip(plan.assisted_idx, assisted, assisted_states):
+            results[i] = AnalyzerRunResult(analyzer, state=state)
         return [results[i] for i in range(len(self.analyzers))]
 
-    def _run_pass(self, table: Table, analyzers, specs):
-        """-> (per-member folded partials, None) or (None, the input build
-        error that stopped the pass)."""
+    def _run_pass(self, table: Table, analyzers, assisted, specs):
+        """-> ((folded merge partials, assisted states), None) or (None,
+        the input build error that stopped the pass)."""
         keys = sorted(specs)
         pin = self.device.type == "cuda"
         sticky: Dict[str, Any] = {}
-        fold = PipelinedAggFold(analyzers, self.device)
+        fold = PipelinedAggFold(analyzers, self.device, assisted)
         for batch in table.batches(self.batch_size):
             built = []
             for key in keys:
@@ -367,6 +417,7 @@ class FusedScanPass:
                 batch.num_rows, pin=pin,
             )
             wire = {k: v.to(self.device, non_blocking=True) for k, v in host.items()}
-            program = get_fused_fn(analyzers, layout, self.device)
-            fold.submit(*program(wire, batch.num_rows))
+            program = get_fused_fn(analyzers, layout, self.device, assisted)
+            # assisted members finish against the batch's host inputs
+            fold.submit(*program(wire, batch.num_rows), dict(built) if assisted else None)
         return fold.finish(), None

@@ -1,12 +1,17 @@
-"""Vectorized host-side string hashing for the HLL sketch.
+"""Host-side string work: hashing for the HLL sketch, numeric parsing
+and regex matching.
 
 Strings never reach the device: a string column is dictionary-encoded
-once per table and only its unique values are hashed, vectorized over
-the UCS4 code-point matrix of the uniques (a numpy 'U' array viewed as
-an (n_unique, max_len) uint32 matrix) — never a Python loop over rows.
+once per table and every string operation runs over its unique values
+only, then gathers to rows. Hashing is vectorized over the UCS4
+code-point matrix of the uniques (a numpy 'U' array viewed as an
+(n_unique, max_len) uint32 matrix) — never a Python loop over rows.
 """
 
 from __future__ import annotations
+
+import re
+from typing import Tuple
 
 import numpy as np
 
@@ -104,3 +109,37 @@ def _hash_bucket(uniques: np.ndarray, seed: int) -> np.ndarray:
         acc *= _P3
         acc ^= acc >> np.uint64(32)
     return acc
+
+
+# -- numeric parse and pattern match ------------------------------------------
+
+
+def parse_floats(uniques: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(float64 values, ok mask) per unique string, accepting the forms
+    the JAX package's parse (pandas.to_numeric) accepts: float()'s, less
+    digit-group underscores. "nan" parses to NaN, which is NULL under this
+    engine's convention, so its ok is False."""
+    parsed = np.full(len(uniques), np.nan, dtype=np.float64)
+    for i, v in enumerate(uniques):
+        text = str(v)
+        if "_" in text:
+            continue
+        try:
+            parsed[i] = float(text)
+        except ValueError:
+            pass
+    ok = ~np.isnan(parsed)
+    return np.where(ok, parsed, 0.0), ok
+
+
+def match_pattern(uniques: np.ndarray, pattern: str) -> np.ndarray:
+    """Regex search over unique values (Python re, for lookahead and
+    backreferences; the vector win is uniques << rows). Spark semantics:
+    regexp_extract(col, regex, 0) != '' — a present but empty match is a
+    miss (reference: analyzers/PatternMatch.scala:42-50)."""
+    rx = re.compile(pattern)
+    out = np.zeros(len(uniques), dtype=bool)
+    for i, v in enumerate(uniques):
+        m = rx.search(str(v))
+        out[i] = m is not None and m.group(0) != ""
+    return out

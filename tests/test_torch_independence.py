@@ -36,6 +36,32 @@ def _port_sources():
     yield os.path.join(REPO, "chip_smoke.py")
 
 
+# the modules of the port's second slice, which carry their own copies of
+# JAX-package modules that import no JAX themselves (kll.py, expr.py)
+SLICE_MODULES = [
+    "deequ_tpu_torch.ops.sketches.kll",
+    "deequ_tpu_torch.data.expr",
+    "deequ_tpu_torch.analyzers.grouping",
+    "deequ_tpu_torch.analyzers.frequency",
+    "deequ_tpu_torch.analyzers.histogram",
+    "deequ_tpu_torch.ops.freq_agg",
+    "deequ_tpu_torch.runners.grouping_runner",
+]
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages([PORT], prefix="deequ_tpu_torch."))
+
+
+@pytest.mark.parametrize("name", SLICE_MODULES)
+def test_slice_modules_are_checked(name):
+    """Each is among the modules the subprocess import check loads, and
+    its source among those the import scan reads."""
+    assert name in _port_modules()
+    path = os.path.join(REPO, *name.split(".")) + ".py"
+    assert path in list(_port_sources())
+
+
 @pytest.mark.parametrize("name", ["deequ_tpu", "deequ_tpu.ops", "jax", "jaxlib.xla"])
 def test_forbidden_matches_the_jax_package(name):
     assert _forbidden(name)
@@ -47,10 +73,7 @@ def test_forbidden_spares_the_port(name):
 
 
 def test_import_loads_neither_jax_nor_the_jax_package():
-    modules = sorted(
-        m.name
-        for m in pkgutil.walk_packages([PORT], prefix="deequ_tpu_torch.")
-    )
+    modules = _port_modules()
     code = (
         "import importlib, sys\n"
         f"for name in {['deequ_tpu_torch'] + modules!r}:\n"

@@ -80,3 +80,99 @@ def test_registers_become_int32():
     state = state_from_reference("ApproxCountDistinctState", {"registers": regs})
     assert state.registers.dtype == np.int32
     np.testing.assert_array_equal(state.registers, regs)
+
+
+
+def _quantile_fields(state):
+    k, n, levels = state.digest.to_arrays()
+    return {"k": k, "n": n, "levels": [np.array(lv) for lv in levels]}
+
+
+@pytest.mark.parametrize(
+    "jan,pan",
+    [
+        (J.ApproxQuantile("x", 0.5), P.ApproxQuantile("x", 0.5)),
+        (J.ApproxQuantiles("x", [0.1, 0.9], 0.1), P.ApproxQuantiles("x", [0.1, 0.9], 0.1)),
+    ],
+    ids=["ApproxQuantile", "ApproxQuantiles"],
+)
+def test_quantile_state_carries_across(monkeypatch, jan, pan):
+    """The JAX package's sketch, carried across, is the port's sketch of
+    the same rows and gives the same metric; merged with the port's sketch
+    of the other half, a metric within the sketch's rank error."""
+    monkeypatch.setenv("DEEQU_TPU_PLACEMENT", "device")
+    data, first, second = halves()
+    jstate = JPass([jan]).run(JTable.from_numpy(first))[0].state_or_raise()
+    port_state = state_from_reference("ApproxQuantileState", _quantile_fields(jstate))
+    own = PPass([pan], device="cpu").run(PTable.from_numpy(first))[0].state_or_raise()
+    assert port_state == own
+    assert pan.compute_metric_from(port_state) == pan.compute_metric_from(own)
+    assert pan.compute_metric_from(port_state).value.get() == jan.compute_metric_from(jstate).value.get()
+
+    pstate = PPass([pan], device="cpu").run(PTable.from_numpy(second))[0].state_or_raise()
+    merged = port_state.merge(pstate)
+    x = np.sort(data["x"][~np.isnan(data["x"])])
+    assert merged.digest.n == len(x)
+    value = pan.compute_metric_from(merged).value.get()
+    pairs = [(jan.quantile, value)] if isinstance(value, float) else [
+        (float(q), v) for q, v in value.items()
+    ]
+    for q, got in pairs:
+        assert abs(np.searchsorted(x, got) - q * len(x)) <= 2 * pan.relative_error * len(x)
+
+
+@pytest.mark.parametrize(
+    "jan,pan",
+    [
+        (J.Compliance("rule", "x > 3"), P.Compliance("rule", "x > 3")),
+        (J.Compliance("rule", "x > 3", "y > 0"), P.Compliance("rule", "x > 3", "y > 0")),
+    ],
+    ids=["Compliance", "Compliance-where"],
+)
+def test_ratio_state_carries_across(monkeypatch, jan, pan):
+    monkeypatch.setenv("DEEQU_TPU_PLACEMENT", "device")
+    data, first, second = halves()
+    jstate = JPass([jan]).run(JTable.from_numpy(first))[0].state_or_raise()
+    pstate = PPass([pan], device="cpu").run(PTable.from_numpy(second))[0].state_or_raise()
+    merged = carried(jstate).merge(pstate)
+    whole = PPass([pan], device="cpu").run(PTable.from_numpy(data))[0].state_or_raise()
+    assert merged == whole
+    assert pan.compute_metric_from(merged) == pan.compute_metric_from(whole)
+
+
+def test_pattern_state_carries_across(monkeypatch):
+    monkeypatch.setenv("DEEQU_TPU_PLACEMENT", "device")
+    rng = np.random.default_rng(3)
+    words = np.array(["ok", "warn", "err", None], dtype=object)[rng.integers(0, 4, 400)]
+    jan, pan = J.PatternMatch("w", r"^w"), P.PatternMatch("w", r"^w")
+    jstate = JPass([jan]).run(JTable.from_numpy({"w": words[:200]}))[0].state_or_raise()
+    pstate = PPass([pan], device="cpu").run(PTable.from_numpy({"w": words[200:]}))[0].state_or_raise()
+    whole = PPass([pan], device="cpu").run(PTable.from_numpy({"w": words}))[0].state_or_raise()
+    assert carried(jstate).merge(pstate) == whole
+
+
+@pytest.mark.parametrize("columns", [["id"], ["id", "g"]], ids=["id", "id+g"])
+def test_frequencies_carry_across(columns):
+    from deequ_tpu.analyzers.frequency import compute_frequencies as jfreq
+    from deequ_tpu_torch.analyzers.frequency import compute_frequencies as pfreq
+
+    data, first, second = halves()
+    for part in (data, first, second):
+        part["g"] = part["id"] % 3
+    jstate = jfreq(JTable.from_numpy(first), columns)
+    fields = {
+        "columns": jstate.columns, "key_columns": jstate.key_columns,
+        "counts": jstate.counts, "num_rows": jstate.num_rows,
+    }
+    merged = state_from_reference("FrequenciesAndNumRows", fields).merge(
+        pfreq(PTable.from_numpy(second), columns)
+    )
+    assert merged == pfreq(PTable.from_numpy(data), columns)
+    jwhole = jfreq(JTable.from_numpy(data), columns)
+    for name in ("Uniqueness", "Distinctness", "CountDistinct", "UniqueValueRatio", "Entropy"):
+        if name == "Entropy" and len(columns) > 1:
+            continue
+        args = columns[0] if name == "Entropy" else columns
+        got = getattr(P, name)(args).compute_metric_from(merged).value.get()
+        want = getattr(J, name)(args).compute_metric_from(jwhole).value.get()
+        assert abs(got - want) <= 1e-12 * max(1.0, abs(want)), name
