@@ -14,7 +14,13 @@ Phases, one JSON line each:
               the least time the card could take, and a library call's
               time where one PyTorch call computes the same function;
               hist16 also on a one-value and a five-value column (atomic
-              contention), whose counts must match exactly too;
+              contention), one value over 2^24 live rows (16-bit counter
+              overflow), views whose bases are not 16-byte aligned and a
+              flush probe; hll_register_max also with ranks rising into
+              one register and on unaligned views; counts and registers
+              must match exactly, two launches must agree. For K3 and K4
+              the kernel's device time from torch.profiler stands beside
+              the CUDA-event time; a launch the card refuses must raise;
   4. main_path  a VerificationSuite on a --rows table (float64 x and y
               with every 11th x null, int64 id, string cat, int64 grp)
               over the flagship analyzers, two approximate-quantile
@@ -103,13 +109,13 @@ def close(a: float, b: float, rtol: float) -> bool:
     return a == b or abs(a - b) <= rtol * max(abs(a), abs(b))
 
 
-def kernel_phase(torch, ck, hll, device, rng, timer):
+def kernel_phase(torch, ck, device, rng, timer):
     """Each kernel against its plain version on the card; returns the
     summary rows (launch counts are filled in from the main path)."""
     import numpy as np
 
     rows = []
-    for name in ("masked_moments", "masked_centered_sumsq", "hll_register_max"):
+    for name in ("masked_moments", "masked_centered_sumsq"):
         worst = 0.0
         for n in (0, 1, BATCH - 37, BATCH):
             x_np = rng.normal(3.0, 2.0, n)
@@ -136,46 +142,20 @@ def kernel_phase(torch, ck, hll, device, rng, timer):
                 if not close(got, want, SUM_RTOL):
                     raise AssertionError(f"masked_centered_sumsq n={n}: kernel {got} plain {want}")
                 err = abs(got - want)
-            else:
-                # every row hashed, so the mask alone must drop the nulls
-                ids = rng.integers(0, max(n, 1), n)
-                codes = torch.from_numpy(hll.pack_codes(ids, np.ones(n, dtype=bool))).to(device)
-                got = ck.hll_register_max(codes, m).cpu().numpy()
-                want = ck.hll_register_max_plain(codes, m).cpu().numpy()
-                if not np.array_equal(got, want):
-                    raise AssertionError(f"hll_register_max n={n}: registers differ")
-                err = float(np.max(np.abs(got - want)))
             worst = max(worst, err)
             emit({"phase": "kernel_check", "kernel": name, "n": n, "max_abs_err": err})
-        # x, m, codes are the full batch's after the loop
+        # x, m are the full batch's after the loop
         n = BATCH
         if name == "masked_moments":
             ms = timer.ms(lambda: ck.masked_moments(x, m))
             plain = timer.ms(lambda: ck.masked_moments_plain(x, m))
-            library = None
             bound, by = bound_ms(n * 9 + 4 * 8, 3 * n, FP64_OPS_PER_S)
             replaces = "deequ_tpu/ops/pallas_kernels.py:231"
-        elif name == "masked_centered_sumsq":
+        else:
             ms = timer.ms(lambda: ck.masked_centered_sumsq(x, m, avg))
             plain = timer.ms(lambda: ck.masked_centered_sumsq_plain(x, m, avg))
-            library = None
             bound, by = bound_ms(n * 9 + 2 * 8, 3 * n, FP64_OPS_PER_S)
             replaces = "deequ_tpu/ops/pallas_kernels.py:269"
-        else:
-            ms = timer.ms(lambda: ck.hll_register_max(codes, m))
-            plain = timer.ms(lambda: ck.hll_register_max_plain(codes, m))
-            # the one-call library yardstick: scatter_reduce_ "amax" over
-            # the unpacked register index and rank of the live rows
-            live = m & (codes != 0)
-            idx = torch.where(live, codes >> 6, 0).to(torch.int64)
-            rank = torch.where(live, codes & 0x3F, 0)
-            regs = torch.zeros(ck.N_REGISTERS, dtype=torch.int32, device=device)
-            regs.scatter_reduce_(0, idx, rank, "amax")
-            if not torch.equal(regs, ck.hll_register_max(codes, m)):
-                raise AssertionError("hll_register_max: scatter_reduce_ disagrees")
-            library = timer.ms(lambda: regs.scatter_reduce_(0, idx, rank, "amax"))
-            bound, by = bound_ms(n * 5 + 512 * 4, 4 * n, INT32_OPS_PER_S)
-            replaces = "deequ_tpu/ops/pallas_kernels.py:58"
         row = {
             "name": name,
             "route": "cuda",
@@ -187,7 +167,7 @@ def kernel_phase(torch, ck, hll, device, rng, timer):
             "plain_ms": plain,
             "bound_ms": bound,
             "bound_by": by,
-            "library_ms": library,
+            "library_ms": None,  # no single PyTorch call computes it
             "held_against_plain": True,
         }
         emit({"phase": "kernel", **row, "rows": n})
@@ -195,13 +175,103 @@ def kernel_phase(torch, ck, hll, device, rng, timer):
     return rows
 
 
-def hist16_phase(torch, ck, device, rng, timer):
-    """hist16 against its plain version: normal data at every n, then the
-    two contention cases at the main path's batch. Counts are integers and
-    must match exactly; two launches must agree. Returns the summary row."""
+def same_twice(torch, fn, plain):
+    """fn() against plain(), and against a second fn(): both exact."""
+    got, again, want = fn(), fn(), plain()
+    return torch.equal(got, want) and torch.equal(got, again), got, want
+
+
+def hll_phase(torch, ck, hll, device, rng, timer, profile):
+    """hll_register_max against its plain version: hashed codes at every
+    n, then the cases where test-before-atomic and the vector loads can
+    break: every live code in one register with ranks rising in row
+    order (every row raises it), codes and mask as views whose bases are
+    not 16-byte aligned. Registers must match exactly and two launches
+    must agree. Returns the summary row."""
     import numpy as np
 
-    def inputs(kind, n):
+    def hashed(n):
+        # every row hashed, so the mask alone must drop the nulls
+        ids = rng.integers(0, max(n, 1), n)
+        return hll.pack_codes(ids, np.ones(n, dtype=bool))
+
+    def mask(n):
+        valid = np.ones(n, dtype=bool)
+        valid[::11] = False  # about 9% nulls, as the main path's x
+        return valid
+
+    def rising(n):
+        rank = 1 + (np.arange(n) * 63) // max(n, 1)  # 1 .. 63 in row order
+        return ((300 << 6) | rank).astype(np.int32)
+
+    # (case, n, codes, mask, offset of the codes view, offset of the mask view)
+    cases = [("hashed", n, hashed(n), mask(n), 0, 0) for n in (0, 1, BATCH - 37, BATCH)]
+    cases += [("rising-one-register", BATCH, rising(BATCH), mask(BATCH), 0, 0)]
+    cases += [("hashed-view", BATCH - 37, hashed(BATCH - 34), mask(BATCH - 34), 1, 1)]
+    cases += [("hashed-view", BATCH - 37, hashed(BATCH - 34), mask(BATCH - 34), 1, 2)]
+    worst = 0.0
+    for kind, n, codes_np, m_np, co, mo in cases:
+        codes_all = torch.from_numpy(codes_np).to(device)
+        m_all = torch.from_numpy(m_np).to(device)
+        codes, m = codes_all[co:co + n], m_all[mo:mo + n]
+        ok, got, want = same_twice(torch, lambda: ck.hll_register_max(codes, m),
+                                   lambda: ck.hll_register_max_plain(codes, m))
+        if not ok:
+            raise AssertionError(f"hll_register_max {kind} n={n}: registers differ")
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        emit({"phase": "kernel_check", "kernel": "hll_register_max", "case": kind, "n": n,
+              "codes_offset_bytes": codes.data_ptr() % 16, "mask_offset_bytes": m.data_ptr() % 16,
+              "max_abs_err": err, "max_register": int(got.max()) if n else 0})
+        if kind == "hashed" and n == BATCH:
+            batch = (codes, m)
+    codes, m = batch
+    n = BATCH
+    ms = timer.ms(lambda: ck.hll_register_max(codes, m))
+    plain = timer.ms(lambda: ck.hll_register_max_plain(codes, m))
+    # the one-call library yardstick: scatter_reduce_ "amax" over
+    # the unpacked register index and rank of the live rows
+    live = m & (codes != 0)
+    idx = torch.where(live, codes >> 6, 0).to(torch.int64)
+    rank = torch.where(live, codes & 0x3F, 0)
+    regs = torch.zeros(ck.N_REGISTERS, dtype=torch.int32, device=device)
+    regs.scatter_reduce_(0, idx, rank, "amax")
+    if not torch.equal(regs, ck.hll_register_max(codes, m)):
+        raise AssertionError("hll_register_max: scatter_reduce_ disagrees")
+    library = timer.ms(lambda: regs.scatter_reduce_(0, idx, rank, "amax"))
+    bound, by = bound_ms(n * 5 + 512 * 4, 4 * n, INT32_OPS_PER_S)
+    profile("hll_register_max", lambda: ck.hll_register_max(codes, m), "hll_max", ms)
+    row = {
+        "name": "hll_register_max",
+        "route": "cuda",
+        "source": "deequ_tpu_torch/csrc/kernels.cu",
+        "replaces": "deequ_tpu/ops/pallas_kernels.py:58",
+        "launches": None,
+        "max_abs_err": worst,
+        "ms": ms,
+        "plain_ms": plain,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": library,
+        "held_against_plain": True,
+    }
+    emit({"phase": "kernel", **row, "rows": n})
+    return row
+
+
+def hist16_phase(torch, ck, device, rng, timer, profile):
+    """hist16 against its plain version: normal data at every n, the two
+    contention cases at the main path's batch, then the cases where the
+    shared 16-bit counters and the vector loads can break: one value over
+    2^24 live rows (every block counts far more than 65535 rows of one
+    bin, so only its flushes keep the counts exact) and views whose bases
+    are not 16-byte aligned. Counts are integers and must match exactly;
+    two launches must agree. A flush probe (a few thousand rows a block)
+    times the part of a launch that does not grow with n. Returns the
+    summary row."""
+    import numpy as np
+
+    def inputs(kind, n, every_live=False):
         if kind == "normal":
             x = rng.normal(3.0, 2.0, n)
         elif kind == "one-value":
@@ -209,25 +279,36 @@ def hist16_phase(torch, ck, device, rng, timer):
         else:  # five values, the shape of the main path's grp column
             x = rng.integers(0, 5, n).astype(np.float64)
         live = np.ones(n, dtype=bool)
-        live[::11] = False  # excluded rows: the sentinel bin
+        if not every_live:
+            live[::11] = False  # excluded rows: the sentinel bin
         return torch.from_numpy(x).to(device), torch.from_numpy(live).to(device)
 
-    cases = [("normal", n) for n in (0, 1, BATCH - 37, BATCH)]
-    cases += [("one-value", BATCH), ("five-value", BATCH)]
+    probe = ck.sm_count(device) * 4096
+    # (case, data, n, offset of the x view, offset of the mask view, every row live)
+    cases = [("normal", "normal", n, 0, 0, False) for n in (0, 1, BATCH - 37, BATCH)]
+    cases += [(kind, kind, BATCH, 0, 0, False) for kind in ("one-value", "five-value")]
+    cases += [("one-value-2^24", "one-value", 1 << 24, 0, 0, True)]
+    cases += [("normal-view", "normal", BATCH - 37, 1, 1, False),
+              ("normal-view", "normal", BATCH - 37, 2, 3, False)]
+    cases += [("flush-probe", "normal", probe, 0, 0, False)]
     timed = {}
     worst = 0.0
-    for kind, n in cases:
-        x, live = inputs(kind, n)
-        got = ck.hist16(x, live)
-        again = ck.hist16(x, live)
-        want = ck.hist16_plain(x, live)
-        if not (torch.equal(got, want) and torch.equal(got, again)):
+    for kind, data, n, xo, lo, every_live in cases:
+        x, live = inputs(data, n + 3, every_live)
+        x, live = x[xo:xo + n], live[lo:lo + n]
+        ok, got, want = same_twice(torch, lambda: ck.hist16(x, live), lambda: ck.hist16_plain(x, live))
+        if not ok:
             raise AssertionError(f"hist16 {kind} n={n}: counts differ from the plain version")
         err = float((got - want).abs().max()) if n else 0.0
         worst = max(worst, err)
+        head, window, grid = ck.hist16_plan(n, ck.sm_count(device), x.data_ptr())
         emit({"phase": "kernel_check", "kernel": "hist16", "case": kind, "n": n,
-              "max_abs_err": err, "excluded": int(got[ck.HIST_SENTINEL])})
-        if n == BATCH:
+              "x_offset_bytes": x.data_ptr() % 16, "mask_offset_bytes": live.data_ptr() % 16,
+              "plan": {"head": head, "window": window, "grid": grid},
+              "max_abs_err": err, "excluded": int(got[ck.HIST_SENTINEL]),
+              "largest_bin": int(got[:ck.HIST_SENTINEL].max()) if n else 0,
+              "nonzero_bins": int((got != 0).sum())})
+        if kind in ("normal", "one-value", "five-value", "flush-probe") and n in (BATCH, probe):
             bins = ck.f32_sortable_bin16_plain(x.float(), live).long()
             library_counts = torch.bincount(bins, minlength=ck.HIST_BINS)
             if not torch.equal(library_counts.int(), got):
@@ -241,8 +322,12 @@ def hist16_phase(torch, ck, device, rng, timer):
                 "library_ms": timer.ms(lambda: torch.bincount(bins, minlength=ck.HIST_BINS)),
                 "bound_ms": bound,
                 "bound_by": by,
+                "rows": n,
             }
-    emit({"phase": "kernel_contention", "kernel": "hist16", "rows": BATCH, "cases": timed})
+            if kind == "normal":
+                profile("hist16", lambda: ck.hist16(x, live), "hist16_count",
+                        timed[kind]["ms"])
+    emit({"phase": "kernel_contention", "kernel": "hist16", "cases": timed})
     row = {
         "name": "hist16",
         "route": "cuda",
@@ -250,11 +335,75 @@ def hist16_phase(torch, ck, device, rng, timer):
         "replaces": "deequ_tpu/ops/pallas_kernels.py:165",
         "launches": None,
         "max_abs_err": worst,
-        **timed["normal"],
+        **{k: v for k, v in timed["normal"].items() if k != "rows"},
         "held_against_plain": True,
     }
     emit({"phase": "kernel", **row, "rows": BATCH})
     return row
+
+
+def profiler_phase(torch, timer):
+    """A `profile(name, fn, kernel, event_ms)` that runs fn under
+    torch.profiler, the L2 evicted before each call as the event timer
+    does, and emits the kernel's device time beside the CUDA-event time
+    of the call. From the device timeline: the span from the start of
+    the call's first device operation (the output's zero fill) to the
+    end of the kernel, and the gap between the eviction's end and that
+    start, which would hold any host delay inside the event time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    def run(name, fn, kernel, event_ms, reps=20):
+        fn()
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                timer.flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        ops = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        kernel_us, span_us, gap_us, first_ops = [], [], [], set()
+        evict = None  # the eviction's fill of the uint8 buffer, then the call's ops
+        for i, e in enumerate(ops):
+            if "FillFunctor<unsigned char>" in e.name:
+                evict = i
+            elif kernel in e.name and evict is not None and evict < i:
+                first = ops[evict + 1]
+                first_ops.add(first.name)
+                kernel_us.append(e.time_range.end - e.time_range.start)
+                span_us.append(e.time_range.end - first.time_range.start)
+                gap_us.append(first.time_range.start - ops[evict].time_range.end)
+                evict = None
+
+        def median_ms(values):
+            return statistics.median(values) / 1e3 if values else None
+
+        emit({"phase": "kernel_profile", "kernel": name, "launches": len(kernel_us),
+              "kernel_device_ms": median_ms(kernel_us), "call_span_ms": median_ms(span_us),
+              "gap_after_eviction_ms": median_ms(gap_us), "event_ms": event_ms,
+              "call_first_ops": sorted(first_ops)})
+
+    return run
+
+
+def refused_launch_phase(torch, ck, cuda_build, device):
+    """A launch the card refuses (here: a grid of 0 blocks) comes back
+    as a CUDA error from the C launcher, and the wrapper's check raises."""
+    lib = cuda_build.load()
+    x = torch.zeros(8, dtype=torch.float64, device=device)
+    live = torch.ones(8, dtype=torch.bool, device=device)
+    out = torch.empty(ck.HIST_BINS, dtype=torch.int32, device=device)
+    err = lib.dq_hist16(x.data_ptr(), live.data_ptr(), 8, 0, 8, 0, out.data_ptr(), ck._stream(x))
+    if err == 0:
+        raise AssertionError("a launch of 0 blocks was not refused")
+    try:
+        ck._raise_on(err, "hist16")
+    except RuntimeError as exc:
+        emit({"phase": "refused_launch", "cuda_error": err, "raised": str(exc)})
+    else:
+        raise AssertionError("the wrapper's check let a refused launch pass")
+    torch.cuda.synchronize()
 
 
 def flagship_table(rows: int, seed: int):
@@ -648,9 +797,13 @@ def main() -> int:
 
     rng = np.random.default_rng(args.seed)
     timer = Timer(torch, device)
-    summary = kernel_phase(torch, ck, hll, device, rng, timer)
-    summary.append(hist16_phase(torch, ck, device, rng, timer))
-    del timer  # frees the 256 MB L2 flush buffer before the main path
+    emit({"phase": "timer", "empty_call_ms": timer.ms(lambda: torch.empty(1, device=device))})
+    profile = profiler_phase(torch, timer)
+    summary = kernel_phase(torch, ck, device, rng, timer)
+    summary.append(hll_phase(torch, ck, hll, device, rng, timer, profile))
+    summary.append(hist16_phase(torch, ck, device, rng, timer, profile))
+    refused_launch_phase(torch, ck, cuda_build, device)
+    del timer, profile  # frees the 256 MB L2 flush buffer before the main path
     launches = main_path_phase(torch, ck, args.rows, args.seed, card, power_limit)
     basic_example_phase(torch, ck)
     for row in summary:

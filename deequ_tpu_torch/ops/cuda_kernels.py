@@ -20,7 +20,8 @@ went through the kernels; `reset_launch_counts()` zeroes them.
 
 from __future__ import annotations
 
-from typing import Dict
+import functools
+from typing import Dict, Tuple
 
 import torch
 
@@ -31,6 +32,16 @@ HIST_SENTINEL = HIST_BINS - 1  # the bin of excluded rows
 # H100's 132 SMs. A constant, so the grid — and with it the summation
 # order — depends on the row count alone.
 MAX_BLOCKS = 8 * 132
+# K3 runs two blocks and K4 one block of this many threads per SM
+# (csrc/kernels.cu kHllThreads, kHistThreads); their results do not
+# depend on the grid.
+BLOCK_THREADS = 1024
+# K4's rows per flush window: its 16-bit shared counters never pass
+# 65535, and windows stay whole quads of four rows.
+HIST_MAX_WINDOW = 65532
+# K4 flushes two adjacent int32 bins in one 64-bit atomic; below 2^32
+# rows the low bin's count never carries into the high one.
+HIST_MAX_ROWS = (1 << 32) - 1
 _FLOATS = (torch.float64, torch.float32)
 
 
@@ -63,6 +74,47 @@ def _raise_on(err: int, kernel: str) -> None:
 
 def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's number of SMs, which sizes the K3 and K4 grids."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def hll_plan(n: int, sms: int, codes_ptr: int) -> Tuple[int, int]:
+    """(head, grid) of a K3 launch: `head` rows (0-3) bring the int32
+    codes at `codes_ptr` to a 16-byte boundary; then at most two blocks
+    per SM, each thread one quad of four rows per step."""
+    if codes_ptr % 4:
+        raise ValueError(f"int32 codes at {codes_ptr:#x} are not 4-byte aligned")
+    head = min(n, (-codes_ptr % 16) // 4)
+    quads = (n - head) // 4
+    return head, max(1, min(2 * sms, _cdiv(quads, BLOCK_THREADS)))
+
+
+def hist16_plan(n: int, sms: int, x_ptr: int) -> Tuple[int, int, int]:
+    """(head, window, grid) of a K4 launch: `head` rows (0 or 1) bring the
+    float64 x at `x_ptr` to a 16-byte boundary; the rest is cut into
+    windows of `window` rows (a multiple of 4, at most HIST_MAX_WINDOW),
+    the same number for each of `grid` <= `sms` blocks up to the last.
+    A block flushes its 16-bit counters after each window."""
+    if n > HIST_MAX_ROWS:
+        raise ValueError(f"hist16 takes at most {HIST_MAX_ROWS} rows a call, got {n}")
+    if x_ptr % 8:
+        raise ValueError(f"float64 x at {x_ptr:#x} is not 8-byte aligned")
+    head = min(n, (x_ptr // 8) % 2)
+    body = n - head
+    if body == 0:
+        return head, 4, 1
+    per_block = _cdiv(_cdiv(body, HIST_MAX_WINDOW), sms)
+    window = _cdiv(body, per_block * sms)
+    window += -window % 4
+    return head, window, min(sms, _cdiv(body, window))
 
 
 # ---------------------------------------------------------------------------
@@ -192,9 +244,10 @@ def hll_register_max(codes: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     from deequ_tpu_torch.ops import cuda_build
 
     lib = cuda_build.load()
-    out = torch.zeros(N_REGISTERS, dtype=torch.int32, device=codes.device)
+    head, grid = hll_plan(codes.numel(), sm_count(codes.device), codes.data_ptr())
+    out = torch.empty(N_REGISTERS, dtype=torch.int32, device=codes.device)  # zeroed by the launcher
     err = lib.dq_hll_register_max(
-        codes.data_ptr(), m.data_ptr(), codes.numel(), MAX_BLOCKS,
+        codes.data_ptr(), m.data_ptr(), codes.numel(), head, grid,
         out.data_ptr(), _stream(codes),
     )
     _raise_on(err, "hll_register_max")
@@ -235,9 +288,11 @@ def hist16(x: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
     from deequ_tpu_torch.ops import cuda_build
 
     lib = cuda_build.load()
-    out = torch.zeros(HIST_BINS, dtype=torch.int32, device=x.device)
+    head, window, grid = hist16_plan(x.numel(), sm_count(x.device), x.data_ptr())
+    out = torch.empty(HIST_BINS, dtype=torch.int32, device=x.device)  # zeroed by the launcher
     err = lib.dq_hist16(
-        x.data_ptr(), live.data_ptr(), x.numel(), MAX_BLOCKS, out.data_ptr(), _stream(x),
+        x.data_ptr(), live.data_ptr(), x.numel(), head, window, grid,
+        out.data_ptr(), _stream(x),
     )
     _raise_on(err, "hist16")
     hist16.launches += 1

@@ -67,6 +67,60 @@ def test_hist16_plain_ragged_equals_bincount(n):
     np.testing.assert_array_equal(got, ref)
 
 
+@pytest.mark.parametrize(
+    "n, every_live", [(66560, True), (73728, False)], ids=["all-live", "every-11th-excluded"]
+)
+def test_hist16_one_value_beyond_16_bit_counters(n, every_live):
+    """More than 65535 live rows in one bin: the card counts a bin in
+    16-bit shared counters and must flush them before they overflow; the
+    plain version and the Pallas kernel count it exactly."""
+    x = np.full(n, 2.5)
+    live = np.ones(n, dtype=bool)
+    if not every_live:
+        live[::11] = False
+    assert live.sum() > 65535
+    ref = np.asarray(pallas_kernels.hist16(_jax_bins(x, live), interpret=True)).reshape(65536)
+    got = ck.hist16(torch.from_numpy(x), torch.from_numpy(live)).numpy()
+    np.testing.assert_array_equal(got, ref.astype(np.int64))
+    assert got[0xC020] == live.sum()  # float32(2.5)'s bin
+
+
+N_BEYOND_2_31 = [0, 1, 2, 3, 4, 5, 1023, 65531, 65532, 65533, 1 << 22, (1 << 22) - 37,
+                 (1 << 24) + 1, 132 * 65532, 132 * 65532 + 1, (1 << 31) - 1, 1 << 31,
+                 (1 << 31) + 12345, ck.HIST_MAX_ROWS - 1, ck.HIST_MAX_ROWS]
+
+
+@pytest.mark.parametrize("sms", [1, 78, 114, 132])
+@pytest.mark.parametrize("x_offset", [0, 8])
+def test_hist16_plan_windows_fit_16_bit_counters(sms, x_offset):
+    """No flush window of the card's launch plan exceeds 65535 rows, for
+    any n from 0 to beyond 2^31, and the blocks share the rows evenly."""
+    ptr = 1 << 20  # a 16-byte boundary, like every CUDA allocation
+    rng = np.random.default_rng(sms + x_offset)
+    ns = N_BEYOND_2_31 + [int(v) for v in rng.integers(0, ck.HIST_MAX_ROWS, 200)]
+    for n in ns:
+        head, window, grid = ck.hist16_plan(n, sms, ptr + x_offset)
+        assert 0 < window <= 65535 and window % 4 == 0
+        assert head == min(n, x_offset // 8)  # brings x to 16 bytes
+        assert (ptr + x_offset + 8 * head) % 16 == 0 or head == n
+        assert 1 <= grid <= sms
+        body = n - head
+        windows = -(-body // window)
+        assert windows <= grid or grid == sms  # no block idles while another has two
+        if body:
+            # no block counts more than its share by a quad per window
+            assert -(-windows // grid) * (window - 4) < body / grid
+
+
+def test_plans_reject_unaligned_elements_and_too_many_rows():
+    with pytest.raises(ValueError):
+        ck.hist16_plan(ck.HIST_MAX_ROWS + 1, 132, 1 << 20)
+    with pytest.raises(ValueError):
+        ck.hist16_plan(10, 132, (1 << 20) + 4)
+    with pytest.raises(ValueError):
+        ck.hll_plan(10, 132, (1 << 20) + 2)
+
+
 def test_special_values_land_in_their_bins():
     x = torch.tensor([-0.0, 0.0, np.inf, -np.inf, 1e-310, 1e39, 1.0], dtype=torch.float64)
     live = torch.ones(len(x), dtype=torch.bool)

@@ -128,6 +128,64 @@ def test_hll_register_max_vs_xla_scatter(n):
     np.testing.assert_array_equal(got, ref)
 
 
+def _rising_one_register(n):
+    """Every code in register 300, its rank rising 1..63 in row order:
+    each row raises the register, the worst case for the card's
+    test-before-atomic."""
+    return ((300 << 6) | (1 + (np.arange(n) * 63) // n)).astype(np.int32)
+
+
+def _all_registers(n, seed):
+    """Codes that cover all 512 registers, with ranks 1..63."""
+    rng = np.random.default_rng(seed)
+    idx = np.arange(n) % jax_hll.M
+    return ((idx << 6) | rng.integers(1, 64, n)).astype(np.int32)
+
+
+CODE_CASES = {"rising-one-register": lambda n: _rising_one_register(n),
+              "all-registers": lambda n: _all_registers(n, seed=n)}
+
+
+@pytest.mark.parametrize("n", [4096, 16384])
+@pytest.mark.parametrize("case", sorted(CODE_CASES))
+def test_hll_register_max_edge_codes_vs_pallas(case, n):
+    codes = CODE_CASES[case](n)
+    _x, m = _data(n, seed=n + 7)
+    ref = np.asarray(
+        pallas_kernels.hll_register_max(jnp.asarray(np.where(m, codes, 0)), interpret=True)
+    )
+    got = ck.hll_register_max(torch.from_numpy(codes), torch.from_numpy(m)).numpy()
+    np.testing.assert_array_equal(got, ref)
+    if case == "all-registers":
+        assert (got > 0).all()
+    else:
+        assert got[300] == 63 and np.count_nonzero(got) == 1
+
+
+@pytest.mark.parametrize("n", RAGGED[1:] + [4096 + 3])
+@pytest.mark.parametrize("case", sorted(CODE_CASES))
+def test_hll_register_max_edge_codes_vs_xla_scatter(case, n):
+    codes = CODE_CASES[case](n)
+    _x, m = _data(n, seed=n + 8)
+    rank = jnp.where(jnp.asarray(m), jnp.asarray(codes) & 0x3F, 0)
+    ref = np.asarray(
+        jnp.zeros(jax_hll.M, dtype=rank.dtype).at[jnp.asarray(codes) >> 6].max(rank)
+    )
+    got = ck.hll_register_max(torch.from_numpy(codes), torch.from_numpy(m)).numpy()
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("offset", [0, 4, 8, 12])
+def test_hll_plan_aligns_codes(sms, offset):
+    ptr = (1 << 20) + offset
+    for n in [0, 1, 2, 3, 4, 7, 4096, (1 << 22) - 37, 1 << 31]:
+        head, grid = ck.hll_plan(n, sms, ptr)
+        assert head == min(n, (16 - offset) % 16 // 4)
+        assert (ptr + 4 * head) % 16 == 0 or head == n
+        assert 1 <= grid <= 2 * sms
+
+
 def test_code_zero_and_masked_rows_are_noops():
     codes = np.full(64, (511 << 6) | 56, dtype=np.int32)
     codes[::2] = 0
