@@ -13,13 +13,17 @@ Phases, one JSON line each:
               4,194,304 rows, with its time, the plain version's time,
               the least time the card could take, and a library call's
               time where one PyTorch call computes the same function;
-              hist16 also on a one-value and a five-value column (atomic
-              contention), one value over 2^24 live rows (16-bit counter
-              overflow), views whose bases are not 16-byte aligned and a
+              masked_moments and masked_centered_sumsq also at n = 2, 3,
+              5 and 7, on views whose bases are not 16-byte aligned, on
+              float32 x, on an all-masked batch and with live NaNs, their
+              sums bit for bit against the blocked emulation of the
+              kernel's own order; hist16 also on a one-value and a
+              five-value column (atomic contention), one value over 2^24
+              live rows (16-bit counter overflow), unaligned views and a
               flush probe; hll_register_max also with ranks rising into
               one register and on unaligned views; counts and registers
-              must match exactly, two launches must agree. For K3 and K4
-              the kernel's device time from torch.profiler stands beside
+              must match exactly, two launches must agree. For every
+              kernel the device time from torch.profiler stands beside
               the CUDA-event time; a launch the card refuses must raise;
   4. main_path  a VerificationSuite on a --rows table (float64 x and y
               with every 11th x null, int64 id, string cat, int64 grp)
@@ -109,68 +113,132 @@ def close(a: float, b: float, rtol: float) -> bool:
     return a == b or abs(a - b) <= rtol * max(abs(a), abs(b))
 
 
-def kernel_phase(torch, ck, device, rng, timer):
-    """Each kernel against its plain version on the card; returns the
-    summary rows (launch counts are filled in from the main path)."""
+def moments_phase(torch, ck, device, rng, timer, profile):
+    """K1 masked_moments and K2 masked_centered_sumsq against their plain
+    versions on the card, with masked rows holding ordinary values (the
+    kernels load x before they know the mask): normal data at n = 0, 1,
+    2, 3, 5, 7 (head and tail alone), 4,194,267 and 4,194,304; views
+    with x at +8 bytes and the mask at +1 and +3 bytes; float32 x, also
+    as a view at +4 bytes (a head of three rows); an all-masked batch; and
+    live NaNs at rows 5 and n - 3 with a NaN on a masked row, where min,
+    max and the sums must be NaN as in the plain version. Count, min and
+    max must equal the plain version's, sums agree within SUM_RTOL, two
+    launches give the same bits, and the sums equal the blocked emulation
+    of the kernel's own order bit for bit. Returns the two summary rows."""
     import numpy as np
 
+    def inputs(kind, n, dtype, xo, mo):
+        x = rng.normal(3.0, 2.0, n + 3).astype(dtype)
+        valid = np.ones(n + 3, dtype=bool)
+        valid[::11] = False  # about 9% nulls, as the main path's x
+        if kind == "all-masked":
+            valid[:] = False
+        elif kind == "nan":
+            x[[xo + 5, xo + n - 3]] = np.nan
+            valid[[mo + 5, mo + n - 3]] = True
+            x[xo] = np.nan  # a masked row: changes nothing
+            valid[mo] = False
+        x_all = torch.from_numpy(x).to(device)
+        m_all = torch.from_numpy(valid).to(device)
+        return x_all[xo:xo + n], m_all[mo:mo + n]
+
+    def same(a, b):  # the same value, NaN included
+        return a == b or (np.isnan(a) and np.isnan(b))
+
+    def same_bits(a, b):  # the same float64 bits; any NaN matches a NaN
+        return np.float64(a).tobytes() == np.float64(b).tobytes() or same(a, b) and a != a
+
+    def calls(x, m, avg):  # {kernel: (its wrapper, its plain version)} on these inputs
+        return {
+            "masked_moments": (lambda: ck.masked_moments(x, m),
+                               lambda: ck.masked_moments_plain(x, m)),
+            "masked_centered_sumsq": (lambda: ck.masked_centered_sumsq(x, m, avg),
+                                      lambda: ck.masked_centered_sumsq_plain(x, m, avg)),
+        }
+
+    f64, f32 = np.float64, np.float32
+    # (case, n, dtype, rows x is offset by, bytes the mask is offset by)
+    cases = [("normal", n, f64, 0, 0) for n in (0, 1, 2, 3, 5, 7, BATCH - 37, BATCH)]
+    cases += [("view", BATCH - 37, f64, 1, 1), ("view", BATCH - 37, f64, 1, 3)]
+    cases += [("float32", BATCH, f32, 0, 0), ("float32-view", BATCH - 37, f32, 1, 2)]
+    cases += [("all-masked", BATCH, f64, 0, 0), ("nan", BATCH, f64, 0, 0)]
+    worst = {"masked_moments": 0.0, "masked_centered_sumsq": 0.0}
+    for kind, n, dtype, xo, mo in cases:
+        x, m = inputs(kind, n, dtype, xo, mo)
+        live = m.any().item()
+        avg = x[m].double().mean() if live else torch.zeros((), dtype=torch.float64, device=device)
+        head, grid = ck.moments_plan(n, x.data_ptr(), x.element_size())
+        where = {"case": kind, "n": n, "dtype": str(x.dtype).replace("torch.", ""),
+                 "x_offset_bytes": x.data_ptr() % 16, "mask_offset_bytes": m.data_ptr() % 16,
+                 "plan": {"head": head, "grid": grid}}
+
+        got = ck.masked_moments(x, m).cpu().numpy()
+        again = ck.masked_moments(x, m).cpu().numpy()
+        want = ck.masked_moments_plain(x, m).cpu().numpy()
+        blocked = ck.masked_moments_blocked(x, m).cpu().numpy()
+        if got.tobytes() != again.tobytes():
+            raise AssertionError(f"masked_moments {where}: two launches differ")
+        exact = got[0] == want[0] and same(got[2], want[2]) and same(got[3], want[3])
+        sum_ok = close(got[1], want[1], SUM_RTOL) or (np.isnan(got[1]) and np.isnan(want[1]))
+        if not (exact and sum_ok and same_bits(got[1], blocked[1])):
+            raise AssertionError(f"masked_moments {where}: kernel {got} plain {want} blocked {blocked}")
+        if kind == "nan" and not np.isnan(got[1:]).all():
+            raise AssertionError(f"masked_moments {where}: live NaNs gave {got}")
+        if kind == "all-masked" and got.tolist() != [0.0, 0.0, np.inf, -np.inf]:
+            raise AssertionError(f"masked_moments {where}: all masked gave {got}")
+        err = 0.0 if kind == "nan" or not live else float(np.max(np.abs(got - want)))
+        worst["masked_moments"] = max(worst["masked_moments"], err)
+        emit({"phase": "kernel_check", "kernel": "masked_moments", **where, "max_abs_err": err,
+              "result": got.tolist(), "sum_equals_blocked_emulation": True})
+
+        got = float(ck.masked_centered_sumsq(x, m, avg))
+        again = float(ck.masked_centered_sumsq(x, m, avg))
+        want = float(ck.masked_centered_sumsq_plain(x, m, avg))
+        blocked = float(ck.masked_centered_sumsq_blocked(x, m, avg))
+        if np.float64(got).tobytes() != np.float64(again).tobytes():
+            raise AssertionError(f"masked_centered_sumsq {where}: two launches differ")
+        if not same_bits(got, blocked):
+            raise AssertionError(f"masked_centered_sumsq {where}: kernel {got} blocked {blocked}")
+        if not (close(got, want, SUM_RTOL) or (np.isnan(got) and np.isnan(want))):
+            raise AssertionError(f"masked_centered_sumsq {where}: kernel {got} plain {want}")
+        if kind == "all-masked" and got != 0.0:
+            raise AssertionError(f"masked_centered_sumsq {where}: all masked gave {got}")
+        err = 0.0 if kind == "nan" else abs(got - want)
+        worst["masked_centered_sumsq"] = max(worst["masked_centered_sumsq"], err)
+        emit({"phase": "kernel_check", "kernel": "masked_centered_sumsq", **where,
+              "max_abs_err": err, "result": got, "equals_blocked_emulation": True})
+        if kind == "float32":
+            emit({"phase": "kernel_float32", **where,
+                  **{name: {"ms": timer.ms(fn), "plain_ms": timer.ms(plain)}
+                     for name, (fn, plain) in calls(x, m, avg).items()}})
+        if kind == "normal" and n == BATCH:
+            batch = calls(x, m, avg)
     rows = []
-    for name in ("masked_moments", "masked_centered_sumsq"):
-        worst = 0.0
-        for n in (0, 1, BATCH - 37, BATCH):
-            x_np = rng.normal(3.0, 2.0, n)
-            valid = np.ones(n, dtype=bool)
-            valid[::11] = False  # about 9% nulls, as the main path's x
-            x = torch.from_numpy(np.where(valid, x_np, 0.0)).to(device)
-            m = torch.from_numpy(valid).to(device)
-            if name == "masked_moments":
-                got = ck.masked_moments(x, m).cpu().numpy()
-                if got.tobytes() != ck.masked_moments(x, m).cpu().numpy().tobytes():
-                    raise AssertionError(f"masked_moments n={n}: two launches differ")
-                want = ck.masked_moments_plain(x, m).cpu().numpy()
-                exact = got[0] == want[0] and got[2] == want[2] and got[3] == want[3]
-                if not (exact and close(got[1], want[1], SUM_RTOL)):
-                    raise AssertionError(f"masked_moments n={n}: kernel {got} plain {want}")
-                err = float(np.max(np.abs(got - want))) if n and valid.any() else 0.0
-            elif name == "masked_centered_sumsq":
-                avg = torch.tensor(float(x_np[valid].mean()) if valid.any() else 0.0,
-                                   dtype=torch.float64, device=device)
-                got = float(ck.masked_centered_sumsq(x, m, avg))
-                if got != float(ck.masked_centered_sumsq(x, m, avg)):
-                    raise AssertionError(f"masked_centered_sumsq n={n}: two launches differ")
-                want = float(ck.masked_centered_sumsq_plain(x, m, avg))
-                if not close(got, want, SUM_RTOL):
-                    raise AssertionError(f"masked_centered_sumsq n={n}: kernel {got} plain {want}")
-                err = abs(got - want)
-            worst = max(worst, err)
-            emit({"phase": "kernel_check", "kernel": name, "n": n, "max_abs_err": err})
-        # x, m are the full batch's after the loop
-        n = BATCH
-        if name == "masked_moments":
-            ms = timer.ms(lambda: ck.masked_moments(x, m))
-            plain = timer.ms(lambda: ck.masked_moments_plain(x, m))
-            bound, by = bound_ms(n * 9 + 4 * 8, 3 * n, FP64_OPS_PER_S)
-            replaces = "deequ_tpu/ops/pallas_kernels.py:231"
-        else:
-            ms = timer.ms(lambda: ck.masked_centered_sumsq(x, m, avg))
-            plain = timer.ms(lambda: ck.masked_centered_sumsq_plain(x, m, avg))
-            bound, by = bound_ms(n * 9 + 2 * 8, 3 * n, FP64_OPS_PER_S)
-            replaces = "deequ_tpu/ops/pallas_kernels.py:269"
+    for name, replaces, outputs, kernel in (
+        ("masked_moments", "deequ_tpu/ops/pallas_kernels.py:231", 4, "masked_moments_kernel"),
+        ("masked_centered_sumsq", "deequ_tpu/ops/pallas_kernels.py:269", 1,
+         "centered_sumsq_kernel"),
+    ):
+        fn, plain = batch[name]
+        ms = timer.ms(fn)
+        # bytes: x (float64) and the mask read once, the outputs written once
+        bound, by = bound_ms(BATCH * 9 + outputs * 8, 3 * BATCH, FP64_OPS_PER_S)
+        profile(name, fn, kernel, ms)
         row = {
             "name": name,
             "route": "cuda",
             "source": "deequ_tpu_torch/csrc/kernels.cu",
             "replaces": replaces,
             "launches": None,
-            "max_abs_err": worst,
+            "max_abs_err": worst[name],
             "ms": ms,
-            "plain_ms": plain,
+            "plain_ms": timer.ms(plain),
             "bound_ms": bound,
             "bound_by": by,
             "library_ms": None,  # no single PyTorch call computes it
             "held_against_plain": True,
         }
-        emit({"phase": "kernel", **row, "rows": n})
+        emit({"phase": "kernel", **row, "rows": BATCH})
         rows.append(row)
     return rows
 
@@ -347,9 +415,10 @@ def profiler_phase(torch, timer):
     torch.profiler, the L2 evicted before each call as the event timer
     does, and emits the kernel's device time beside the CUDA-event time
     of the call. From the device timeline: the span from the start of
-    the call's first device operation (the output's zero fill) to the
-    end of the kernel, and the gap between the eviction's end and that
-    start, which would hold any host delay inside the event time."""
+    the call's first device operation (the output's zero fill, where the
+    call has one) to the end of the kernel, and the gap between the
+    eviction's end and that start, which would hold any host delay
+    inside the event time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -799,9 +868,11 @@ def main() -> int:
     timer = Timer(torch, device)
     emit({"phase": "timer", "empty_call_ms": timer.ms(lambda: torch.empty(1, device=device))})
     profile = profiler_phase(torch, timer)
-    summary = kernel_phase(torch, ck, device, rng, timer)
-    summary.append(hll_phase(torch, ck, hll, device, rng, timer, profile))
-    summary.append(hist16_phase(torch, ck, device, rng, timer, profile))
+    # K3 and K4 first: measured after the moments cases' many batch-sized
+    # buffers, hist16's kernel itself ran slower (PERF.md, Findings)
+    rest = [hll_phase(torch, ck, hll, device, rng, timer, profile),
+            hist16_phase(torch, ck, device, rng, timer, profile)]
+    summary = moments_phase(torch, ck, device, rng, timer, profile) + rest
     refused_launch_phase(torch, ck, cuda_build, device)
     del timer, profile  # frees the 256 MB L2 flush buffer before the main path
     launches = main_path_phase(torch, ck, args.rows, args.seed, card, power_limit)

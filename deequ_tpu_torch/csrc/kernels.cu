@@ -18,12 +18,57 @@
 // Bound on the H100 (3.35 TB/s HBM3): every kernel reads each input once
 // and does a handful of operations per row, so each is bound by bytes.
 //
-// K1, K2 read 9 B/row (f64 value + bool mask), about 11 us for a
-// 4,194,304-row batch. One pass over the inputs, grid-stride, 8 blocks
-// of 256 threads per SM, scalar loads. Determinism: no float atomics.
-// Each block writes one partial; a second single-block kernel folds the
-// partials in a fixed order. With the grid a function of n alone, a sum
-// is bit-identical from run to run, which cached states rely on.
+// K1 (masked_moments) and K2 (masked_centered_sumsq) read 9 B/row (f64
+// value + bool mask; 5 B/row for f32 x): 37.7 MB and 0.01127 ms for a
+// 4,194,304-row batch. The first design ran 8 blocks of 256 threads per
+// SM, one row per thread per step, and loaded x[i] inside `if (m[i])`:
+// each step waited on two memory round trips in a row with one load in
+// flight per thread, and a second launch folded the partials. It reached
+// about 40% of the bound. This design:
+// - Loads ahead of the mask. A thread takes quads of four rows: x as two
+//   double2 (one float4 for f32) and the four mask bytes as one word
+//   (load_mask4). It issues kMomentsQuadsInFlight quads' loads (72 bytes
+//   for f64) before it uses any, and selects live rows in registers:
+//   `sum + (live ? v : 0.0)` has the bits of skipping the row, since a
+//   sum that starts at +0.0 is never -0.0. Reading x under a false mask
+//   costs nothing: the bound counts all of x.
+// - Occupancy: blocks of 512 threads, two per SM (__launch_bounds__ caps
+//   the registers at 64), so an SM has 1024 threads x 72 B = 72 KB in
+//   flight, four times the 18 KB that 3.35 TB/s x ~0.7 us asks of it.
+// - The grid is moments_plan's: ceil(quads / 1024) blocks, at most 264
+//   (two on each of the H100's 132 SMs). It is a function of n alone, so
+//   the summation order, and with it every sum's bits, is the same on
+//   every run and on every card with this build.
+// - Alignment: the plan's head (0-1 rows of f64, 0-3 of f32) brings x to
+//   16 bytes and is read scalar by the first threads of block 0; then
+//   the quads, grid-stride; then a tail of up to three rows, read scalar.
+//   The mask may sit at any address.
+// - Order: each thread adds its head row, its quads in ascending order
+//   and its tail row, one after another; then a warp tree
+//   (__shfl_down_sync 16, 8, 4, 2, 1) and a tree over the block's 16
+//   warp sums. cuda_kernels.masked_moments_blocked and
+//   masked_centered_sumsq_blocked repeat this order in PyTorch and must
+//   give the same bits.
+// - One launch: each block writes its partial and draws a ticket with
+//   one acquire-release atomic inc on a counter that wraps to 0 at
+//   gridDim.x - 1. The block that draws the last ticket folds the
+//   partials in index order with the same trees (grid <= 512: one partial
+//   a thread), and its draw has left the counter at 0 for the next
+//   launch. The wrapper keeps one counter per device and stream: launches
+//   on one stream run one after another, so no two launches share a
+//   counter at once. Against a second fold launch and a cooperative
+//   launch with a grid sync, measured by tools/torch_kernel_probe.py,
+//   this was the fastest (PERF.md). The fold's serial chain (the ticket's
+//   round trip to L2, the partials' read, two trees) is what keeps K1
+//   about 2.5 us above a kernel that only loads its bytes.
+// - Min and max propagate NaN as the plain version and jnp.minimum do
+//   (`v < mn || v != v`), never with the math library's min and max,
+//   which return the other operand when one is NaN. Count, min
+//   and max are exact in any order.
+// - K2 writes (x - avg)^2 and its add as __dsub_rn, __dmul_rn and
+//   __dadd_rn, so nvcc cannot contract them into an FMA and the PyTorch
+//   emulation reproduces the kernel's bits.
+// No float atomics anywhere.
 //
 // K3 (hll_register_max) reads 5 B/row (int32 code + bool mask), about
 // 6 us a batch. Two blocks of 1024 threads per SM (the wrapper passes
@@ -78,186 +123,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerThread = 8;  // rows a thread covers before the grid grows
 constexpr int kHllRegisters = 512;  // HLL++ p = 9
 
-int grid_for(long long n, int max_blocks) {
-  long long want = (n + (long long)kThreads * kRowsPerThread - 1) /
-                   ((long long)kThreads * kRowsPerThread);
-  if (want < 1) want = 1;
-  if (want > max_blocks) want = max_blocks;
-  return (int)want;
-}
-
-struct Moments {
-  long long cnt;
-  double sum;
-  double mn;
-  double mx;
-};
-
-__device__ __forceinline__ Moments moments_identity() {
-  Moments r;
-  r.cnt = 0;
-  r.sum = 0.0;
-  r.mn = CUDART_INF;
-  r.mx = -CUDART_INF;
-  return r;
-}
-
-__device__ __forceinline__ Moments moments_combine(Moments a, Moments b) {
-  Moments r;
-  r.cnt = a.cnt + b.cnt;
-  r.sum = a.sum + b.sum;
-  r.mn = fmin(a.mn, b.mn);
-  r.mx = fmax(a.mx, b.mx);
-  return r;
-}
-
-__device__ __forceinline__ Moments warp_reduce(Moments v) {
-  for (int offset = 16; offset > 0; offset >>= 1) {
-    Moments o;
-    o.cnt = __shfl_down_sync(0xffffffffu, v.cnt, offset);
-    o.sum = __shfl_down_sync(0xffffffffu, v.sum, offset);
-    o.mn = __shfl_down_sync(0xffffffffu, v.mn, offset);
-    o.mx = __shfl_down_sync(0xffffffffu, v.mx, offset);
-    v = moments_combine(v, o);
-  }
-  return v;
-}
-
-// Fixed-shape block reduce: warp shuffles, then warp 0 over the warp
-// results. Thread 0 holds the block's value on return.
-__device__ __forceinline__ Moments block_reduce(Moments v) {
-  __shared__ long long s_cnt[kWarps];
-  __shared__ double s_sum[kWarps];
-  __shared__ double s_mn[kWarps];
-  __shared__ double s_mx[kWarps];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  v = warp_reduce(v);
-  if (lane == 0) {
-    s_cnt[warp] = v.cnt;
-    s_sum[warp] = v.sum;
-    s_mn[warp] = v.mn;
-    s_mx[warp] = v.mx;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    Moments w = moments_identity();
-    if (lane < kWarps) {
-      w.cnt = s_cnt[lane];
-      w.sum = s_sum[lane];
-      w.mn = s_mn[lane];
-      w.mx = s_mx[lane];
-    }
-    v = warp_reduce(w);
-  }
-  return v;
-}
-
-__device__ __forceinline__ double block_reduce_sum(double v) {
-  __shared__ double s_sum[kWarps];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int offset = 16; offset > 0; offset >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, offset);
-  if (lane == 0) s_sum[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < kWarps ? s_sum[lane] : 0.0;
-    for (int offset = 16; offset > 0; offset >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, offset);
-  }
-  return v;
-}
-
-// ---- K1: masked count / sum / min / max ---------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-moments_partial(const T* __restrict__ x, const uint8_t* __restrict__ m,
-                long long n, long long* __restrict__ part_cnt,
-                double* __restrict__ part_sum, double* __restrict__ part_mn,
-                double* __restrict__ part_mx) {
-  Moments acc = moments_identity();
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    if (m[i]) {
-      const double v = (double)x[i];
-      acc.cnt += 1;
-      acc.sum += v;
-      acc.mn = fmin(acc.mn, v);
-      acc.mx = fmax(acc.mx, v);
-    }
-  }
-  acc = block_reduce(acc);
-  if (threadIdx.x == 0) {
-    part_cnt[blockIdx.x] = acc.cnt;
-    part_sum[blockIdx.x] = acc.sum;
-    part_mn[blockIdx.x] = acc.mn;
-    part_mx[blockIdx.x] = acc.mx;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-moments_final(const long long* __restrict__ part_cnt,
-              const double* __restrict__ part_sum,
-              const double* __restrict__ part_mn,
-              const double* __restrict__ part_mx, int parts,
-              double* __restrict__ out) {
-  Moments acc = moments_identity();
-  for (int i = threadIdx.x; i < parts; i += blockDim.x) {
-    Moments p;
-    p.cnt = part_cnt[i];
-    p.sum = part_sum[i];
-    p.mn = part_mn[i];
-    p.mx = part_mx[i];
-    acc = moments_combine(acc, p);
-  }
-  acc = block_reduce(acc);
-  if (threadIdx.x == 0) {
-    out[0] = (double)acc.cnt;
-    out[1] = acc.sum;
-    out[2] = acc.mn;
-    out[3] = acc.mx;
-  }
-}
-
-// ---- K2: masked centred sum of squares ----------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-sumsq_partial(const T* __restrict__ x, const uint8_t* __restrict__ m,
-              long long n, const double* __restrict__ avg,
-              double* __restrict__ part) {
-  const double a = *avg;
-  double acc = 0.0;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    if (m[i]) {
-      const double d = (double)x[i] - a;
-      acc += d * d;
-    }
-  }
-  acc = block_reduce_sum(acc);
-  if (threadIdx.x == 0) part[blockIdx.x] = acc;
-}
-
-__global__ void __launch_bounds__(kThreads)
-sumsq_final(const double* __restrict__ part, int parts,
-            double* __restrict__ out) {
-  double acc = 0.0;
-  for (int i = threadIdx.x; i < parts; i += blockDim.x) acc += part[i];
-  acc = block_reduce_sum(acc);
-  if (threadIdx.x == 0) out[0] = acc;
-}
-
-// ---- vector loads shared by K3 and K4 -----------------------------------
+// ---- vector loads shared by K1-K4 ---------------------------------------
 
 // Four mask bytes from p, at any alignment, as one 32-bit word (byte j is
 // row j). Two aligned words are read and funnel-shifted; each holds at
@@ -272,6 +140,240 @@ __device__ __forceinline__ uint32_t load_mask4(const uint8_t* p) {
 
 __device__ __forceinline__ bool mask_byte(uint32_t word, int j) {
   return (word >> (8 * j)) & 0xFFu;
+}
+
+// Quad q of four rows from a 16-byte aligned x, widened to double.
+__device__ __forceinline__ void load_quad(const double* x, long long q, double (&v)[4]) {
+  const double2* p = reinterpret_cast<const double2*>(x) + 2 * q;
+  const double2 a = __ldg(p);
+  const double2 b = __ldg(p + 1);
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+  v[3] = b.y;
+}
+
+__device__ __forceinline__ void load_quad(const float* x, long long q, double (&v)[4]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(x) + q);
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = a.z;
+  v[3] = a.w;
+}
+
+// ---- K1, K2: the rows a thread reads, and the trees ---------------------
+
+constexpr int kMomentsThreads = 512;
+constexpr int kMomentsWarps = kMomentsThreads / 32;
+constexpr int kMomentsQuadsInFlight = 2;  // quads a thread loads before using any
+
+// Calls acc.add(v, live) for each of this thread's rows, in the order the
+// blocked emulation repeats: row `tid` of the head (rows [0, head) bring
+// x to 16 bytes), the thread's quads tid, tid + stride, ... ascending,
+// then row `tid` of the tail (at most three rows). Loads of U quads are
+// issued before any of them is used.
+template <int U, typename T, typename Acc>
+__device__ __forceinline__ void for_each_row(const T* __restrict__ x,
+                                             const uint8_t* __restrict__ m,
+                                             long long n, int head, Acc& acc) {
+  const long long tid = (long long)blockIdx.x * kMomentsThreads + threadIdx.x;
+  const long long stride = (long long)gridDim.x * kMomentsThreads;
+  if (tid < head) acc.add((double)x[tid], m[tid] != 0);
+  const long long quads = (n - head) >> 2;
+  const T* xq = x + head;
+  const uint8_t* mq = m + head;
+  long long q = tid;
+  for (; q + (U - 1) * stride < quads; q += U * stride) {
+    double v[U][4];
+    uint32_t mk[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      load_quad(xq, q + u * stride, v[u]);
+      mk[u] = load_mask4(mq + 4 * (q + u * stride));
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc.add(v[u][j], mask_byte(mk[u], j));
+  }
+  for (; q < quads; q += stride) {
+    double v[4];
+    load_quad(xq, q, v);
+    const uint32_t mk = load_mask4(mq + 4 * q);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc.add(v[j], mask_byte(mk, j));
+  }
+  const long long tail = head + 4 * quads;
+  if (tid < n - tail) acc.add((double)x[tail + tid], m[tail + tid] != 0);
+}
+
+// Lane 0 gets the warp's fold: lane i adds lane i + offset for offset 16,
+// 8, 4, 2, 1.
+template <typename V>
+__device__ __forceinline__ V warp_tree(V v) {
+  for (int offset = 16; offset > 0; offset >>= 1) v = V::combine(v, V::shfl_down(v, offset));
+  return v;
+}
+
+// Thread 0 gets the block's fold: the warp trees, then warp 0's tree over
+// the kMomentsWarps warp values and identities in its other lanes. Starts
+// and ends with __syncthreads, so two calls may follow each other.
+template <typename V>
+__device__ __forceinline__ V block_tree(V v) {
+  __shared__ V s_warp[kMomentsWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  v = warp_tree(v);
+  __syncthreads();
+  if (lane == 0) s_warp[warp] = v;
+  __syncthreads();
+  if (warp == 0) v = warp_tree(lane < kMomentsWarps ? s_warp[lane] : V::identity());
+  return v;
+}
+
+// True in the one block that draws the last ticket, after every block has
+// written its partial. Thread 0, which stored the block's partial, draws
+// with one acquire-release atomic inc at GPU scope: the release publishes
+// the partial before the ticket, and in the block that draws last the
+// acquire makes every other block's partial visible; __syncthreads passes
+// that on to the block's other threads. (Two __threadfence() around a
+// relaxed atomicInc cost 0.3-0.7 us more; PERF.md.) inc wraps the
+// counter to 0 at gridDim.x - 1, so the last draw leaves it at 0 for the
+// next launch on this stream.
+__device__ __forceinline__ bool drew_last_ticket(unsigned int* tickets) {
+  __shared__ bool s_last;
+  if (threadIdx.x == 0) {
+    unsigned int ticket;
+    asm volatile("atom.acq_rel.gpu.global.inc.u32 %0, [%1], %2;"
+                 : "=r"(ticket)
+                 : "l"(tickets), "r"(gridDim.x - 1)
+                 : "memory");
+    s_last = ticket == gridDim.x - 1;
+  }
+  __syncthreads();
+  return s_last;
+}
+
+// ---- K1: masked count / sum / min / max ---------------------------------
+
+struct Moments {
+  long long cnt;
+  double sum;
+  double mn;
+  double mx;
+
+  __device__ static Moments identity() { return {0, 0.0, CUDART_INF, -CUDART_INF}; }
+
+  // NaN wins, as in the plain version (torch.min/max) and jnp.minimum
+  __device__ static double lower(double a, double b) { return (b < a || b != b) ? b : a; }
+  __device__ static double upper(double a, double b) { return (b > a || b != b) ? b : a; }
+
+  __device__ static Moments combine(Moments a, Moments b) {
+    return {a.cnt + b.cnt, a.sum + b.sum, lower(a.mn, b.mn), upper(a.mx, b.mx)};
+  }
+
+  __device__ static Moments shfl_down(Moments v, int offset) {
+    return {__shfl_down_sync(0xffffffffu, v.cnt, offset),
+            __shfl_down_sync(0xffffffffu, v.sum, offset),
+            __shfl_down_sync(0xffffffffu, v.mn, offset),
+            __shfl_down_sync(0xffffffffu, v.mx, offset)};
+  }
+
+  __device__ void add(double v, bool live) {
+    cnt += live;
+    sum = sum + (live ? v : 0.0);
+    mn = lower(mn, live ? v : CUDART_INF);
+    mx = upper(mx, live ? v : -CUDART_INF);
+  }
+};
+
+// The block's fold of its rows; thread 0 holds it.
+template <int U, typename T>
+__device__ __forceinline__ Moments moments_block(const T* x, const uint8_t* m,
+                                                 long long n, int head) {
+  Moments acc = Moments::identity();
+  for_each_row<U>(x, m, n, head, acc);
+  return block_tree(acc);
+}
+
+// The fold of `parts` partials in index order (parts <= kMomentsThreads),
+// written to out as 4 doubles by thread 0.
+__device__ __forceinline__ void moments_fold(const Moments* part, int parts,
+                                             double* out) {
+  Moments p = Moments::identity();
+  if ((int)threadIdx.x < parts) {
+    // the partials come from other SMs: read them from L2, not L1
+    p.cnt = __ldcg(&part[threadIdx.x].cnt);
+    p.sum = __ldcg(&part[threadIdx.x].sum);
+    p.mn = __ldcg(&part[threadIdx.x].mn);
+    p.mx = __ldcg(&part[threadIdx.x].mx);
+  }
+  p = block_tree(p);
+  if (threadIdx.x == 0) {
+    out[0] = (double)p.cnt;
+    out[1] = p.sum;
+    out[2] = p.mn;
+    out[3] = p.mx;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kMomentsThreads, 2)
+masked_moments_kernel(const T* __restrict__ x, const uint8_t* __restrict__ m,
+                      long long n, int head, Moments* __restrict__ part,
+                      unsigned int* __restrict__ tickets, double* __restrict__ out) {
+  const Moments b = moments_block<kMomentsQuadsInFlight>(x, m, n, head);
+  if (threadIdx.x == 0) part[blockIdx.x] = b;
+  if (drew_last_ticket(tickets)) moments_fold(part, gridDim.x, out);
+}
+
+// ---- K2: masked centred sum of squares ----------------------------------
+
+struct Sum {
+  double v;
+
+  __device__ static Sum identity() { return {0.0}; }
+  __device__ static Sum combine(Sum a, Sum b) { return {a.v + b.v}; }
+  __device__ static Sum shfl_down(Sum s, int offset) {
+    return {__shfl_down_sync(0xffffffffu, s.v, offset)};
+  }
+};
+
+struct CenteredSquares {
+  double avg;
+  Sum acc;
+
+  // rounded apart, never one FMA: the emulation repeats these bits
+  __device__ void add(double v, bool live) {
+    const double d = __dsub_rn(v, avg);
+    acc.v = __dadd_rn(acc.v, live ? __dmul_rn(d, d) : 0.0);
+  }
+};
+
+template <int U, typename T>
+__device__ __forceinline__ Sum sumsq_block(const T* x, const uint8_t* m, long long n,
+                                           int head, double avg) {
+  CenteredSquares rows{avg, Sum::identity()};
+  for_each_row<U>(x, m, n, head, rows);
+  return block_tree(rows.acc);
+}
+
+__device__ __forceinline__ void sumsq_fold(const Sum* part, int parts, double* out) {
+  Sum p = Sum::identity();
+  if ((int)threadIdx.x < parts) p.v = __ldcg(&part[threadIdx.x].v);
+  p = block_tree(p);
+  if (threadIdx.x == 0) out[0] = p.v;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kMomentsThreads, 2)
+centered_sumsq_kernel(const T* __restrict__ x, const uint8_t* __restrict__ m,
+                      long long n, int head, const double* __restrict__ avg,
+                      Sum* __restrict__ part, unsigned int* __restrict__ tickets,
+                      double* __restrict__ out) {
+  const Sum b = sumsq_block<kMomentsQuadsInFlight>(x, m, n, head, *avg);
+  if (threadIdx.x == 0) part[blockIdx.x] = b;
+  if (drew_last_ticket(tickets)) sumsq_fold(part, gridDim.x, out);
 }
 
 // ---- K3: HLL register max -----------------------------------------------
@@ -498,51 +600,45 @@ hist16_count(const double* __restrict__ x, const uint8_t* __restrict__ live,
 
 extern "C" {
 
-// out: 4 doubles (count, sum, min, max). scratch: 4 * max_blocks 8-byte
-// slots. x_is_f32 selects float over double input.
+// out: 4 doubles (count, sum, min, max). head and blocks are the wrapper's
+// plan (moments_plan); scratch: 4 * blocks 8-byte slots for the partials;
+// tickets: this stream's counter, 0 between launches. x_is_f32 selects
+// float over double input.
 int dq_masked_moments(const void* x, int x_is_f32, const void* m, long long n,
-                      void* scratch, int max_blocks, void* out, void* stream) {
+                      int head, int blocks, void* scratch, void* tickets,
+                      void* out, void* stream) {
+  if (blocks > kMomentsThreads) return (int)cudaErrorInvalidValue;  // one partial a thread
   cudaStream_t s = (cudaStream_t)stream;
-  const int blocks = grid_for(n, max_blocks);
-  long long* part_cnt = (long long*)scratch;
-  double* part_sum = (double*)scratch + max_blocks;
-  double* part_mn = (double*)scratch + 2 * max_blocks;
-  double* part_mx = (double*)scratch + 3 * max_blocks;
+  Moments* part = (Moments*)scratch;
   if (x_is_f32) {
-    moments_partial<float><<<blocks, kThreads, 0, s>>>(
-        (const float*)x, (const uint8_t*)m, n, part_cnt, part_sum, part_mn,
-        part_mx);
+    masked_moments_kernel<float><<<blocks, kMomentsThreads, 0, s>>>(
+        (const float*)x, (const uint8_t*)m, n, head, part, (unsigned int*)tickets,
+        (double*)out);
   } else {
-    moments_partial<double><<<blocks, kThreads, 0, s>>>(
-        (const double*)x, (const uint8_t*)m, n, part_cnt, part_sum, part_mn,
-        part_mx);
+    masked_moments_kernel<double><<<blocks, kMomentsThreads, 0, s>>>(
+        (const double*)x, (const uint8_t*)m, n, head, part, (unsigned int*)tickets,
+        (double*)out);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  moments_final<<<1, kThreads, 0, s>>>(part_cnt, part_sum, part_mn, part_mx,
-                                       blocks, (double*)out);
   return (int)cudaGetLastError();
 }
 
-// out: 1 double. avg: 1 double on the device. scratch: max_blocks doubles.
+// out: 1 double. avg: 1 double on the device. head, blocks, scratch (blocks
+// doubles) and tickets as for dq_masked_moments.
 int dq_centered_sumsq(const void* x, int x_is_f32, const void* m, long long n,
-                      const void* avg, void* scratch, int max_blocks, void* out,
-                      void* stream) {
+                      int head, int blocks, const void* avg, void* scratch,
+                      void* tickets, void* out, void* stream) {
+  if (blocks > kMomentsThreads) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int blocks = grid_for(n, max_blocks);
+  Sum* part = (Sum*)scratch;
   if (x_is_f32) {
-    sumsq_partial<float><<<blocks, kThreads, 0, s>>>(
-        (const float*)x, (const uint8_t*)m, n, (const double*)avg,
-        (double*)scratch);
+    centered_sumsq_kernel<float><<<blocks, kMomentsThreads, 0, s>>>(
+        (const float*)x, (const uint8_t*)m, n, head, (const double*)avg, part,
+        (unsigned int*)tickets, (double*)out);
   } else {
-    sumsq_partial<double><<<blocks, kThreads, 0, s>>>(
-        (const double*)x, (const uint8_t*)m, n, (const double*)avg,
-        (double*)scratch);
+    centered_sumsq_kernel<double><<<blocks, kMomentsThreads, 0, s>>>(
+        (const double*)x, (const uint8_t*)m, n, head, (const double*)avg, part,
+        (unsigned int*)tickets, (double*)out);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  sumsq_final<<<1, kThreads, 0, s>>>((const double*)scratch, blocks,
-                                     (double*)out);
   return (int)cudaGetLastError();
 }
 

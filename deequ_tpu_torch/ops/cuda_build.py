@@ -89,9 +89,11 @@ def load() -> ctypes.CDLL:
         if _LIB is None:
             lib = ctypes.CDLL(build())
             ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.dq_masked_moments.argtypes = [ptr, i32, ptr, i64, ptr, i32, ptr, ptr]
+            lib.dq_masked_moments.argtypes = [ptr, i32, ptr, i64, i32, i32, ptr, ptr, ptr, ptr]
             lib.dq_masked_moments.restype = i32
-            lib.dq_centered_sumsq.argtypes = [ptr, i32, ptr, i64, ptr, ptr, i32, ptr, ptr]
+            lib.dq_centered_sumsq.argtypes = [
+                ptr, i32, ptr, i64, i32, i32, ptr, ptr, ptr, ptr, ptr,
+            ]
             lib.dq_centered_sumsq.restype = i32
             lib.dq_hll_register_max.argtypes = [ptr, ptr, i64, i32, i32, ptr, ptr]
             lib.dq_hll_register_max.restype = i32

@@ -10,6 +10,11 @@ Each wrapper counts its kernel launches in a plain integer attribute
 (`masked_moments.launches`, ...), so a run can show that its main path
 went through the kernels; `reset_launch_counts()` zeroes them.
 
+K1 and K2 also have a blocked emulation (`masked_moments_blocked`,
+`masked_centered_sumsq_blocked`): PyTorch that adds the rows in the
+kernel's own order, so the tests and `chip_smoke.py` can hold the
+kernel's sums to the bit. Nothing on the main path calls them.
+
 | wrapper               | replaces (deequ_tpu/ops/pallas_kernels.py) |
 |-----------------------|--------------------------------------------|
 | masked_moments        | masked_moments (:231)                      |
@@ -21,17 +26,21 @@ went through the kernels; `reset_launch_counts()` zeroes them.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+import threading
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 N_REGISTERS = 512  # HLL++ p = 9 (ops/sketches/hll.M)
 HIST_BINS = 65536  # the full 16-bit sortable-key space
 HIST_SENTINEL = HIST_BINS - 1  # the bin of excluded rows
-# Partial slots per reduction: 8 blocks of 256 threads on each of the
-# H100's 132 SMs. A constant, so the grid — and with it the summation
-# order — depends on the row count alone.
-MAX_BLOCKS = 8 * 132
+# K1 and K2 run blocks of this many threads (csrc/kernels.cu
+# kMomentsThreads), at least two quads of four rows a thread, and at most
+# two blocks on each of the H100's 132 SMs. Constants, so the grid — and
+# with it the summation order — depends on the row count alone.
+MOMENTS_THREADS = 512
+MOMENTS_MAX_GRID = 2 * 132
 # K3 runs two blocks and K4 one block of this many threads per SM
 # (csrc/kernels.cu kHllThreads, kHistThreads); their results do not
 # depend on the grid.
@@ -97,6 +106,39 @@ def hll_plan(n: int, sms: int, codes_ptr: int) -> Tuple[int, int]:
     return head, max(1, min(2 * sms, _cdiv(quads, BLOCK_THREADS)))
 
 
+def moments_plan(n: int, x_ptr: int, itemsize: int) -> Tuple[int, int]:
+    """(head, grid) of a K1 or K2 launch: `head` rows (0-1 of float64,
+    0-3 of float32) bring x at `x_ptr` to a 16-byte boundary; then one
+    block of MOMENTS_THREADS threads per two quads a thread, at most
+    MOMENTS_MAX_GRID blocks."""
+    if itemsize not in (4, 8) or x_ptr % itemsize:
+        raise ValueError(f"x of {itemsize}-byte values at {x_ptr:#x} is not aligned to them")
+    head = min(n, (-x_ptr % 16) // itemsize)
+    return head, _moments_grid(n - head)
+
+
+def _moments_grid(body: int) -> int:
+    return max(1, min(MOMENTS_MAX_GRID, _cdiv(body // 4, 2 * MOMENTS_THREADS)))
+
+
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
+_TICKETS_LOCK = threading.Lock()
+
+
+def _tickets(device: torch.device, stream: int) -> torch.Tensor:
+    """The ticket counter of K1's and K2's last-block fold on one stream.
+    A launch draws a ticket per block, and the last draw wraps the counter
+    back to 0. Launches on one stream run one after another, so each finds
+    its stream's counter at 0; two streams never share one."""
+    key = (device.index, stream)
+    with _TICKETS_LOCK:
+        tickets = _TICKETS.get(key)
+        if tickets is None:  # zeroed on this stream, before any launch on it
+            tickets = torch.zeros(1, dtype=torch.int32, device=device)
+            _TICKETS[key] = tickets
+    return tickets
+
+
 def hist16_plan(n: int, sms: int, x_ptr: int) -> Tuple[int, int, int]:
     """(head, window, grid) of a K4 launch: `head` rows (0 or 1) bring the
     float64 x at `x_ptr` to a 16-byte boundary; the rest is cut into
@@ -152,11 +194,14 @@ def masked_moments(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     from deequ_tpu_torch.ops import cuda_build
 
     lib = cuda_build.load()
+    head, grid = moments_plan(x.numel(), x.data_ptr(), x.element_size())
+    stream = _stream(x)
     out = torch.empty(4, dtype=torch.float64, device=x.device)
-    scratch = torch.empty(4 * MAX_BLOCKS, dtype=torch.float64, device=x.device)
+    scratch = torch.empty(4 * grid, dtype=torch.float64, device=x.device)  # the partials
     err = lib.dq_masked_moments(
         x.data_ptr(), int(x.dtype == torch.float32), m.data_ptr(), x.numel(),
-        scratch.data_ptr(), MAX_BLOCKS, out.data_ptr(), _stream(x),
+        head, grid, scratch.data_ptr(), _tickets(x.device, stream).data_ptr(),
+        out.data_ptr(), stream,
     )
     _raise_on(err, "masked_moments")
     masked_moments.launches += 1
@@ -201,12 +246,15 @@ def masked_centered_sumsq(
     from deequ_tpu_torch.ops import cuda_build
 
     lib = cuda_build.load()
+    head, grid = moments_plan(x.numel(), x.data_ptr(), x.element_size())
+    stream = _stream(x)
     avg = avg.contiguous()
     out = torch.empty((), dtype=torch.float64, device=x.device)
-    scratch = torch.empty(MAX_BLOCKS, dtype=torch.float64, device=x.device)
+    scratch = torch.empty(grid, dtype=torch.float64, device=x.device)  # the partials
     err = lib.dq_centered_sumsq(
         x.data_ptr(), int(x.dtype == torch.float32), m.data_ptr(), x.numel(),
-        avg.data_ptr(), scratch.data_ptr(), MAX_BLOCKS, out.data_ptr(), _stream(x),
+        head, grid, avg.data_ptr(), scratch.data_ptr(),
+        _tickets(x.device, stream).data_ptr(), out.data_ptr(), stream,
     )
     _raise_on(err, "masked_centered_sumsq")
     masked_centered_sumsq.launches += 1
@@ -214,6 +262,82 @@ def masked_centered_sumsq(
 
 
 masked_centered_sumsq.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K1 and K2 in the kernel's own summation order
+# ---------------------------------------------------------------------------
+
+
+def _warp_tree(v: torch.Tensor) -> torch.Tensor:
+    """Lane 0 of a warp tree over the last axis of 32 lanes: lane i adds
+    lane i + offset for offset 16, 8, 4, 2, 1 (`__shfl_down_sync`)."""
+    for offset in (16, 8, 4, 2, 1):
+        v = v[..., :offset] + v[..., offset:2 * offset]
+    return v[..., 0]
+
+
+def _block_tree(v: torch.Tensor) -> torch.Tensor:
+    """The fold of blocks of MOMENTS_THREADS values on the last axis:
+    the warp trees, then one tree over the warps' values padded with
+    zeros to 32 lanes (csrc/kernels.cu block_tree)."""
+    warps = _warp_tree(v.reshape(*v.shape[:-1], MOMENTS_THREADS // 32, 32))
+    return _warp_tree(F.pad(warps, (0, 32 - warps.shape[-1])))
+
+
+def _blocked_sum(terms: torch.Tensor, head: int, grid: int) -> torch.Tensor:
+    """The kernel's sum of `terms` (float64, 0.0 on masked rows): thread
+    t adds head row t, its quads t, t + T, ... (T threads in all) and
+    tail row t one after another; then each block's tree, and the tree
+    over the partials in index order. Adding 0.0 where the kernel adds
+    nothing keeps the bits: a sum that starts at +0.0 is never -0.0."""
+    n = terms.numel()
+    threads = grid * MOMENTS_THREADS
+    acc = torch.zeros(threads, dtype=torch.float64, device=terms.device)
+    acc[:head] += terms[:head]
+    quads = (n - head) // 4
+    steps = _cdiv(quads, threads)
+    body = torch.zeros(steps * threads * 4, dtype=torch.float64, device=terms.device)
+    body[:4 * quads] = terms[head:head + 4 * quads]
+    body = body.view(steps, threads, 4)
+    for step in range(steps):
+        for row in range(4):
+            acc = acc + body[step, :, row]
+    tail = terms[head + 4 * quads:]
+    acc[:tail.numel()] += tail
+    partials = _block_tree(acc.view(grid, MOMENTS_THREADS))
+    return _block_tree(F.pad(partials, (0, MOMENTS_THREADS - grid)))
+
+
+def _blocked_plan(x: torch.Tensor, head: Optional[int]) -> Tuple[int, int]:
+    if head is None:
+        return moments_plan(x.numel(), x.data_ptr(), x.element_size())
+    return head, _moments_grid(x.numel() - head)
+
+
+def masked_moments_blocked(
+    x: torch.Tensor, m: torch.Tensor, head: Optional[int] = None
+) -> torch.Tensor:
+    """masked_moments with its sum taken in the K1 kernel's order, for
+    the plan of x's address or the given `head`; count, min and max are
+    the plain version's (exact in any order)."""
+    _check_pair(x, m, _FLOATS)
+    head, grid = _blocked_plan(x, head)
+    plain = masked_moments_plain(x, m)
+    total = _blocked_sum(torch.where(m, x.to(torch.float64), 0.0), head, grid)
+    return torch.stack([plain[0], total, plain[2], plain[3]])
+
+
+def masked_centered_sumsq_blocked(
+    x: torch.Tensor, m: torch.Tensor, avg: torch.Tensor, head: Optional[int] = None
+) -> torch.Tensor:
+    """masked_centered_sumsq in the K2 kernel's order: (x - avg), its
+    square and each add rounded apart, as the kernel's __dsub_rn,
+    __dmul_rn and __dadd_rn."""
+    _check_pair(x, m, _FLOATS)
+    head, grid = _blocked_plan(x, head)
+    d = x.to(torch.float64) - avg
+    return _blocked_sum(torch.where(m, d * d, 0.0), head, grid)
 
 
 # ---------------------------------------------------------------------------

@@ -214,3 +214,140 @@ def test_code_zero_and_masked_rows_are_noops():
 def test_wrappers_reject_bad_inputs(call):
     with pytest.raises((TypeError, ValueError)):
         call()
+
+
+# ---------------------------------------------------------------------------
+# NaN in min and max: the card's kernel must propagate it as these do
+# ---------------------------------------------------------------------------
+
+
+def test_live_nan_makes_min_max_and_sum_nan_on_both_sides():
+    x = np.arange(1024, dtype=np.float32)
+    x[[5, 1021]] = np.nan
+    m = np.ones(1024, dtype=bool)
+    ref = [
+        float(np.asarray(v))
+        for v in pallas_kernels.masked_moments(
+            jnp.asarray(x), jnp.asarray(m.astype(np.float32)), interpret=True
+        )
+    ]
+    got = ck.masked_moments(torch.from_numpy(x), torch.from_numpy(m)).tolist()
+    blocked = ck.masked_moments_blocked(torch.from_numpy(x), torch.from_numpy(m)).tolist()
+    assert got[0] == ref[0] == blocked[0] == 1024
+    assert np.isnan(got[1:]).all() and np.isnan(ref[1:]).all() and np.isnan(blocked[1:]).all()
+
+
+def test_nan_on_a_masked_row_changes_nothing():
+    """The port selects live rows, so a masked NaN is never added. The
+    Pallas kernel's count, min and max agree; its sum multiplies x by the
+    mask (NaN * 0 is NaN), so only the port's sum is held to the rows
+    without the NaN."""
+    x = np.arange(1024, dtype=np.float32)
+    m = np.ones(1024, dtype=bool)
+    m[5] = False
+    clean = ck.masked_moments(torch.from_numpy(x), torch.from_numpy(m)).tolist()
+    x[5] = np.nan
+    got = ck.masked_moments(torch.from_numpy(x), torch.from_numpy(m)).tolist()
+    blocked = ck.masked_moments_blocked(torch.from_numpy(x), torch.from_numpy(m)).tolist()
+    ref = [
+        float(np.asarray(v))
+        for v in pallas_kernels.masked_moments(
+            jnp.asarray(x), jnp.asarray(m.astype(np.float32)), interpret=True
+        )
+    ]
+    assert got == clean == blocked == [1023.0, 523771.0, 0.0, 1023.0]
+    assert [ref[0], ref[2], ref[3]] == [got[0], got[2], got[3]]
+    avg = torch.tensor(511.0, dtype=torch.float64)
+    assert not np.isnan(ck.masked_centered_sumsq(torch.from_numpy(x), torch.from_numpy(m), avg).item())
+
+
+# ---------------------------------------------------------------------------
+# The card's K1/K2 plan and summation order, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+# n from 0 to 3 * 4096 + 7: every n up to 70 (head and tail alone, one
+# block), then around each multiple of a block's first step (512 threads
+# x 2 quads = 4096 rows) and every 97th n between
+EMULATED_N = sorted(
+    set(range(71))
+    | {k * 4096 + d for k in range(1, 4) for d in range(-9, 8)}
+    | set(range(71, 3 * 4096 + 8, 97))
+)
+HEADS = [(np.float64, h) for h in (0, 1)] + [(np.float32, h) for h in (0, 1, 2, 3)]
+
+
+@pytest.mark.parametrize("dtype, head", HEADS, ids=[f"{d.__name__}-head{h}" for d, h in HEADS])
+def test_blocked_emulation_covers_every_row_once(dtype, head):
+    """On integer values every sum is exact in any order, so the blocked
+    emulation equals the plain version exactly iff the kernel's plan
+    (head, quads grid-stride, tail, trees, the fold of the partials) adds
+    each live row once."""
+    rng = np.random.default_rng(head)
+    for n in EMULATED_N:
+        x = torch.from_numpy(rng.integers(-1000, 1000, n).astype(dtype))
+        m = torch.from_numpy(rng.random(n) < 0.8)
+        avg = torch.tensor(7.0, dtype=torch.float64)
+        h = min(head, n)
+        assert torch.equal(ck.masked_moments_blocked(x, m, h), ck.masked_moments_plain(x, m)), n
+        assert torch.equal(
+            ck.masked_centered_sumsq_blocked(x, m, avg, h), ck.masked_centered_sumsq_plain(x, m, avg)
+        ), n
+
+
+@pytest.mark.parametrize("n", [0, 7, 4096 + 3, 3 * 4096 + 7, 1 << 17, (1 << 20) + 5])
+def test_blocked_emulation_agrees_with_plain_on_normal_data(n):
+    x, m = _data(n, seed=n + 9, dtype=np.float64)
+    xt, mt = torch.from_numpy(x), torch.from_numpy(m)
+    avg = torch.tensor(float(x[m].mean()) if m.any() else 0.0, dtype=torch.float64)
+    got = ck.masked_moments_blocked(xt, mt)
+    want = ck.masked_moments_plain(xt, mt)
+    assert got[0] == want[0] and got[2] == want[2] and got[3] == want[3]
+    np.testing.assert_allclose(got[1].item(), want[1].item(), rtol=1e-12)
+    np.testing.assert_allclose(
+        ck.masked_centered_sumsq_blocked(xt, mt, avg).item(),
+        ck.masked_centered_sumsq_plain(xt, mt, avg).item(),
+        rtol=1e-12,
+    )
+
+
+def test_blocked_emulation_sums_in_the_kernels_order():
+    """Not the plain order: with values that lose bits when added in
+    another order, the emulation's sum differs from a flat left fold
+    while it equals a hand-built fold of two threads' rows."""
+    x = torch.tensor([1e16, 0.0, 0.0, 0.0, 1.0, 1.0, 0.0, 0.0], dtype=torch.float64)
+    m = torch.ones(8, dtype=torch.bool)
+    # one block; thread 0 adds quad 0 (1e16), thread 1 quad 1 (2); the
+    # trees add 1e16 + 2, which float64 holds exactly
+    assert ck.masked_moments_blocked(x, m, 0)[1].item() == 1e16 + 2
+    flat = 0.0
+    for v in x.tolist():
+        flat += v  # 1e16 + 1 rounds back to 1e16, twice
+    assert flat == 1e16
+
+
+N_TO_2_31 = [0, 1, 2, 3, 4, 5, 7, 8, 4095, 4096, 4097, 4099, (1 << 22) - 37, 1 << 22,
+             264 * 4096, 264 * 4096 + 4, 1 << 24, (1 << 31) - 1, 1 << 31]
+
+
+@pytest.mark.parametrize("itemsize, offset", [(8, 0), (8, 8), (4, 0), (4, 4), (4, 8), (4, 12)])
+def test_moments_plan_aligns_x_and_sizes_the_grid(itemsize, offset):
+    ptr = (1 << 20) + offset  # a 16-byte boundary plus the view's offset
+    for n in N_TO_2_31:
+        head, grid = ck.moments_plan(n, ptr, itemsize)
+        assert head == min(n, (16 - offset) % 16 // itemsize)
+        assert (ptr + itemsize * head) % 16 == 0 or head == n
+        # a function of n alone, one partial a thread for the fold
+        assert 1 <= grid <= ck.MOMENTS_MAX_GRID <= ck.MOMENTS_THREADS
+        quads = (n - head) // 4
+        # two quads a thread before the grid grows, all of them when it is full
+        assert grid == ck.MOMENTS_MAX_GRID or grid * ck.MOMENTS_THREADS * 2 >= quads
+        assert grid == 1 or (grid - 1) * ck.MOMENTS_THREADS * 2 < quads
+
+
+def test_moments_plan_rejects_unaligned_values():
+    with pytest.raises(ValueError):
+        ck.moments_plan(10, (1 << 20) + 4, 8)
+    with pytest.raises(ValueError):
+        ck.moments_plan(10, (1 << 20) + 2, 4)
+    with pytest.raises(ValueError):
+        ck.moments_plan(10, 1 << 20, 2)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Design probe of the port's K3 (hll_register_max) and K4 (hist16)
-kernels on one CUDA card: what sets their pace.
+"""Design probe of the port's K1 (masked_moments), K2
+(masked_centered_sumsq), K3 (hll_register_max) and K4 (hist16) kernels
+on one CUDA card: what sets their pace.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -18,6 +19,23 @@ line per measurement, median CUDA-event times in ms:
            beat);
   hll      at 4,194,304 hashed codes: the shipped launch and a kernel
            that loads the same bytes the same way and does nothing else;
+  masked_moments, masked_centered_sumsq
+           at 4,194,304 float64 rows (every 11th masked): the shipped
+           wrapper; the first design (scalar loads under the mask, a
+           second fold launch); the new design with its three folds,
+           (a) the last block folds (shipped, launched here without the
+           wrapper), (b) one cooperative launch with a grid sync, (c) a
+           second launch, and (a) with four quads in flight instead of
+           two, and (a) with the ticket drawn between two fences, as
+           first written, instead of by one acquire-release atomic; and
+           the new design's loads alone (the load floor) with
+           two and four quads in flight, and the same bytes read flat
+           (consecutive double2 of x a lane, then consecutive mask words).
+           For K1 also a leaner row (a NaN flag, one compare each for
+           min and max, the count by __popc a quad) and its sum alone;
+           for both the partials with no fold. Every fold of the new
+           design, and the leaner row, must give the shipped kernel's
+           bits;
 each with the L2 evicted before every launch by writing 256 MB
 (chip_smoke.py's timer: the dirty lines are written back while the
 kernel runs) and by reading 256 MB (clean lines). The probe kernels run
@@ -62,6 +80,9 @@ def main() -> int:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.probe_hist16_flush.argtypes = [ptr, ptr, i64, i64, i32, ptr, i32, ptr]
     lib.probe_hll_load_floor.argtypes = [ptr, ptr, i64, i32, ptr, ptr]
+    lib.probe_moments.argtypes = [i32, i32, ptr, ptr, i64, i32, i32, ptr, ptr, ptr, ptr, ptr]
+    lib.dq_masked_moments.argtypes = [ptr, i32, ptr, i64, i32, i32, ptr, ptr, ptr, ptr]
+    lib.dq_centered_sumsq.argtypes = [ptr, i32, ptr, i64, i32, i32, ptr, ptr, ptr, ptr, ptr]
 
     device = torch.device("cuda", 0)
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -125,6 +146,63 @@ def main() -> int:
           "shipped_wrapper": both(lambda: ck.hll_register_max(codes, m)),
           "load_floor": both(lambda: ok(lib.probe_hll_load_floor(
               codes.data_ptr(), m.data_ptr(), BATCH, grid, regs.data_ptr(), stream)))})
+
+    x = torch.from_numpy(rng.normal(3.0, 2.0, BATCH)).to(device)
+    avg = x[m].mean()
+    head, grid = ck.moments_plan(BATCH, x.data_ptr(), 8)
+    scratch = torch.empty(4 * 8 * 132, dtype=torch.float64, device=device)
+    tickets = torch.zeros(1, dtype=torch.int32, device=device)
+    for kernel, name in ((0, "masked_moments"), (1, "masked_centered_sumsq")):
+        out = torch.empty(4, dtype=torch.float64, device=device)
+        shipped = (ck.masked_moments(x, m) if kernel == 0
+                   else ck.masked_centered_sumsq(x, m, avg).reshape(1))
+
+        def design(d):
+            return lambda: ok(lib.probe_moments(
+                kernel, d, x.data_ptr(), m.data_ptr(), BATCH, head, grid, avg.data_ptr(),
+                scratch.data_ptr(), tickets.data_ptr(), out.data_ptr(), stream))
+
+        def last_block():
+            if kernel == 0:
+                ok(lib.dq_masked_moments(x.data_ptr(), 0, m.data_ptr(), BATCH, head, grid,
+                                         scratch.data_ptr(), tickets.data_ptr(),
+                                         out.data_ptr(), stream))
+            else:
+                ok(lib.dq_centered_sumsq(x.data_ptr(), 0, m.data_ptr(), BATCH, head, grid,
+                                         avg.data_ptr(), scratch.data_ptr(),
+                                         tickets.data_ptr(), out.data_ptr(), stream))
+
+        row = {"probe": name, "rows": BATCH, "grid": grid, "threads": ck.MOMENTS_THREADS}
+        for label, fn, same_bits in (
+            ("shipped_wrapper", None, None),
+            ("fold_last_block", last_block, True),
+            ("fold_grid_sync", design(3), True),
+            ("fold_second_launch", design(2), True),
+            ("fold_last_block_4_quads", design(1), True),
+            ("fold_last_block_fences", design(10), True),
+            ("earlier_design", design(0), False),
+            ("load_floor", design(4), None),
+            ("load_floor_4_quads", design(5), None),
+            ("load_floor_flat", design(6), None),
+            ("lean_row", design(7) if kernel == 0 else None, True),
+            ("sum_only", design(8) if kernel == 0 else None, None),
+            ("partials_no_fold", design(9), None),
+        ):
+            if label in ("lean_row", "sum_only") and kernel:
+                continue
+            if fn is None:
+                row[label] = both(lambda: ck.masked_moments(x, m) if kernel == 0
+                                  else ck.masked_centered_sumsq(x, m, avg))
+                continue
+            fn()
+            torch.cuda.synchronize()
+            got = out[:shipped.numel()]
+            if same_bits and not torch.equal(got, shipped):
+                raise AssertionError(f"{name} {label}: {got.tolist()} != {shipped.tolist()}")
+            if same_bits is False and not torch.allclose(got, shipped, rtol=1e-10, atol=0.0):
+                raise AssertionError(f"{name} {label}: {got.tolist()} vs {shipped.tolist()}")
+            row[label] = both(fn)
+        emit(row)
     return 0
 
 
