@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""GPU smoke run of deequ_tpu_torch's verification main path.
+"""GPU smoke run of deequ_tpu_torch's main paths: verification, column
+profiling and constraint suggestion.
 
 Run from the repository root on a machine with one CUDA GPU:
 
-    python3 chip_smoke.py [--rows 16777216] [--seed 7]
+    python3 chip_smoke.py [--rows 16777216] [--seed 7] [--profile-rows 10000000]
 
 Phases, one JSON line each:
-  1. device   the card (nvidia-smi name and power limit), torch and CUDA;
+  1. device   the card (nvidia-smi name and power limit), torch and CUDA,
+              and whether pyarrow and pandas import;
   2. build    nvcc builds deequ_tpu_torch/csrc/ for sm_90a;
   3. kernel   each CUDA kernel against its plain PyTorch version on the
               card, at n = 0, 1, a ragged n and the main path's batch of
@@ -40,8 +42,22 @@ Phases, one JSON line each:
               packing and quantile selection (host_finish_batch), and the
               grouping pass;
   5. basic_example  the README's example (examples/basic_example.py's
-              checks) on the card, with BASELINE.md's outcome.
-Then the kernels' summary line and, last, the device line. Any failed
+              checks) on the card, with BASELINE.md's outcome;
+  6. profile  ColumnProfilerRunner over the TPC-H lineitem table of
+              BASELINE.json config 3 at --profile-rows rows, twice on
+              CUDA and once with device="cpu": the CUDA runs bit for bit
+              alike, the CPU run equal (mean, sum and stddev within
+              METRIC_RTOL), l_quantity and l_extendedprice against numpy,
+              one fused pass, and K1-K4 launched as often as the plan
+              predicts; the warm run's wall time split by pass;
+  7. profile_example  examples/data_profiling_example.py's raw data
+              profiled on the card, equal to the CPU run and to the
+              values worked out by hand;
+  8. suggest  ConstraintSuggestionRunner (Rules.DEFAULT, a test-set ratio
+              of 0.1, seed 0) on the lineitem table: suggestions and
+              their verdicts equal a device="cpu" run.
+Then the kernels' summary line (launches on the main path, and on the
+profile as `launches_profile`) and, last, the device line. Any failed
 check raises: the script exits non-zero and prints no result. Without
 CUDA it exits non-zero at once.
 """
@@ -67,6 +83,14 @@ METRIC_RTOL = 1e-9  # metrics vs the numpy reference
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def imports(module: str) -> bool:
+    try:
+        __import__(module)
+    except ImportError:
+        return False
+    return True
 
 
 def nvidia_smi_line() -> str:
@@ -571,8 +595,9 @@ def same_bits(a, b) -> bool:
 
 
 @contextlib.contextmanager
-def timed_calls(owner, name, totals):
-    """Accumulate the wall time of every call of owner.<name> in totals[name]."""
+def timed_calls(owner, name, totals, calls=None):
+    """Accumulate the wall time of every call of owner.<name> in
+    totals[name]; with `calls`, also append each call's time to it."""
     original = getattr(owner, name)
 
     def wrapper(*args, **kwargs):
@@ -580,7 +605,10 @@ def timed_calls(owner, name, totals):
         try:
             return original(*args, **kwargs)
         finally:
-            totals[name] = totals.get(name, 0.0) + time.perf_counter() - start
+            elapsed = time.perf_counter() - start
+            totals[name] = totals.get(name, 0.0) + elapsed
+            if calls is not None:
+                calls.append(elapsed)
 
     setattr(owner, name, wrapper)
     try:
@@ -828,10 +856,283 @@ def basic_example_phase(torch, ck):
           "metrics": metrics, "launches": launches})
 
 
+LINEITEM_STRINGS = ("l_returnflag", "l_linestatus", "l_shipdate", "l_commitdate",
+                    "l_receiptdate", "l_shipinstruct", "l_shipmode", "l_comment")
+
+
+def lineitem_table(rows: int, seed: int):
+    """BASELINE.json config 3's table: TPC-H lineitem, 16 columns, as the
+    JAX package's bench.py builds it (`build_lineitem_table`): dates are
+    ISO strings (2,352 distinct), l_comment comes from a bounded template
+    dictionary (2,048 distinct). The string columns are typed up front."""
+    import numpy as np
+
+    from deequ_tpu_torch.data.table import ColumnType, Table
+
+    rng = np.random.default_rng(seed)
+    n = rows
+    days = np.array(
+        [f"199{y}-{m:02d}-{d:02d}" for y in range(2, 9) for m in range(1, 13) for d in range(1, 29)],
+        dtype=object,
+    )
+    instruct = np.array(["DELIVER IN PERSON", "COLLECT COD", "NONE", "TAKE BACK RETURN"],
+                        dtype=object)
+    modes = np.array(["AIR", "FOB", "MAIL", "RAIL", "REG AIR", "SHIP", "TRUCK"], dtype=object)
+    words = np.array(
+        ["carefully", "quickly", "furiously", "slyly", "blithely", "deposits",
+         "requests", "packages", "theodolites", "accounts", "instructions",
+         "foxes", "pinto beans", "ideas", "dependencies", "platelets"],
+        dtype=object,
+    )
+    comments = np.array([f"{a} {b} {c}" for a in words for b in words for c in words[:8]],
+                        dtype=object)
+    quantity = rng.integers(1, 51, n)
+    price_per_unit = rng.integers(90_000, 110_000, n) / 100.0
+    data = {
+        "l_orderkey": rng.integers(1, max(n // 4, 2), n),
+        "l_partkey": rng.integers(1, 200_001, n),
+        "l_suppkey": rng.integers(1, 10_001, n),
+        "l_linenumber": rng.integers(1, 8, n),
+        "l_quantity": quantity,
+        "l_extendedprice": quantity * price_per_unit,
+        "l_discount": rng.integers(0, 11, n) / 100.0,
+        "l_tax": rng.integers(0, 9, n) / 100.0,
+        "l_returnflag": np.array(["A", "N", "R"], dtype=object)[rng.integers(0, 3, n)],
+        "l_linestatus": np.array(["O", "F"], dtype=object)[rng.integers(0, 2, n)],
+        "l_shipdate": days[rng.integers(0, len(days), n)],
+        "l_commitdate": days[rng.integers(0, len(days), n)],
+        "l_receiptdate": days[rng.integers(0, len(days), n)],
+        "l_shipinstruct": instruct[rng.integers(0, 4, n)],
+        "l_shipmode": modes[rng.integers(0, 7, n)],
+        "l_comment": comments[rng.integers(0, len(comments), n)],
+    }
+    types = {name: ColumnType.STRING for name in LINEITEM_STRINGS}
+    return data, Table.from_numpy(data, types=types)
+
+
+INEXACT_PROFILE_KEYS = ("mean", "sum", "stdDev")  # float sums taken in another order
+
+
+def profile_columns(profiles):
+    """{column: its entry of ColumnProfiles.to_json()}."""
+    return {entry["column"]: entry for entry in json.loads(profiles.to_json())["columns"]}
+
+
+def assert_profiles_agree(got, want, label: str) -> None:
+    """Every field exact except mean, sum and stdDev (METRIC_RTOL)."""
+    got, want = profile_columns(got), profile_columns(want)
+    if list(got) != list(want):
+        raise AssertionError(f"{label}: columns {list(got)} vs {list(want)}")
+    for column, entry in want.items():
+        other = got[column]
+        if sorted(other) != sorted(entry):
+            raise AssertionError(f"{label} {column}: fields {sorted(other)} vs {sorted(entry)}")
+        for key, value in entry.items():
+            ok = (close(other[key], value, METRIC_RTOL) if key in INEXACT_PROFILE_KEYS
+                  else other[key] == value)
+            if not ok:
+                raise AssertionError(f"{label} {column}.{key}: {other[key]!r} vs {value!r}")
+
+
+def profile_phase(torch, ck, rows: int, seed: int, card: str, power_limit: str):
+    """ColumnProfilerRunner over the lineitem table, twice on CUDA and once
+    with device="cpu": the two CUDA runs bit-identical, the CPU run equal
+    (mean, sum and stddev within METRIC_RTOL), l_quantity's and
+    l_extendedprice's mean, min and max within METRIC_RTOL of numpy, the
+    pass counts and K1-K4's launches as the plan predicts. The warm run's
+    wall time is split into pass 1, the quantiles' host selection inside
+    it, pass 2 and the histogram pass. Returns (the warm run's seconds,
+    its launches, the table)."""
+    import numpy as np
+
+    from deequ_tpu_torch import ColumnProfilerRunner
+    from deequ_tpu_torch.analyzers.sketch import _QuantileAnalyzerBase
+    from deequ_tpu_torch.data.table import ColumnType
+    from deequ_tpu_torch.ops import runtime
+    from deequ_tpu_torch.ops.fused import FusedScanPass
+    from deequ_tpu_torch.profiles import column_profiler
+
+    t0 = time.perf_counter()
+    data, table = lineitem_table(rows, seed)
+    setup_s = time.perf_counter() - t0
+    # the plan: one fused pass (no string column looks numeric, and every
+    # low-cardinality column is counted inside it); per batch one K1, K2
+    # and K4 launch for each numeric column and one K3 launch per column
+    batches = -(-rows // BATCH)
+    numeric = sum(1 for _name, ctype in table.schema if ctype != ColumnType.STRING)
+    columns = len(table.schema)
+    expected_launches = {
+        "masked_moments": numeric * batches,
+        "masked_centered_sumsq": numeric * batches,
+        "hll_register_max": columns * batches,
+        "hist16": numeric * batches,
+    }
+    expected_passes = {"device_passes": 1, "group_passes": 0}
+
+    def run(device, split=None):
+        with contextlib.ExitStack() as stack:
+            if split is not None:
+                split["pass_calls"] = []
+                stack.enter_context(timed_calls(FusedScanPass, "run", split, split["pass_calls"]))
+                stack.enter_context(timed_calls(_QuantileAnalyzerBase, "host_finish_batch", split))
+                stack.enter_context(timed_calls(column_profiler, "_compute_histograms", split))
+            stats = stack.enter_context(runtime.monitored())
+            ck.reset_launch_counts()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            profiles = ColumnProfilerRunner.on_data(table, device=device).run()
+            wall = time.perf_counter() - start
+        passes = {"device_passes": stats.device_passes, "group_passes": stats.group_passes}
+        return profiles, wall, ck.launch_counts(), passes
+
+    split = {}
+    runs = [run("cuda"), run("cuda", split)]
+    for profiles, _wall, launches, passes in runs:
+        if launches != expected_launches:
+            raise AssertionError(f"profile: launches {launches}, expected {expected_launches}")
+        if passes != expected_passes:
+            raise AssertionError(f"profile: passes {passes}, expected {expected_passes}")
+    if runs[0][0].to_json() != runs[1][0].to_json():
+        raise AssertionError("profile: the two CUDA runs differ")
+    cpu_profiles, cpu_wall, cpu_launches, cpu_passes = run("cpu")
+    if any(cpu_launches.values()) or cpu_passes != expected_passes:
+        raise AssertionError(f"profile: the cpu run launched {cpu_launches}, passes {cpu_passes}")
+    assert_profiles_agree(runs[0][0], cpu_profiles, "profile cuda vs cpu")
+
+    profiles = runs[1][0].profiles
+    for column in ("l_quantity", "l_extendedprice"):
+        values = np.asarray(data[column], dtype=np.float64)
+        p = profiles[column]
+        for key, got, ref in (("mean", p.mean, values.mean()), ("minimum", p.minimum, values.min()),
+                              ("maximum", p.maximum, values.max())):
+            if not close(got, float(ref), METRIC_RTOL):
+                raise AssertionError(f"profile {column}.{key}: port {got!r} vs numpy {ref!r}")
+    kinds = {name: p.data_type for name, p in profiles.items()}
+    histograms = sorted(name for name, p in profiles.items() if p.histogram is not None)
+    warm = runs[1][1]
+    pass_calls = split["pass_calls"]
+    emit({
+        "phase": "profile",
+        "rows": rows,
+        "cut": "BASELINE.json config 3 has 100,000,000 rows; cut to this for host memory and the run's time limit",
+        "batches": batches,
+        "seed": seed,
+        "card": card,
+        "power_limit": power_limit,
+        "table_setup_s": setup_s,
+        "first_run_s": runs[0][1],
+        "warm_run_s": warm,
+        "rows_per_s_warm_run": rows / warm,
+        "warm_run_split_s": {
+            "pass_1": pass_calls[0],
+            "host_finish_batch_in_pass_1": split.get("host_finish_batch", 0.0),
+            "pass_2": sum(pass_calls[1:]),
+            "histogram_pass": split.get("_compute_histograms", 0.0),
+        },
+        "cpu_run_s": cpu_wall,
+        "passes": runs[1][3],
+        "launches_per_run": runs[1][2],
+        "expected_launches": expected_launches,
+        "data_types": kinds,
+        "histograms": histograms,
+        "approx_distinct": {name: p.approximate_num_distinct_values for name, p in profiles.items()},
+    })
+    return warm, runs[1][2], table
+
+
+EXAMPLE_PROFILE = {
+    # the raw data of examples/data_profiling_example.py, profiled by hand
+    "name": {"dataType": "String", "completeness": 1.0, "approximateNumDistinctValues": 5},
+    "count": {"dataType": "Fractional", "isDataTypeInferred": "true", "completeness": 0.75,
+              "minimum": 1.0, "maximum": 20.0, "mean": 11.0, "sum": 66.0},
+    "status": {"dataType": "String", "completeness": 1.0,
+               "histogram": {"IN_TRANSIT": 2, "DELAYED": 4, "UNKNOWN": 2}},
+    "valuable": {"dataType": "Boolean", "isDataTypeInferred": "true", "completeness": 0.625},
+}
+
+
+def profile_example_phase(torch, ck):
+    """examples/data_profiling_example.py's raw data profiled on the card:
+    equal to the device="cpu" run, with the values of EXAMPLE_PROFILE."""
+    import numpy as np
+
+    from deequ_tpu_torch import ColumnProfilerRunner, Table
+
+    table = Table.from_numpy({
+        "name": np.array(["thingA", "thingA", "thingB", "thingC", "thingD", "thingC",
+                          "thingC", "thingE"], dtype=object),
+        "count": np.array(["13.0", "5", None, None, "1.0", "7.0", "20", "20"], dtype=object),
+        "status": np.array(["IN_TRANSIT", "DELAYED", "DELAYED", "IN_TRANSIT", "DELAYED",
+                            "UNKNOWN", "UNKNOWN", "DELAYED"], dtype=object),
+        "valuable": np.array(["true", "false", None, "false", "true", None, None, "false"],
+                             dtype=object),
+    })
+    ck.reset_launch_counts()
+    gpu = ColumnProfilerRunner.on_data(table).run()
+    launches = ck.launch_counts()
+    cpu = ColumnProfilerRunner.on_data(table, device="cpu").run()
+    if gpu.to_json() != cpu.to_json():
+        raise AssertionError("profile_example: cuda and cpu profiles differ")
+    got = profile_columns(gpu)
+    for column, fields in EXAMPLE_PROFILE.items():
+        for key, want in fields.items():
+            value = got[column].get(key)
+            if key == "histogram":
+                value = {entry["value"]: entry["count"] for entry in value or []}
+            if value != want:
+                raise AssertionError(f"profile_example {column}.{key}: {value!r}, expected {want!r}")
+    if launches["hll_register_max"] != len(EXAMPLE_PROFILE):
+        raise AssertionError(f"profile_example: launches {launches}")
+    emit({"phase": "profile_example", "launches": launches, "columns": got})
+
+
+def suggest_phase(torch, ck, table, warm_profile_s: float):
+    """ConstraintSuggestionRunner with Rules.DEFAULT and a test-set ratio
+    of 0.1 (seed 0) on the lineitem table, or on its first 4,194,304 rows
+    when the profile's warm run took over 60 s: the suggestions (column,
+    rule, code) and their verdicts on the test set equal a device="cpu"
+    run."""
+    from deequ_tpu_torch import ConstraintSuggestionRunner, Rules
+
+    rows = table.num_rows if warm_profile_s <= 60.0 else min(table.num_rows, BATCH)
+    data = table if rows == table.num_rows else table.slice(0, rows)
+
+    def run(device):
+        start = time.perf_counter()
+        result = (
+            ConstraintSuggestionRunner.on_data(data, device=device)
+            .add_constraint_rules(Rules.DEFAULT)
+            .use_train_test_split_with_test_set_ratio(0.1, seed=0)
+            .run()
+        )
+        suggestions = [(s.column_name, repr(s.suggesting_rule), s.code_for_constraint)
+                       for s in result.all_suggestions()]
+        verdicts = [(cr.status.value, cr.message)
+                    for res in result.verification_result.check_results.values()
+                    for cr in res.constraint_results]
+        return suggestions, verdicts, time.perf_counter() - start
+
+    ck.reset_launch_counts()
+    gpu = run("cuda")
+    launches = ck.launch_counts()
+    cpu = run("cpu")
+    if gpu[:2] != cpu[:2]:
+        raise AssertionError(f"suggest: cuda {gpu[:2]} vs cpu {cpu[:2]}")
+    if not gpu[0] or len(gpu[1]) != len(gpu[0]) or not all(launches.values()):
+        raise AssertionError(f"suggest: {len(gpu[0])} suggestions, {len(gpu[1])} verdicts, "
+                             f"launches {launches}")
+    emit({"phase": "suggest", "rows": rows,
+          "table": "the whole lineitem table" if rows == table.num_rows
+          else "its first 4,194,304 rows (the profile's warm run took over 60 s)",
+          "cuda_run_s": gpu[2], "cpu_run_s": cpu[2], "launches": launches,
+          "suggestions": gpu[0], "verdicts": [status for status, _msg in gpu[1]]})
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--rows", type=int, default=4 * BATCH)
     parser.add_argument("--seed", type=int, default=7)
+    parser.add_argument("--profile-rows", type=int, default=10_000_000)
     args = parser.parse_args()
 
     import torch
@@ -857,6 +1158,9 @@ def main() -> int:
         "cuda": torch.version.cuda,
         "device": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
+        # whether the streamed-Parquet slice could run on this machine
+        "pyarrow_imports": imports("pyarrow"),
+        "pandas_imports": imports("pandas"),
     })
 
     start = time.perf_counter()
@@ -877,10 +1181,15 @@ def main() -> int:
     del timer, profile  # frees the 256 MB L2 flush buffer before the main path
     launches = main_path_phase(torch, ck, args.rows, args.seed, card, power_limit)
     basic_example_phase(torch, ck)
+    warm_profile_s, profile_launches, lineitem = profile_phase(
+        torch, ck, args.profile_rows, args.seed, card, power_limit)
+    profile_example_phase(torch, ck)
+    suggest_phase(torch, ck, lineitem, warm_profile_s)
     for row in summary:
         row["launches"] = launches[row["name"]]
-        if not row["launches"]:
-            raise AssertionError(f"{row['name']} never launched on the main path")
+        row["launches_profile"] = profile_launches[row["name"]]
+        if not (row["launches"] and row["launches_profile"]):
+            raise AssertionError(f"{row['name']} never launched on the main path or the profile")
     emit({"kernels": summary})
     emit({
         "ok": True,

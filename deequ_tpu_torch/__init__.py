@@ -17,11 +17,20 @@ constraints on the host. Runs use CUDA unless the caller passes
         .add_check(Check(CheckLevel.ERROR, "x").is_complete("x"))
         .run()
     )
+
+`ColumnProfilerRunner.on_data(table).run()` profiles every column (types,
+completeness, distinct counts, numeric statistics, histograms of the
+low-cardinality columns), and `ConstraintSuggestionRunner` turns such a
+profile into suggested checks.
 """
 
 from deequ_tpu_torch.checks.check import Check, CheckLevel, CheckStatus
+from deequ_tpu_torch.constraints.constrainable_data_types import ConstrainableDataTypes
 from deequ_tpu_torch.data.table import ColumnType, Table
+from deequ_tpu_torch.profiles.runner import ColumnProfilerRunner
 from deequ_tpu_torch.runners.analysis_runner import AnalysisRunner
+from deequ_tpu_torch.suggestions.rules import Rules
+from deequ_tpu_torch.suggestions.runner import ConstraintSuggestionRunner
 from deequ_tpu_torch.verification.suite import VerificationSuite
 
 __all__ = [
@@ -29,7 +38,11 @@ __all__ = [
     "Check",
     "CheckLevel",
     "CheckStatus",
+    "ColumnProfilerRunner",
     "ColumnType",
+    "ConstrainableDataTypes",
+    "ConstraintSuggestionRunner",
+    "Rules",
     "Table",
     "VerificationSuite",
 ]

@@ -27,6 +27,7 @@ from deequ_tpu_torch.analyzers.states import State
 from deequ_tpu_torch.core.maybe import Success
 from deequ_tpu_torch.core.metrics import DoubleMetric, Entity, Metric
 from deequ_tpu_torch.data.table import ColumnType, Table
+from deequ_tpu_torch.ops import runtime
 
 
 # ---------------------------------------------------------------------------
@@ -143,6 +144,7 @@ def compute_frequencies(
     column is NULL are excluded from groups; num_rows counts all rows.
     One host pass over the whole table (the JAX package's mesh-less
     in-memory path)."""
+    runtime.record_group_pass()
     state = _frequencies_of_batch(data, grouping_columns)
     if num_rows is not None:
         state.num_rows = num_rows
@@ -385,6 +387,7 @@ class MutualInformation(FrequencyBasedAnalyzer):
     def compute_metric_from(self, state: Optional[FrequenciesAndNumRows]) -> Metric:
         if state is None or state.num_groups == 0:
             return self.empty_state_failure()
+        runtime.record_pass()
         total = state.num_rows
         # state columns may be sorted differently than self.columns
         keys_a = state.key_columns[state.columns.index(self.columns[0])]

@@ -29,6 +29,7 @@ from deequ_tpu_torch.core.metrics import (
     Metric,
 )
 from deequ_tpu_torch.data.table import ColumnType, Table
+from deequ_tpu_torch.ops import runtime
 
 NULL_FIELD_REPLACEMENT = "NullValue"
 MAXIMUM_ALLOWED_DETAIL_BINS = 1000
@@ -90,6 +91,7 @@ class Histogram(Analyzer):
         return [param_check, Preconditions.has_column(self.column)]
 
     def compute_state_from(self, table: Table) -> FrequenciesAndNumRows:
+        runtime.record_group_pass()
         col = table.column(self.column)
         if self.binning_udf is None:
             # group on dictionary codes, stringify only the unique values

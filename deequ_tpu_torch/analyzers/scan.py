@@ -15,10 +15,12 @@ adds one `masked_centered_sumsq` launch.
 Completeness, Compliance and PatternMatch are masked counts over bool
 masks the host built (validity, a SQL predicate, a regex over the
 dictionary), summed on the device: they need no kernel of their own.
+DataType likewise: the host classifies each dictionary entry once and
+ships int8 class codes; the device counts the five classes.
 
 reference: analyzers/Size.scala, Completeness.scala, Compliance.scala,
 PatternMatch.scala, Mean.scala, Sum.scala, Minimum.scala, Maximum.scala,
-StandardDeviation.scala, Correlation.scala.
+StandardDeviation.scala, Correlation.scala, DataType.scala.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from deequ_tpu_torch.analyzers.base import (
 )
 from deequ_tpu_torch.analyzers.states import (
     CorrelationState,
+    DataTypeHistogram,
     MaxState,
     MeanState,
     MinState,
@@ -51,11 +54,26 @@ from deequ_tpu_torch.analyzers.states import (
     State,
     SumState,
 )
-from deequ_tpu_torch.core.maybe import Success
-from deequ_tpu_torch.core.metrics import DoubleMetric, Entity, Metric
+from deequ_tpu_torch.core.exceptions import EmptyStateException, wrap_if_necessary
+from deequ_tpu_torch.core.maybe import Failure, Success
+from deequ_tpu_torch.core.metrics import (
+    Distribution,
+    DistributionValue,
+    DoubleMetric,
+    Entity,
+    HistogramMetric,
+    Metric,
+)
 from deequ_tpu_torch.data.expr import Predicate
-from deequ_tpu_torch.data.table import Table, cached_column_encode, gather_with_null
+from deequ_tpu_torch.data.table import (
+    ColumnType,
+    Table,
+    cached_column_encode,
+    cached_dictionary_encode,
+    gather_with_null,
+)
 from deequ_tpu_torch.ops import cuda_kernels
+from deequ_tpu_torch.ops import strings
 from deequ_tpu_torch.ops.strings import match_pattern
 
 
@@ -620,3 +638,165 @@ class Correlation(ScanShareableAnalyzer):
             f"Correlation({self.first_column},{self.second_column},"
             f"{render_where(self.where)})"
         )
+
+
+# ---------------------------------------------------------------------------
+# DataType
+# ---------------------------------------------------------------------------
+
+
+class DataTypeInstances:
+    UNKNOWN = "Unknown"
+    FRACTIONAL = "Fractional"
+    INTEGRAL = "Integral"
+    BOOLEAN = "Boolean"
+    STRING = "String"
+
+
+# the class code of a typed column's every present value
+_STATIC_CLASS = {
+    ColumnType.LONG: strings.CODE_INTEGRAL,
+    ColumnType.DOUBLE: strings.CODE_FRACTIONAL,
+    ColumnType.DECIMAL: strings.CODE_FRACTIONAL,
+    ColumnType.BOOLEAN: strings.CODE_BOOLEAN,
+    ColumnType.TIMESTAMP: strings.CODE_STRING,
+}
+
+
+def classified_dictionary(col) -> np.ndarray:
+    """int8 class code per dictionary entry of a STRING column, once per
+    table (the reference's regexes, catalyst/StatefulDataType.scala:36-38,
+    run over the unique values only)."""
+    return cached_dictionary_encode(
+        col,
+        "dtclassdict",
+        lambda c: strings.classify(np.asarray(c.dict_encode()[1])).astype(np.int8),
+    )
+
+
+def _dtclass_spec(column: str) -> InputSpec:
+    def compute(col) -> np.ndarray:
+        if col.ctype == ColumnType.STRING:
+            dict_codes, _uniques = col.dict_encode()
+            return gather_with_null(
+                classified_dictionary(col), dict_codes, strings.CODE_NULL
+            )
+        # typed columns classify statically from their stringified form
+        return np.where(
+            col.valid, np.int8(_STATIC_CLASS[col.ctype]), np.int8(strings.CODE_NULL)
+        )
+
+    def build(t: Table) -> np.ndarray:
+        # column-deterministic: memoized per table, sliced per batch
+        return cached_column_encode(t.column(column), "dtclass", compute)
+
+    return InputSpec(key=f"dtclass:{column}", build=build)
+
+
+_CLASS_LABELS = ("null", "fractional", "integral", "boolean", "string")
+
+
+@dataclass(frozen=True)
+class DataType(ScanShareableAnalyzer):
+    """Histogram over inferred value types; `determine_type` picks the
+    majority type (reference: analyzers/DataType.scala:32-183). Rows
+    excluded by `where` become NULL before classification, as
+    conditionalSelection feeds the reference's UDAF, so they count as
+    Unknown."""
+
+    column: str
+    where: Optional[str] = None
+
+    @property
+    def name(self) -> str:
+        return "Histogram"
+
+    @property
+    def instance(self) -> str:
+        return self.column
+
+    def preconditions(self) -> List[Callable[[Table], None]]:
+        return [Preconditions.has_column(self.column)]
+
+    def input_specs(self) -> List[InputSpec]:
+        return [_dtclass_spec(self.column), where_spec(self.where), where_spec(None)]
+
+    def device_reduce(self, inputs: Dict[str, Any]) -> Dict[str, Any]:
+        rows = inputs[where_key(None)]  # padded rows drop out
+        codes = torch.where(
+            inputs[where_key(self.where)],
+            inputs[f"dtclass:{self.column}"],
+            strings.CODE_NULL,
+        )
+        return {
+            label: ((codes == code) & rows).sum()
+            for code, label in enumerate(_CLASS_LABELS)
+        }
+
+    def merge_agg(self, a, b):
+        return {k: a[k] + b[k] for k in a}
+
+    def state_from_aggregates(self, agg) -> Optional[State]:
+        return DataTypeHistogram(*(int(agg[label]) for label in _CLASS_LABELS))
+
+    def compute_metric_from(self, state: Optional[State]) -> Metric:
+        if state is None:
+            return self.to_failure_metric(
+                EmptyStateException(
+                    f"Empty state for analyzer {self!r}, all input values were NULL."
+                )
+            )
+        return HistogramMetric(
+            Entity.COLUMN, self.name, self.column, Success(to_distribution(state))
+        )
+
+    def to_failure_metric(self, exception: BaseException) -> Metric:
+        return HistogramMetric(
+            Entity.COLUMN, self.name, self.column, Failure(wrap_if_necessary(exception))
+        )
+
+    def __repr__(self) -> str:
+        return f"DataType({self.column},{render_where(self.where)})"
+
+
+def to_distribution(hist: DataTypeHistogram) -> Distribution:
+    """reference: analyzers/DataType.scala:100-115."""
+    total = hist.total
+
+    def entry(count: int) -> DistributionValue:
+        return DistributionValue(count, count / total if total > 0 else float("nan"))
+
+    return Distribution(
+        {
+            DataTypeInstances.UNKNOWN: entry(hist.num_null),
+            DataTypeInstances.FRACTIONAL: entry(hist.num_fractional),
+            DataTypeInstances.INTEGRAL: entry(hist.num_integral),
+            DataTypeInstances.BOOLEAN: entry(hist.num_boolean),
+            DataTypeInstances.STRING: entry(hist.num_string),
+        },
+        number_of_bins=5,
+    )
+
+
+def determine_type(dist: Distribution) -> str:
+    """Majority-type decision tree (reference: analyzers/DataType.scala:116-146)."""
+
+    def ratio_of(key: str) -> float:
+        v = dist.values.get(key)
+        return v.ratio if v is not None else 0.0
+
+    if ratio_of(DataTypeInstances.UNKNOWN) == 1.0:
+        return DataTypeInstances.UNKNOWN
+    if ratio_of(DataTypeInstances.STRING) > 0.0 or (
+        ratio_of(DataTypeInstances.BOOLEAN) > 0.0
+        and (
+            ratio_of(DataTypeInstances.INTEGRAL) > 0.0
+            or ratio_of(DataTypeInstances.FRACTIONAL) > 0.0
+        )
+    ):
+        return DataTypeInstances.STRING
+    if ratio_of(DataTypeInstances.BOOLEAN) > 0.0:
+        return DataTypeInstances.BOOLEAN
+    if ratio_of(DataTypeInstances.FRACTIONAL) > 0.0:
+        return DataTypeInstances.FRACTIONAL
+    return DataTypeInstances.INTEGRAL

@@ -175,3 +175,34 @@ class CorrelationState(DoubleValuedState):
         if self.n == 0 or self.x_mk == 0 or self.y_mk == 0:
             return float("nan")
         return self.ck / math.sqrt(self.x_mk * self.y_mk)
+
+
+@dataclass(frozen=True)
+class DataTypeHistogram(State):
+    """Counts per inferred value class
+    (reference: analyzers/DataType.scala:40-100)."""
+
+    num_null: int
+    num_fractional: int
+    num_integral: int
+    num_boolean: int
+    num_string: int
+
+    def merge(self, other: "DataTypeHistogram") -> "DataTypeHistogram":
+        return DataTypeHistogram(
+            self.num_null + other.num_null,
+            self.num_fractional + other.num_fractional,
+            self.num_integral + other.num_integral,
+            self.num_boolean + other.num_boolean,
+            self.num_string + other.num_string,
+        )
+
+    @property
+    def total(self) -> int:
+        return (
+            self.num_null
+            + self.num_fractional
+            + self.num_integral
+            + self.num_boolean
+            + self.num_string
+        )

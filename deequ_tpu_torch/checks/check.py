@@ -15,6 +15,7 @@ from typing import Callable, List, Optional, Set
 from deequ_tpu_torch.analyzers.base import Analyzer
 from deequ_tpu_torch.analyzers.scan import Patterns
 from deequ_tpu_torch.constraints import constraint as C
+from deequ_tpu_torch.constraints.constrainable_data_types import ConstrainableDataTypes
 from deequ_tpu_torch.constraints.constraint import (
     AnalysisBasedConstraint,
     Constraint,
@@ -148,6 +149,14 @@ class Check:
             C.histogram_bin_constraint(column, assertion, binning_udf, max_bins, hint)
         )
 
+    def has_histogram_values(
+        self, column, assertion, binning_udf=None, max_bins=1000, hint=None
+    ) -> "Check":
+        # :295
+        return self.add_constraint(
+            C.histogram_constraint(column, assertion, binning_udf, max_bins, hint)
+        )
+
     def has_entropy(self, column, assertion, hint=None) -> "Check":
         # :353
         return self.add_constraint(C.entropy_constraint(column, assertion, hint))
@@ -271,6 +280,13 @@ class Check:
             name=f"containsSocialSecurityNumber({column})",
             hint=hint,
         )
+
+    def has_data_type(
+        self, column, data_type: ConstrainableDataTypes, assertion=None, hint=None
+    ) -> "Check":
+        # :653
+        assertion = assertion if assertion is not None else is_one
+        return self.add_constraint(C.data_type_constraint(column, data_type, assertion, hint))
 
     def is_non_negative(self, column, hint=None) -> "CheckWithLastConstraintFilterable":
         # :670 (NULL-coalescing predicate :676)

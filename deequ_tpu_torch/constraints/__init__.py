@@ -1,3 +1,4 @@
+from deequ_tpu_torch.constraints.constrainable_data_types import ConstrainableDataTypes
 from deequ_tpu_torch.constraints.constraint import (
     AnalysisBasedConstraint,
     Constraint,
@@ -9,6 +10,7 @@ from deequ_tpu_torch.constraints.constraint import (
 
 __all__ = [
     "AnalysisBasedConstraint",
+    "ConstrainableDataTypes",
     "Constraint",
     "ConstraintDecorator",
     "ConstraintResult",

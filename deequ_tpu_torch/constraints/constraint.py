@@ -33,7 +33,9 @@ from deequ_tpu_torch.analyzers import (
     Uniqueness,
 )
 from deequ_tpu_torch.analyzers.base import Analyzer
-from deequ_tpu_torch.core.metrics import Metric
+from deequ_tpu_torch.analyzers.scan import DataType, DataTypeInstances
+from deequ_tpu_torch.constraints.constrainable_data_types import ConstrainableDataTypes
+from deequ_tpu_torch.core.metrics import Distribution, Metric
 
 
 class ConstraintStatus(enum.Enum):
@@ -377,6 +379,18 @@ def approx_quantile_constraint(
     return NamedConstraint(constraint, f"ApproxQuantileConstraint({approx_quantile!r})")
 
 
+def histogram_constraint(
+    column: str,
+    assertion: Callable[[Distribution], bool],
+    binning_udf=None,
+    max_bins: int = 1000,
+    hint: Optional[str] = None,
+) -> Constraint:
+    histogram = Histogram(column, binning_udf, max_bins)
+    constraint = AnalysisBasedConstraint(histogram, assertion, hint=hint)
+    return NamedConstraint(constraint, f"HistogramConstraint({histogram!r})")
+
+
 def histogram_bin_constraint(
     column: str,
     assertion: Callable[[int], bool],
@@ -392,3 +406,39 @@ def histogram_bin_constraint(
         hint=hint,
     )
     return NamedConstraint(constraint, f"HistogramBinConstraint({histogram!r})")
+
+
+def data_type_constraint(
+    column: str,
+    data_type: ConstrainableDataTypes,
+    assertion: Callable[[float], bool],
+    hint: Optional[str] = None,
+) -> Constraint:
+    """reference: Constraint.scala:548-613 (the ratioTypes value picker)."""
+
+    def ratio_types(ignore_unknown: bool, key_type: str, distribution: Distribution) -> float:
+        dv = distribution.values.get(key_type)
+        if not ignore_unknown:
+            return dv.ratio if dv is not None else 0.0
+        absolute = dv.absolute if dv is not None else 0
+        if absolute == 0:
+            return 0.0
+        num_values = sum(v.absolute for v in distribution.values.values())
+        unknown = distribution.values.get(DataTypeInstances.UNKNOWN)
+        num_unknown = unknown.absolute if unknown is not None else 0
+        return absolute / (num_values - num_unknown)
+
+    def picker(distribution: Distribution) -> float:
+        if data_type == ConstrainableDataTypes.NULL:
+            return ratio_types(False, DataTypeInstances.UNKNOWN, distribution)
+        if data_type == ConstrainableDataTypes.NUMERIC:
+            return ratio_types(True, DataTypeInstances.FRACTIONAL, distribution) + ratio_types(
+                True, DataTypeInstances.INTEGRAL, distribution
+            )
+        # FRACTIONAL, INTEGRAL, BOOLEAN and STRING share their names with
+        # the DataTypeInstances keys
+        return ratio_types(True, data_type.value, distribution)
+
+    return AnalysisBasedConstraint(
+        DataType(column), assertion, value_picker=picker, hint=hint
+    )

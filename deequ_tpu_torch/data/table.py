@@ -74,18 +74,27 @@ class Column:
         child._parent = (self, start, stop)
         return child
 
+    def take(self, indices: np.ndarray) -> "Column":
+        return Column(self.name, self.ctype, self.values[indices], self.valid[indices])
+
     def numeric_values(self) -> Tuple[np.ndarray, np.ndarray]:
-        """(float64 values, valid). Returned arrays may be the column's
-        own backing store: callers treat them as immutable."""
+        """(float64 values, valid). A string that does not parse as a
+        number is invalid (null), as in the predicate engine. Returned
+        arrays may be the column's own backing store: callers treat them
+        as immutable."""
         if self.ctype == ColumnType.DOUBLE or self.ctype == ColumnType.DECIMAL:
             # null slots hold 0.0, so the backing array is usable as is
             return self.values, self.valid
-        if self.ctype == ColumnType.STRING:
-            raise NotImplementedError(
-                "numeric parsing of string columns is not ported yet"
-            )
 
         def compute(col: "Column"):
+            if col.ctype == ColumnType.STRING:
+                # parse the dictionary once, gather to rows
+                codes, _uniques = col.dict_encode()
+                u_vals, u_ok = parsed_dictionary(col)
+                return (
+                    gather_with_null(u_vals, codes, 0.0),
+                    gather_with_null(u_ok, codes, False),
+                )
             if col.ctype == ColumnType.BOOLEAN:
                 return col.values.astype(np.float64), col.valid
             if col.ctype == ColumnType.TIMESTAMP:
@@ -184,6 +193,33 @@ def cached_column_encode(col: "Column", key: str, compute, slicer=None):
     return cached
 
 
+def cached_dictionary_encode(col: "Column", key: str, compute):
+    """A value derived from a STRING column's dictionary (its parse, its
+    classes), memoized on the root column: every batch slice shares the
+    root's dictionary, so it is derived once per table."""
+    root = col
+    while getattr(root, "_parent", None) is not None:
+        root = root._parent[0]
+    cached = root._cache.get(key)
+    if cached is None:
+        cached = compute(root)
+        root._cache[key] = cached
+    return cached
+
+
+def parsed_dictionary(col: "Column") -> Tuple[np.ndarray, np.ndarray]:
+    """(parsed float64 values, parse-ok mask) per dictionary entry of a
+    STRING column: shared by `numeric_values`' per-row gather and the
+    profiler's counts-based numeric statistics."""
+    from deequ_tpu_torch.ops.strings import parse_floats
+
+    return cached_dictionary_encode(
+        col,
+        "dictparse",
+        lambda c: parse_floats(np.asarray(c.dict_encode()[1], dtype=object)),
+    )
+
+
 def gather_with_null(lut: np.ndarray, codes: np.ndarray, null_value) -> np.ndarray:
     """Per-row gather of a per-unique LUT through dict_encode codes: the
     null code (-1) indexes a slot holding `null_value` appended at the end."""
@@ -244,6 +280,15 @@ class Table:
         if len(lengths) > 1:
             raise ValueError(f"ragged columns: {lengths}")
         self._num_rows = lengths.pop() if lengths else 0
+
+    @staticmethod
+    def from_pydict(
+        data: Dict[str, Sequence], types: Optional[Dict[str, ColumnType]] = None
+    ) -> "Table":
+        """Columns from Python lists; None is NULL, and a column's type is
+        inferred from its values unless `types` names it."""
+        types = types or {}
+        return Table([_column_from_list(k, v, types.get(k)) for k, v in data.items()])
 
     @staticmethod
     def from_numpy(
@@ -334,6 +379,46 @@ class Table:
 
     def slice(self, start: int, stop: int) -> "Table":
         return Table([c.slice(start, stop) for c in self._columns.values()])
+
+    def filter(self, row_mask: np.ndarray) -> "Table":
+        idx = np.nonzero(np.asarray(row_mask, dtype=bool))[0]
+        return Table([c.take(idx) for c in self._columns.values()])
+
+    def select(self, names: Sequence[str]) -> "Table":
+        return Table([self.column(n) for n in names])
+
+    def with_column(self, col: Column) -> "Table":
+        cols = [c for c in self._columns.values() if c.name != col.name]
+        return Table(cols + [col])
+
+    def random_split(
+        self, weights: Sequence[float], seed: Optional[int] = None
+    ) -> List["Table"]:
+        """Split the rows by normalized `weights`, each row by one uniform
+        draw from `np.random.default_rng(seed)`, as the JAX package does,
+        so both packages split a table alike (reference:
+        suggestions/ConstraintSuggestionRunner.scala:127-148)."""
+        rng = np.random.default_rng(seed)
+        total = float(sum(weights))
+        u = rng.random(self._num_rows)
+        bounds = np.cumsum([w / total for w in weights])
+        out = []
+        lo = 0.0
+        for hi in bounds:
+            out.append(self.filter((u >= lo) & (u < hi)))
+            lo = hi
+        return out
+
+    def to_pydict(self) -> Dict[str, List]:
+        """Python lists per column, None for NULL."""
+        out: Dict[str, List] = {}
+        for c in self._columns.values():
+            if c.ctype == ColumnType.STRING or c.ctype == ColumnType.TIMESTAMP:
+                vals = list(c.values)
+            else:
+                vals = c.values.tolist()
+            out[c.name] = [v if ok else None for v, ok in zip(vals, c.valid.tolist())]
+        return out
 
     def batches(self, batch_size: int) -> Iterator["Table"]:
         """Fixed-size row slices (the unit shipped to the device)."""

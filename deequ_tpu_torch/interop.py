@@ -11,6 +11,10 @@ dataclasses and take these fields:
 
   ApproxQuantileState    k, n, levels (the KLL sketch's `to_arrays()`)
   FrequenciesAndNumRows  columns, key_columns, counts, num_rows
+
+The profiler's two internal states take their own fields, with
+OptimisticNumericState's `digest` given as None or as the KLL sketch's
+(k, n, levels).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from deequ_tpu_torch.analyzers.frequency import FrequenciesAndNumRows
 from deequ_tpu_torch.analyzers.sketch import ApproxCountDistinctState, ApproxQuantileState
 from deequ_tpu_torch.analyzers.states import (
     CorrelationState,
+    DataTypeHistogram,
     MaxState,
     MeanState,
     MinState,
@@ -34,6 +39,10 @@ from deequ_tpu_torch.analyzers.states import (
     SumState,
 )
 from deequ_tpu_torch.ops.sketches.kll import KLLSketch
+from deequ_tpu_torch.profiles.internal_analyzers import (
+    LowCardCountsState,
+    OptimisticNumericState,
+)
 
 STATE_KINDS = {
     cls.__name__: cls
@@ -47,6 +56,7 @@ STATE_KINDS = {
         StandardDeviationState,
         CorrelationState,
         ApproxCountDistinctState,
+        DataTypeHistogram,
     )
 }
 
@@ -59,12 +69,34 @@ def _frequencies(columns, key_columns, counts, num_rows) -> FrequenciesAndNumRow
     return FrequenciesAndNumRows(columns, list(key_columns), counts, int(num_rows))
 
 
+def _low_card_counts(counts, null_count, aborted, cap) -> LowCardCountsState:
+    return LowCardCountsState(
+        tuple((value, int(count)) for value, count in counts),
+        int(null_count),
+        bool(aborted),
+        int(cap),
+    )
+
+
+def _optimistic_numeric(n, total, minimum, maximum, m2, digest, dead) -> OptimisticNumericState:
+    sketch = None if digest is None else _quantile_state(*digest).digest
+    return OptimisticNumericState(
+        float(n), float(total), float(minimum), float(maximum), float(m2), sketch, bool(dead)
+    )
+
+
 # kind -> (field names, constructor) for the states that are not dataclasses
+# of plain numbers
 OTHER_KINDS: Dict[str, tuple] = {
     "ApproxQuantileState": (("k", "n", "levels"), _quantile_state),
     "FrequenciesAndNumRows": (
         ("columns", "key_columns", "counts", "num_rows"),
         _frequencies,
+    ),
+    "LowCardCountsState": (("counts", "null_count", "aborted", "cap"), _low_card_counts),
+    "OptimisticNumericState": (
+        ("n", "total", "minimum", "maximum", "m2", "digest", "dead"),
+        _optimistic_numeric,
     ),
 }
 

@@ -15,6 +15,7 @@ from typing import TYPE_CHECKING, List, Sequence
 import torch
 
 from deequ_tpu_torch.core.metrics import Metric
+from deequ_tpu_torch.ops import runtime
 
 if TYPE_CHECKING:
     from deequ_tpu_torch.analyzers.frequency import (
@@ -29,6 +30,7 @@ def run_shared_freq_agg(
     device: torch.device,
 ) -> List[Metric]:
     """One shared aggregation on `device` -> one metric per analyzer (in order)."""
+    runtime.record_pass()
     counts = torch.from_numpy(state.counts).to(device=device, dtype=torch.float64)
     num_rows = torch.tensor(float(state.num_rows), dtype=torch.float64, device=device)
     outs = [a.freq_reduce(counts, num_rows) for a in analyzers]

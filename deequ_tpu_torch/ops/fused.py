@@ -15,6 +15,12 @@ their `device_batch` output (a histogram) joins the packed buffer, and
 the fold finishes each against the batch's host inputs, which stay alive
 until that batch folds (`host_finish_batch`, then `host_consume`).
 
+Host-only members (the profiler's exact value counts and its speculative
+numeric statistics of string columns) work on strings and dictionary
+codes, which never ship: they fold each batch on the host
+(`fold_host_batch`) from the same lazily built inputs, and a failed
+input fails only the members that read it.
+
 reference: runners/AnalysisRunner.scala:279-326 (all scan-shareable
 analyzers in one `df.agg(...)`); the JAX counterpart is
 deequ_tpu/ops/fused.py.
@@ -24,7 +30,7 @@ from __future__ import annotations
 
 import threading
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -79,18 +85,25 @@ class ScanMemberPlan:
     """A pass's members and their deduplicated input specs. An analyzer
     whose spec construction fails sits in `spec_errors` and fails alone.
     `merge_idx` members fold partials with `merge_agg`; `assisted_idx`
-    members (device-assisted) fold on the host with `host_consume`."""
+    members (device-assisted) fold on the host with `host_consume`;
+    `host_assisted_idx` members (host-only) never touch the device and
+    read the inputs named in `host_keys`. `device_keys` are the inputs
+    the device program needs."""
 
     merge_idx: List[int] = field(default_factory=list)
     assisted_idx: List[int] = field(default_factory=list)
+    host_assisted_idx: List[int] = field(default_factory=list)
     specs: Dict[str, Any] = field(default_factory=dict)
+    device_keys: Set[str] = field(default_factory=set)
+    host_keys: Dict[int, List[str]] = field(default_factory=dict)
     spec_errors: Dict[int, BaseException] = field(default_factory=dict)
 
 
 def plan_scan_members(analyzers: Sequence[Any], mode: Optional[str] = None) -> ScanMemberPlan:
     """Partition a scan's members — pure and data-free. Only the
     ``device`` placement is ported: every member folds in the fused
-    device pass."""
+    device pass except the `host_only` device-assisted members, whose
+    inputs (strings, dictionary codes) never ship under any placement."""
     if mode is None:
         mode = runtime.placement_mode()
     if mode != "device":
@@ -104,13 +117,80 @@ def plan_scan_members(analyzers: Sequence[Any], mode: Optional[str] = None) -> S
         except Exception as e:  # noqa: BLE001
             plan.spec_errors[i] = e
             continue
-        if getattr(analyzer, "device_assisted", False):
-            plan.assisted_idx.append(i)
+        keys = [spec.key for spec in analyzer_specs]
+        if getattr(analyzer, "host_only", False):
+            plan.host_assisted_idx.append(i)
+            plan.host_keys[i] = keys
         else:
-            plan.merge_idx.append(i)
+            if getattr(analyzer, "device_assisted", False):
+                plan.assisted_idx.append(i)
+            else:
+                plan.merge_idx.append(i)
+            plan.device_keys.update(keys)
         for spec in analyzer_specs:
             plan.specs.setdefault(spec.key, spec)
     return plan
+
+
+class HostInputs(dict):
+    """One batch's inputs by key. A key builds on its first access, so a
+    member that answers from another's memo never pays for the inputs
+    it skipped. A build failure is remembered and raised again on every
+    access: it fails exactly the members that read the key."""
+
+    def __init__(self, specs: Dict[str, Any], batch: Table):
+        super().__init__()
+        self._specs = specs
+        self.batch = batch
+        self.build_errors: Dict[str, BaseException] = {}
+
+    def __missing__(self, key):
+        err = self.build_errors.get(key)
+        if err is not None:
+            raise err
+        spec = self._specs.get(key)
+        if spec is None:
+            raise KeyError(key)
+        try:
+            value = np.asarray(spec.build(self.batch))
+        except Exception as e:  # noqa: BLE001
+            self.build_errors[key] = e
+            raise
+        self[key] = value
+        return value
+
+    def get(self, key, default=None):
+        try:
+            return self[key]
+        except KeyError:
+            if key in self.build_errors:
+                raise
+            return default
+
+
+def fold_host_batch(
+    built: HostInputs,
+    host_assisted: Sequence[Tuple[int, Any]],
+    host_keys: Dict[int, List[str]],
+    states: Dict[int, Optional[State]],
+    errors: Dict[int, BaseException],
+) -> None:
+    """One batch's fold of the host-only members, in pass order: a member
+    may publish per-batch memos into `built` that a later one reads
+    (`_LowCardCounts`' dictionary counts serve `_OptimisticNumericStats`),
+    so the order is the plan's. A member whose input or fold fails
+    records its error and skips the rest of the pass."""
+    for i, member in host_assisted:
+        if i in errors:
+            continue
+        try:
+            for key in host_keys[i]:
+                built[key]  # raises this key's build error
+            states[i] = member.host_consume(states.get(i), member.host_batch(built))
+        except NotImplementedError:
+            raise
+        except Exception as e:  # noqa: BLE001
+            errors[i] = e
 
 
 def plan_shape_key(
@@ -375,14 +455,18 @@ class FusedScanPass:
             results[i] = AnalyzerRunResult(self.analyzers[i], error=err)
         members = [self.analyzers[i] for i in plan.merge_idx]
         assisted = [self.analyzers[i] for i in plan.assisted_idx]
-        if not (members or assisted):
+        host_assisted = [(i, self.analyzers[i]) for i in plan.host_assisted_idx]
+        if not (members or assisted or host_assisted):
             return [results[i] for i in range(len(self.analyzers))]
-        folded, build_error = self._run_pass(table, members, assisted, plan.specs)
-        if build_error is not None:
+        folded, host_results, device_error = self._run_pass(
+            table, members, assisted, host_assisted, plan
+        )
+        results.update(host_results)  # host outcomes stand on their own
+        if device_error is not None:
             # a failed input build fails every analyzer of the shared
-            # program (reference: AnalysisRunner.scala:310-313)
+            # device program (reference: AnalysisRunner.scala:310-313)
             for i in plan.merge_idx + plan.assisted_idx:
-                results[i] = AnalyzerRunResult(self.analyzers[i], error=build_error)
+                results[i] = AnalyzerRunResult(self.analyzers[i], error=device_error)
             return [results[i] for i in range(len(self.analyzers))]
         aggs, assisted_states = folded
         for i, analyzer, agg in zip(plan.merge_idx, members, aggs):
@@ -396,28 +480,44 @@ class FusedScanPass:
             results[i] = AnalyzerRunResult(analyzer, state=state)
         return [results[i] for i in range(len(self.analyzers))]
 
-    def _run_pass(self, table: Table, analyzers, assisted, specs):
-        """-> ((folded merge partials, assisted states), None) or (None,
-        the input build error that stopped the pass)."""
-        keys = sorted(specs)
+    def _run_pass(self, table: Table, analyzers, assisted, host_assisted, plan: ScanMemberPlan):
+        """-> ((folded merge partials, assisted states), host members'
+        results, None) or (None, host members' results, the input build
+        error that stopped the device program)."""
+        runtime.record_pass()
+        device_keys = sorted(plan.device_keys)
+        use_device = bool(analyzers or assisted)
         pin = self.device.type == "cuda"
         sticky: Dict[str, Any] = {}
         fold = PipelinedAggFold(analyzers, self.device, assisted)
+        host_states: Dict[int, Optional[State]] = {}
+        host_errors: Dict[int, BaseException] = {}
+        device_error: Optional[BaseException] = None
         for batch in table.batches(self.batch_size):
-            built = []
-            for key in keys:
+            built = HostInputs(plan.specs, batch)
+            if use_device and device_error is None:
                 try:
-                    built.append((key, np.asarray(specs[key].build(batch))))
+                    items = [(key, built[key]) for key in device_keys]
                 except NotImplementedError:
                     raise
                 except Exception as e:  # noqa: BLE001
-                    return None, e
-            host, layout = pack_batch_inputs(
-                built, runtime.wire_pad_size(batch.num_rows), sticky,
-                batch.num_rows, pin=pin,
-            )
-            wire = {k: v.to(self.device, non_blocking=True) for k, v in host.items()}
-            program = get_fused_fn(analyzers, layout, self.device, assisted)
-            # assisted members finish against the batch's host inputs
-            fold.submit(*program(wire, batch.num_rows), dict(built) if assisted else None)
-        return fold.finish(), None
+                    device_error = e
+                else:
+                    host, layout = pack_batch_inputs(
+                        items, runtime.wire_pad_size(batch.num_rows), sticky,
+                        batch.num_rows, pin=pin,
+                    )
+                    wire = {k: v.to(self.device, non_blocking=True) for k, v in host.items()}
+                    program = get_fused_fn(analyzers, layout, self.device, assisted)
+                    # assisted members finish against the batch's host inputs
+                    fold.submit(*program(wire, batch.num_rows), built if assisted else None)
+            fold_host_batch(built, host_assisted, plan.host_keys, host_states, host_errors)
+            if (device_error is not None or not use_device) and len(host_errors) == len(host_assisted):
+                break  # every member has failed: stop scanning
+        host_results = {
+            i: AnalyzerRunResult(member, state=host_states.get(i), error=host_errors.get(i))
+            for i, member in host_assisted
+        }
+        if device_error is not None:
+            return None, host_results, device_error
+        return fold.finish(), host_results, None

@@ -8,8 +8,11 @@ to the CPU on its own.
 
 from __future__ import annotations
 
+import contextlib
 import os
-from typing import Optional, Union
+import threading
+from dataclasses import dataclass
+from typing import Iterator, List, Optional, Union
 
 import numpy as np
 import torch
@@ -96,3 +99,52 @@ def wire_pad_size(n: int) -> int:
     (The JAX package pads to a power of two to bound recompiles; eager
     PyTorch compiles nothing, so the port pads only to whole bytes.)"""
     return max(-(-n // 8) * 8, 8)
+
+
+# -- pass accounting -----------------------------------------------------------
+
+
+@dataclass
+class ExecutionStats:
+    """Counts of engine work during a `monitored()` block."""
+
+    device_passes: int = 0  # one per fused scan over a table
+    group_passes: int = 0  # one per group-by frequency computation
+
+    @property
+    def jobs(self) -> int:
+        return self.device_passes + self.group_passes
+
+
+_local = threading.local()
+
+
+def _sinks() -> List[ExecutionStats]:
+    return getattr(_local, "sinks", [])
+
+
+@contextlib.contextmanager
+def monitored() -> Iterator[ExecutionStats]:
+    """Count the passes of everything run on this thread inside the block."""
+    stats = ExecutionStats()
+    try:
+        stack = _local.sinks
+    except AttributeError:
+        stack = _local.sinks = []
+    stack.append(stats)
+    try:
+        yield stats
+    finally:
+        stack.pop()
+
+
+def record_pass() -> None:
+    """One fused scan over a table, or one shared frequency aggregation."""
+    for sink in _sinks():
+        sink.device_passes += 1
+
+
+def record_group_pass() -> None:
+    """One group-by counting pass over a table."""
+    for sink in _sinks():
+        sink.group_passes += 1

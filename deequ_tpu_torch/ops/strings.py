@@ -1,5 +1,5 @@
-"""Host-side string work: hashing for the HLL sketch, numeric parsing
-and regex matching.
+"""Host-side string work: type classification, hashing for the HLL
+sketch, numeric parsing and regex matching.
 
 Strings never reach the device: a string column is dictionary-encoded
 once per table and every string operation runs over its unique values
@@ -109,6 +109,116 @@ def _hash_bucket(uniques: np.ndarray, seed: int) -> np.ndarray:
         acc *= _P3
         acc ^= acc >> np.uint64(32)
     return acc
+
+
+# -- type classification ------------------------------------------------------
+
+# class codes, in the order of DataTypeHistogram's fields
+CODE_NULL, CODE_FRACTIONAL, CODE_INTEGRAL, CODE_BOOLEAN, CODE_STRING = range(5)
+
+_ZERO, _NINE = ord("0"), ord("9")
+_DOT, _PLUS, _MINUS, _SPACE = ord("."), ord("+"), ord("-"), ord(" ")
+
+
+def classify(uniques: np.ndarray) -> np.ndarray:
+    """Vectorized value-type classification, same decision as the
+    reference's regexes (reference: catalyst/StatefulDataType.scala:36-38):
+
+        FRACTIONAL  ^(-|\\+)? ?\\d*\\.\\d*$
+        INTEGRAL    ^(-|\\+)? ?\\d*$
+        BOOLEAN     ^(true|false)$
+
+    checked in that order ('\\d' ASCII-only, like Java's default).
+    Returns int32 class codes per unique value.
+    """
+    if len(uniques) == 0:
+        return np.zeros(0, dtype=np.int32)
+    return _by_length_buckets(
+        uniques, _classify_bucket, _classify_scalar, np.int32
+    )
+
+
+def _classify_scalar(value: str) -> int:
+    import re
+
+    body = value
+    for term in ("\r\n", "\n", "\r", "", " ", " "):
+        if body.endswith(term):
+            body = body[: -len(term)]
+            break
+    if re.fullmatch(r"(-|\+)? ?[0-9]*\.[0-9]*", body):
+        return CODE_FRACTIONAL
+    if re.fullmatch(r"(-|\+)? ?[0-9]*", body):
+        return CODE_INTEGRAL
+    if body in ("true", "false"):
+        return CODE_BOOLEAN
+    return CODE_STRING
+
+
+def _classify_bucket(uniques: np.ndarray) -> np.ndarray:
+    cm = to_codepoint_matrix(uniques)
+    n, width = cm.shape
+    if n == 0:
+        return np.zeros(0, dtype=np.int32)
+
+    length = _effective_lengths(cm)
+
+    first = cm[:, 0]
+    has_sign = (first == _PLUS) | (first == _MINUS)
+    start = has_sign.astype(np.int64)
+    # optional single space right after the (optional) sign
+    after_sign = cm[np.arange(n), np.minimum(start, width - 1)]
+    start = start + ((after_sign == _SPACE) & (start < width))
+
+    pos = np.arange(width)[None, :]
+    in_body = (pos >= start[:, None]) & (pos < length[:, None])
+    is_digit = (cm >= _ZERO) & (cm <= _NINE)
+    is_dot = cm == _DOT
+
+    body_digits_or_dots = np.all(~in_body | is_digit | is_dot, axis=1)
+    n_dots = (is_dot & in_body).sum(axis=1)
+    fractional = body_digits_or_dots & (n_dots == 1)
+    integral = np.all(~in_body | is_digit, axis=1)
+    boolean = _equals_literal(cm, length, "true") | _equals_literal(cm, length, "false")
+
+    out = np.full(n, CODE_STRING, dtype=np.int32)
+    out[boolean] = CODE_BOOLEAN
+    out[integral] = CODE_INTEGRAL
+    out[fractional] = CODE_FRACTIONAL
+    return out
+
+
+# Java's `$` (non-MULTILINE) matches before one FINAL line terminator:
+# \n, \r\n, \r, ,  ,   — the reference's regexes run
+# under java.util.regex, so a single trailing terminator is outside the
+# matched body.
+_LONE_TERMS = (0x0D, 0x85, 0x2028, 0x2029)
+_NL = 0x0A
+
+
+def _effective_lengths(cm: np.ndarray) -> np.ndarray:
+    n, width = cm.shape
+    trailing_zeros = np.cumprod((cm == 0)[:, ::-1], axis=1).sum(axis=1)
+    length = width - trailing_zeros
+    idx = np.arange(n)
+    last = cm[idx, np.maximum(length - 1, 0)] * (length > 0)
+    is_nl = last == _NL
+    length = length - is_nl
+    last2 = cm[idx, np.maximum(length - 1, 0)] * (length > 0)
+    strip2 = (is_nl & (last2 == 0x0D)) | (
+        ~is_nl & np.isin(last2, _LONE_TERMS)
+    )
+    return length - strip2
+
+
+def _equals_literal(cm: np.ndarray, length: np.ndarray, literal: str) -> np.ndarray:
+    n, width = cm.shape
+    if width < len(literal):
+        return np.zeros(n, dtype=bool)
+    hit = length == len(literal)
+    for j, c in enumerate(literal):
+        hit &= cm[:, j] == ord(c)
+    return hit
 
 
 # -- numeric parse and pattern match ------------------------------------------

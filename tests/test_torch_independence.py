@@ -36,8 +36,9 @@ def _port_sources():
     yield os.path.join(REPO, "chip_smoke.py")
 
 
-# the modules of the port's second slice, which carry their own copies of
-# JAX-package modules that import no JAX themselves (kll.py, expr.py)
+# the modules of the port's later slices, some of which carry their own
+# copies of JAX-package modules that import no JAX themselves (kll.py,
+# expr.py)
 SLICE_MODULES = [
     "deequ_tpu_torch.ops.sketches.kll",
     "deequ_tpu_torch.data.expr",
@@ -46,6 +47,16 @@ SLICE_MODULES = [
     "deequ_tpu_torch.analyzers.histogram",
     "deequ_tpu_torch.ops.freq_agg",
     "deequ_tpu_torch.runners.grouping_runner",
+    "deequ_tpu_torch.constraints.constrainable_data_types",
+    "deequ_tpu_torch.ops.counts_family",
+    "deequ_tpu_torch.profiles.internal_analyzers",
+    "deequ_tpu_torch.profiles.column_profile",
+    "deequ_tpu_torch.profiles.column_profiler",
+    "deequ_tpu_torch.profiles.runner",
+    "deequ_tpu_torch.core.fileio",
+    "deequ_tpu_torch.suggestions.suggestion",
+    "deequ_tpu_torch.suggestions.rules",
+    "deequ_tpu_torch.suggestions.runner",
 ]
 
 
