@@ -5,6 +5,7 @@ profiling and constraint suggestion.
 Run from the repository root on a machine with one CUDA GPU:
 
     python3 chip_smoke.py [--rows 16777216] [--seed 7] [--profile-rows 10000000]
+                          [--stream-rows 8388608]
 
 Phases, one JSON line each:
   1. device   the card (nvidia-smi name and power limit), torch and CUDA,
@@ -55,9 +56,25 @@ Phases, one JSON line each:
               values worked out by hand;
   8. suggest  ConstraintSuggestionRunner (Rules.DEFAULT, a test-set ratio
               of 0.1, seed 0) on the lineitem table: suggestions and
-              their verdicts equal a device="cpu" run.
-Then the kernels' summary line (launches on the main path, and on the
-profile as `launches_profile`) and, last, the device line. Any failed
+              their verdicts equal a device="cpu" run;
+  9. stream   streamed Parquet (pyarrow must import): the lineitem table
+              written with row groups of 4,194,304 rows and profiled
+              through Table.scan_parquet twice with the default pipeline
+              and once with DEEQU_TPU_PIPELINE=0, the three bit for bit
+              alike and equal to phase 6's in-memory profile, with its
+              launches; the
+              warm run's wall time split into the consumer's wait for
+              batches, the fused pass's host work, host_finish_batch and
+              the device fold. Then phase 4's checks over --stream-rows
+              rows of its table written in row groups of 262,144 rows
+              (16 coalesce into each batch), streamed on CUDA: equal to
+              the in-memory CUDA run of the same rows, metric for metric
+              and bit for bit, with the grouping analyzers folded through
+              GroupCountAccumulator. Files go to a temporary directory;
+              their writing is timed apart from the runs.
+Then the kernels' summary line (launches on the main path, on the
+profile as `launches_profile`, and on the streamed profile and
+verification as `launches_stream`) and, last, the device line. Any failed
 check raises: the script exits non-zero and prints no result. Without
 CUDA it exits non-zero at once.
 """
@@ -599,6 +616,8 @@ def timed_calls(owner, name, totals, calls=None):
     """Accumulate the wall time of every call of owner.<name> in
     totals[name]; with `calls`, also append each call's time to it."""
     original = getattr(owner, name)
+    # a class keeps its own attribute (a staticmethod stays one)
+    saved = vars(owner).get(name, original) if isinstance(owner, type) else original
 
     def wrapper(*args, **kwargs):
         start = time.perf_counter()
@@ -614,27 +633,14 @@ def timed_calls(owner, name, totals, calls=None):
     try:
         yield totals
     finally:
-        setattr(owner, name, original)
+        setattr(owner, name, saved)
 
 
-def main_path_phase(torch, ck, rows: int, seed: int, card: str, power_limit: str):
-    import numpy as np
+def flagship_check(rows: int):
+    """The main path's check over a `rows`-row flagship table."""
+    from deequ_tpu_torch import Check, CheckLevel
 
-    from deequ_tpu_torch import Check, CheckLevel, CheckStatus, VerificationSuite
-    from deequ_tpu_torch.analyzers import (
-        ApproxCountDistinct, ApproxQuantiles, Completeness, Correlation, Maximum, Mean,
-        Minimum, Size, StandardDeviation, Sum,
-    )
-    from deequ_tpu_torch.analyzers.sketch import _QuantileAnalyzerBase
-    from deequ_tpu_torch.data.expr import Predicate
-    from deequ_tpu_torch.ops import fused, runtime
-    from deequ_tpu_torch.ops.fused import FusedScanPass
-    from deequ_tpu_torch.runners import analysis_runner
-
-    t0 = time.perf_counter()
-    data, table = flagship_table(rows, seed)
-    setup_s = time.perf_counter() - t0
-    check = (
+    return (
         Check(CheckLevel.ERROR, "flagship")
         .has_size(lambda n: n == rows)
         .is_complete("x")  # fails: every 11th x is null
@@ -654,14 +660,48 @@ def main_path_phase(torch, ck, rows: int, seed: int, card: str, power_limit: str
         .has_number_of_distinct_values("grp", lambda b: b == 5)
         .has_entropy("cat", lambda e: e > 1.0)
     )
-    quantiles_y = ApproxQuantiles("y", [0.1, 0.5, 0.9])
+
+
+def flagship_launches(rows: int):
+    """Each kernel's launches in one main-path run over `rows` rows."""
     batches = -(-rows // BATCH)
-    expected_launches = {
+    return {
         "masked_moments": batches,
         "masked_centered_sumsq": batches,
         "hll_register_max": batches,
         "hist16": 2 * batches,  # one per batch and quantile analyzer
     }
+
+
+def verdicts(result):
+    return [
+        (cr.status.value, cr.message)
+        for res in result.check_results.values()
+        for cr in res.constraint_results
+    ]
+
+
+def main_path_phase(torch, ck, rows: int, seed: int, card: str, power_limit: str):
+    import numpy as np
+
+    from deequ_tpu_torch import CheckStatus, VerificationSuite
+    from deequ_tpu_torch.analyzers import (
+        ApproxCountDistinct, ApproxQuantiles, Completeness, Correlation, Maximum, Mean,
+        Minimum, Size, StandardDeviation, Sum,
+    )
+    from deequ_tpu_torch.analyzers.sketch import _QuantileAnalyzerBase
+    from deequ_tpu_torch.data.expr import Predicate
+    from deequ_tpu_torch.ops import fused, runtime
+    from deequ_tpu_torch.ops.fused import FusedScanPass
+    from deequ_tpu_torch.runners import analysis_runner
+
+    t0 = time.perf_counter()
+    data, table = flagship_table(rows, seed)
+    setup_s = time.perf_counter() - t0
+    check = flagship_check(rows)
+    quantiles_y = ApproxQuantiles("y", [0.1, 0.5, 0.9])
+    batches = -(-rows // BATCH)
+    expected_launches = flagship_launches(rows)
 
     def run(device):
         ck.reset_launch_counts()
@@ -722,13 +762,6 @@ def main_path_phase(torch, ck, rows: int, seed: int, card: str, power_limit: str
     for key in list(QUANTILES) + [k for k in numpy_slice2_reference(data) if not k.startswith("Entropy")]:
         if not same_bits(metrics[0][key], cpu_metrics[key]):
             raise AssertionError(f"{key}: cuda {metrics[0][key]!r} vs cpu {cpu_metrics[key]!r}")
-
-    def verdicts(result):
-        return [
-            (cr.status.value, cr.message)
-            for res in result.check_results.values()
-            for cr in res.constraint_results
-        ]
 
     if verdicts(runs[0][0]) != verdicts(cpu_result):
         raise AssertionError(f"verdicts differ: {verdicts(runs[0][0])} vs {verdicts(cpu_result)}")
@@ -942,7 +975,7 @@ def profile_phase(torch, ck, rows: int, seed: int, card: str, power_limit: str):
     pass counts and K1-K4's launches as the plan predicts. The warm run's
     wall time is split into pass 1, the quantiles' host selection inside
     it, pass 2 and the histogram pass. Returns (the warm run's seconds,
-    its launches, the table)."""
+    its launches, the table, the warm run's profiles)."""
     import numpy as np
 
     from deequ_tpu_torch import ColumnProfilerRunner
@@ -1037,7 +1070,7 @@ def profile_phase(torch, ck, rows: int, seed: int, card: str, power_limit: str):
         "histograms": histograms,
         "approx_distinct": {name: p.approximate_num_distinct_values for name, p in profiles.items()},
     })
-    return warm, runs[1][2], table
+    return warm, runs[1][2], table, runs[1][0]
 
 
 EXAMPLE_PROFILE = {
@@ -1128,11 +1161,236 @@ def suggest_phase(torch, ck, table, warm_profile_s: float):
           "suggestions": gpu[0], "verdicts": [status for status, _msg in gpu[1]]})
 
 
+@contextlib.contextmanager
+def timed_iteration(module, name, totals):
+    """Replace module.<name>, a function returning an iterator, with one
+    whose iterators add the time each `next()` takes to totals[name]:
+    the time the caller waits for its next item."""
+    original = getattr(module, name)
+
+    def timed(*args, **kwargs):
+        it = original(*args, **kwargs)
+        try:
+            while True:
+                start = time.perf_counter()
+                try:
+                    item = next(it)
+                except StopIteration:
+                    return
+                finally:
+                    totals[name] = totals.get(name, 0.0) + time.perf_counter() - start
+                yield item
+        finally:
+            it.close()
+
+    setattr(module, name, timed)
+    try:
+        yield totals
+    finally:
+        setattr(module, name, original)
+
+
+@contextlib.contextmanager
+def env(**values):
+    old = {key: os.environ.get(key) for key in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for key, value in old.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
+def stream_phase(torch, ck, lineitem, memory_profiles, memory_launches, stream_rows: int,
+                 seed: int, card: str, power_limit: str):
+    """Streamed Parquet on the card (pyarrow must import): the lineitem
+    profile streamed three times, bit for bit alike and equal to phase
+    6's in-memory profile with the same launches; then the main path's
+    checks streamed over `stream_rows` rows, equal to the in-memory CUDA
+    run of the same rows. Returns the kernels' launches over the warm
+    streamed profile and the streamed verification."""
+    import tempfile
+
+    import pyarrow  # noqa: F401 - the stream phase has no fallback
+
+    from deequ_tpu_torch import ColumnProfilerRunner, Table, VerificationSuite
+    from deequ_tpu_torch.analyzers import ApproxQuantiles
+    from deequ_tpu_torch.analyzers.freq_spill import GroupCountAccumulator
+    from deequ_tpu_torch.analyzers.sketch import _QuantileAnalyzerBase
+    from deequ_tpu_torch.data import source
+    from deequ_tpu_torch.data.source import ParquetSource
+    from deequ_tpu_torch.ops import fused, runtime
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as tmp:
+        lineitem_path = os.path.join(tmp, "lineitem.parquet")
+        t0 = time.perf_counter()
+        lineitem.to_parquet(lineitem_path, row_group_size=BATCH)
+        lineitem_write_s = time.perf_counter() - t0
+
+        def profile(split=None):
+            with contextlib.ExitStack() as stack:
+                if split is not None:
+                    stack.enter_context(timed_calls(fused.FusedScanPass, "run", split))
+                    stack.enter_context(timed_iteration(fused.pipeline, "staged", split))
+                    stack.enter_context(timed_iteration(source.DataSource, "batches", split))
+                    # thread seconds on the decode and prep threads
+                    stack.enter_context(timed_calls(source.Table, "from_arrow", split))
+                    stack.enter_context(timed_calls(fused._BatchScan, "prep", split))
+                    stack.enter_context(timed_calls(_QuantileAnalyzerBase, "host_finish_batch", split))
+                    stack.enter_context(timed_calls(fused.PipelinedAggFold, "_fold", split))
+                    stack.enter_context(timed_calls(torch.cuda.Event, "synchronize", split))
+                stats = stack.enter_context(runtime.monitored())
+                ck.reset_launch_counts()
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                result = ColumnProfilerRunner.on_data(
+                    Table.scan_parquet(lineitem_path), device="cuda").run()
+                wall = time.perf_counter() - start
+            return result, wall, ck.launch_counts(), stats.device_passes
+
+        split, serial_split = {}, {}
+        runs = [profile(), profile(split)]
+        with env(DEEQU_TPU_PIPELINE="0"):
+            runs.append(profile(serial_split))
+        for result, _wall, launches, passes in runs:
+            if launches != memory_launches or passes != 1:
+                raise AssertionError(f"stream profile: launches {launches}, passes {passes}; "
+                                     f"in memory {memory_launches}")
+            if result.to_json() != runs[0][0].to_json():
+                raise AssertionError("stream profile: the three streamed runs differ")
+        sum_differences = compare_stream_profile(runs[1][0], memory_profiles)
+        warm = runs[1][1]
+        fused_pass = split.get("run", 0.0)
+        waits = split.get("staged", 0.0)
+        fold = split.get("_fold", 0.0)
+        profile_line = {
+            "rows": lineitem.num_rows,
+            "row_group_size": BATCH,
+            "write_s": lineitem_write_s,
+            "first_run_s": runs[0][1],
+            "warm_run_s": warm,
+            "rows_per_s_warm_run": lineitem.num_rows / warm,
+            "serial_run_s": runs[2][1],
+            "warm_run_split_s": {
+                "fused_pass": fused_pass,
+                "consumer_wait_for_batches": waits,
+                "fused_pass_host_work": fused_pass - waits - fold,
+                "host_finish_batch": split.get("host_finish_batch", 0.0),
+                "device_fold": fold - split.get("host_finish_batch", 0.0),
+                "device_fold_event_wait": split.get("synchronize", 0.0),
+                "decode_thread_s_arrow_to_table": split.get("from_arrow", 0.0),
+                "prep_thread_s": split.get("prep", 0.0),
+                "prep_thread_wait_for_decode": split.get("batches", 0.0),
+            },
+            "serial_run_split_s": {
+                "fused_pass": serial_split.get("run", 0.0),
+                "read_and_decode": serial_split.get("batches", 0.0),
+                "arrow_to_table": serial_split.get("from_arrow", 0.0),
+                "prep": serial_split.get("prep", 0.0),
+                "host_finish_batch": serial_split.get("host_finish_batch", 0.0),
+            },
+            "launches": runs[1][2],
+            "sums_within_1e-12_not_bits": sum_differences,
+        }
+        profile_launches = runs[1][2]
+        os.unlink(lineitem_path)
+
+        data, table = flagship_table(stream_rows, seed)
+        path = os.path.join(tmp, "flagship.parquet")
+        t0 = time.perf_counter()
+        table.to_parquet(path, row_group_size=1 << 18)
+        flagship_write_s = time.perf_counter() - t0
+        del data
+        check = flagship_check(stream_rows)
+        quantiles_y = ApproxQuantiles("y", [0.1, 0.5, 0.9])
+
+        def verify(data_or_source):
+            ck.reset_launch_counts()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            result = (VerificationSuite.on_data(data_or_source, device="cuda")
+                      .add_check(check).add_required_analyzer(quantiles_y).run())
+            return result, time.perf_counter() - start, ck.launch_counts()
+
+        memory, memory_s, memory_counts = verify(table)
+        del table
+        batch_rows = [b.num_rows for b in Table.scan_parquet(path).batches(BATCH)]
+        adds = []
+        with timed_calls(GroupCountAccumulator, "add", {}, adds):
+            streamed, streamed_s, streamed_counts = verify(Table.scan_parquet(path))
+        if streamed_counts != memory_counts or streamed_counts != flagship_launches(stream_rows):
+            raise AssertionError(f"stream verify: launches {streamed_counts} vs {memory_counts}")
+        if not adds:
+            raise AssertionError("stream verify: no grouping analyzer went through "
+                                 "GroupCountAccumulator")
+        got, want = metric_values(streamed), metric_values(memory)
+        if list(got) != list(want):
+            raise AssertionError(f"stream verify: metrics {list(got)} vs {list(want)}")
+        for key, value in want.items():
+            if not same_bits(got[key], value):
+                raise AssertionError(f"stream verify {key}: {got[key]!r} vs in memory {value!r}")
+        if verdicts(streamed) != verdicts(memory) or streamed.status != memory.status:
+            raise AssertionError(f"stream verify: verdicts {verdicts(streamed)} vs {verdicts(memory)}")
+        if ParquetSource(path).num_rows != stream_rows:
+            raise AssertionError("stream verify: the file lost rows")
+
+    emit({
+        "phase": "stream",
+        "card": card,
+        "power_limit": power_limit,
+        "pipeline_depth": fused.pipeline.DEPTH,
+        "profile": profile_line,
+        "verify": {
+            "rows": stream_rows,
+            "row_group_size": 1 << 18,
+            "batch_rows": batch_rows,
+            "write_s": flagship_write_s,
+            "in_memory_run_s": memory_s,
+            "streamed_run_s": streamed_s,
+            "rows_per_s_streamed": stream_rows / streamed_s,
+            "group_accumulator_adds": len(adds),
+            "launches": streamed_counts,
+            "status": streamed.status.value,
+        },
+    })
+    return {name: profile_launches[name] + streamed_counts[name] for name in profile_launches}
+
+
+def compare_stream_profile(streamed, memory):
+    """The streamed profile against the in-memory one: every field exact,
+    histograms as {value: count}; mean, sum and stddev bit for bit, or
+    else within 1e-12 relative, and each such one is returned."""
+    got, want = profile_columns(streamed), profile_columns(memory)
+    if list(got) != list(want):
+        raise AssertionError(f"stream profile: columns {list(got)} vs {list(want)}")
+    differences = []
+    for column, entry in want.items():
+        other = got[column]
+        if sorted(other) != sorted(entry):
+            raise AssertionError(f"stream profile {column}: fields {sorted(other)} vs {sorted(entry)}")
+        for key, value in entry.items():
+            mine = other[key]
+            if key == "histogram":
+                mine = {h["value"]: (h["count"], h["ratio"]) for h in mine}
+                value = {h["value"]: (h["count"], h["ratio"]) for h in value}
+            if key in INEXACT_PROFILE_KEYS and not same_bits(mine, value):
+                if not close(mine, value, 1e-12):
+                    raise AssertionError(f"stream profile {column}.{key}: {mine!r} vs {value!r}")
+                differences.append([column, key, mine, value])
+            elif key not in INEXACT_PROFILE_KEYS and mine != value:
+                raise AssertionError(f"stream profile {column}.{key}: {mine!r} vs {value!r}")
+    return differences
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--rows", type=int, default=4 * BATCH)
     parser.add_argument("--seed", type=int, default=7)
     parser.add_argument("--profile-rows", type=int, default=10_000_000)
+    parser.add_argument("--stream-rows", type=int, default=2 * BATCH)
     args = parser.parse_args()
 
     import torch
@@ -1181,15 +1439,19 @@ def main() -> int:
     del timer, profile  # frees the 256 MB L2 flush buffer before the main path
     launches = main_path_phase(torch, ck, args.rows, args.seed, card, power_limit)
     basic_example_phase(torch, ck)
-    warm_profile_s, profile_launches, lineitem = profile_phase(
+    warm_profile_s, profile_launches, lineitem, profiles = profile_phase(
         torch, ck, args.profile_rows, args.seed, card, power_limit)
     profile_example_phase(torch, ck)
     suggest_phase(torch, ck, lineitem, warm_profile_s)
+    stream_launches = stream_phase(torch, ck, lineitem, profiles, profile_launches,
+                                   args.stream_rows, args.seed, card, power_limit)
     for row in summary:
         row["launches"] = launches[row["name"]]
         row["launches_profile"] = profile_launches[row["name"]]
-        if not (row["launches"] and row["launches_profile"]):
-            raise AssertionError(f"{row['name']} never launched on the main path or the profile")
+        row["launches_stream"] = stream_launches[row["name"]]
+        if not (row["launches"] and row["launches_profile"] and row["launches_stream"]):
+            raise AssertionError(f"{row['name']} never launched on the main path, the profile "
+                                 "or the streamed path")
     emit({"kernels": summary})
     emit({
         "ok": True,

@@ -22,6 +22,12 @@ constraints on the host. Runs use CUDA unless the caller passes
 completeness, distinct counts, numeric statistics, histograms of the
 low-cardinality columns), and `ConstraintSuggestionRunner` turns such a
 profile into suggested checks.
+
+Every entry point also takes a streamed source in place of a table:
+`Table.scan_parquet(path)` for one Parquet file and
+`Table.scan_parquet_dataset(directory)` for a dataset of partition files
+(data/source.py), read in bounded batches on a decode thread while the
+GPU folds the batch before.
 """
 
 from deequ_tpu_torch.checks.check import Check, CheckLevel, CheckStatus

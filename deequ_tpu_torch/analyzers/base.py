@@ -11,7 +11,7 @@ batch (ops/fused.py).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -145,18 +145,23 @@ class Analyzer:
     def compute_metric_from(self, state: Optional[State]) -> Metric:
         raise NotImplementedError
 
-    def compute_state_from(self, table: Table) -> Optional[State]:
-        """This analyzer's state over a whole table, outside the fused pass
-        (the grouping analyzers)."""
+    def compute_state_from(self, table: Table, device=None) -> Optional[State]:
+        """This analyzer's state over a whole table or source, on the
+        resolved `device` where it folds on one."""
         raise NotImplementedError
 
-    def calculate(self, table: Table) -> Metric:
-        """reference: Analyzer.scala:63-83, without state persistence."""
+    def calculate(self, table: Table, device=None) -> Metric:
+        """reference: Analyzer.scala:63-83, without state persistence. The
+        device resolves as the runners resolve it: CUDA unless the caller
+        asks for ``"cpu"``."""
+        from deequ_tpu_torch.ops import runtime
+
+        device = runtime.resolve_device(device)
         failing = Preconditions.find_first_failing(table, self.preconditions())
         if failing is not None:
             return self.to_failure_metric(failing)
         try:
-            state = self.compute_state_from(table)
+            state = self.compute_state_from(table, device)
         except Exception as e:  # noqa: BLE001
             return self.to_failure_metric(e)
         return self.compute_metric_from(state)
@@ -191,16 +196,20 @@ class Analyzer:
 class InputSpec:
     """One named host-prepped array. Keys are deduplicated across the
     analyzers of a pass: two analyzers over the same column share one
-    device tensor."""
+    device tensor. `columns` names the columns the build reads: a pass
+    unions them to decode only those columns of a streamed source; None
+    (unknown) turns that pruning off."""
 
     key: str
     build: Callable[[Table], np.ndarray]
+    columns: Optional[Tuple[str, ...]] = None
 
 
 def col_values_spec(column: str) -> InputSpec:
     return InputSpec(
         key=f"num:{column}",
         build=lambda t: t.column(column).numeric_values()[0],
+        columns=(column,),
     )
 
 
@@ -208,6 +217,7 @@ def col_valid_spec(column: str) -> InputSpec:
     return InputSpec(
         key=f"valid:{column}",
         build=lambda t: t.column(column).valid,
+        columns=(column,),
     )
 
 
@@ -223,9 +233,14 @@ def where_spec(where: Optional[str]) -> InputSpec:
         return InputSpec(
             key=where_key(None),
             build=lambda t: np.ones(t.num_rows, dtype=np.bool_),
+            columns=(),
         )
     pred = Predicate(where)
-    return InputSpec(key=where_key(where), build=pred.eval_mask)
+    return InputSpec(
+        key=where_key(where),
+        build=pred.eval_mask,
+        columns=tuple(sorted(set(pred.referenced_columns()))),
+    )
 
 
 class ScanShareableAnalyzer(Analyzer):
@@ -248,3 +263,10 @@ class ScanShareableAnalyzer(Analyzer):
     def state_from_aggregates(self, agg: Dict[str, Any]) -> Optional[State]:
         """Folded host partial -> State; None = empty state."""
         raise NotImplementedError
+
+    def compute_state_from(self, table: Table, device=None) -> Optional[State]:
+        """A one-analyzer fused pass (the JAX package's
+        analyzers/base.py:377-380)."""
+        from deequ_tpu_torch.ops.fused import FusedScanPass
+
+        return FusedScanPass([self], device=device).run(table)[0].state_or_raise()

@@ -11,7 +11,9 @@ analyzer on the same grouping columns (ops/freq_agg.py; reference:
 AnalysisRunner.scala:466-534).
 
 State merge is a key-aligned counts sum — the dict analogue of the
-reference's null-safe outer join (GroupingAnalyzers.scala:128-148).
+reference's null-safe outer join (GroupingAnalyzers.scala:128-148). A
+streamed source folds batch by batch through `GroupCountAccumulator`,
+which spills to disk past a group cap (analyzers/freq_spill.py).
 """
 
 from __future__ import annotations
@@ -62,7 +64,9 @@ class FrequenciesAndNumRows(State):
     def num_groups(self) -> int:
         return len(self.counts)
 
-    def merge(self, other: "FrequenciesAndNumRows") -> "FrequenciesAndNumRows":
+    def merge(self, other) -> "FrequenciesAndNumRows":
+        if getattr(other, "is_spilled", False):
+            return other.merge(self)  # the spilled side knows how
         if sorted(self.columns) != sorted(other.columns):
             raise ValueError(
                 f"cannot merge frequencies over {self.columns} with {other.columns}"
@@ -77,6 +81,11 @@ class FrequenciesAndNumRows(State):
         return FrequenciesAndNumRows(
             self.columns, key_columns, counts, self.num_rows + other.num_rows
         )
+
+    def compacted(self) -> "FrequenciesAndNumRows":
+        """Duplicate key rows summed (a spill partition's compaction)."""
+        key_columns, counts = _group_sum(self.key_columns, self.counts)
+        return FrequenciesAndNumRows(self.columns, key_columns, counts, self.num_rows)
 
     def __eq__(self, other) -> bool:
         if not isinstance(other, FrequenciesAndNumRows):
@@ -100,16 +109,24 @@ def _group_sum(
 ) -> Tuple[List[np.ndarray], np.ndarray]:
     """Sum counts over identical key rows, in first-appearance order (the
     reference's null-safe outer join + count sum,
-    GroupingAnalyzers.scala:128-148). One dict pass over the groups: a
-    merge of states, never a pass over rows."""
-    totals: Dict[Tuple, int] = {}
-    for key, count in zip(zip(*[k.tolist() for k in key_columns]), counts.tolist()):
-        totals[key] = totals.get(key, 0) + count
-    keys = list(totals)
-    out_keys = [
-        np.array([k[j] for k in keys], dtype=object) for j in range(len(key_columns))
-    ]
-    return out_keys, np.array(list(totals.values()), dtype=np.int64)
+    GroupingAnalyzers.scala:128-148): a hash group-by over the groups,
+    never a pass over rows."""
+    import pandas as pd
+
+    n_cols = len(key_columns)
+    frame = {f"k{j}": key_columns[j] for j in range(n_cols)}
+    frame["__count"] = counts
+    grouped = (
+        pd.DataFrame(frame)
+        .groupby([f"k{j}" for j in range(n_cols)], sort=False, dropna=False)["__count"]
+        .sum()
+    )
+    index = grouped.index
+    if n_cols == 1:
+        out_keys = [index.to_numpy(dtype=object)]
+    else:
+        out_keys = [index.get_level_values(j).to_numpy(dtype=object) for j in range(n_cols)]
+    return out_keys, grouped.to_numpy(dtype=np.int64)
 
 
 def top_n_order(keys: np.ndarray, counts: np.ndarray, n: int) -> np.ndarray:
@@ -142,10 +159,21 @@ def compute_frequencies(
 ) -> FrequenciesAndNumRows:
     """reference: GroupingAnalyzers.scala:53-80. Rows where ANY grouping
     column is NULL are excluded from groups; num_rows counts all rows.
-    One host pass over the whole table (the JAX package's mesh-less
-    in-memory path)."""
+    An in-memory table is one host pass; a streamed source folds batch by
+    batch through `GroupCountAccumulator`, so host memory is O(groups)
+    below the cap and bounded above it (the disk spill)."""
     runtime.record_group_pass()
-    state = _frequencies_of_batch(data, grouping_columns)
+    if hasattr(data, "with_columns"):
+        data = data.with_columns(list(grouping_columns))
+    if getattr(data, "is_streaming", False):
+        from deequ_tpu_torch.analyzers.freq_spill import GroupCountAccumulator
+
+        acc = GroupCountAccumulator(grouping_columns)
+        for batch in data.batches(data.batch_rows):
+            acc.add(_frequencies_of_batch(batch, grouping_columns))
+        state = acc.finalize()
+    else:
+        state = _frequencies_of_batch(data, grouping_columns)
     if num_rows is not None:
         state.num_rows = num_rows
     return state
@@ -200,7 +228,7 @@ class FrequencyBasedAnalyzer(GroupingAnalyzer):
             Preconditions.has_column(c) for c in self.columns
         ]
 
-    def compute_state_from(self, table: Table) -> Optional[FrequenciesAndNumRows]:
+    def compute_state_from(self, table: Table, device=None) -> Optional[FrequenciesAndNumRows]:
         return compute_frequencies(table, self.grouping_columns())
 
 
@@ -390,8 +418,13 @@ class MutualInformation(FrequencyBasedAnalyzer):
         runtime.record_pass()
         total = state.num_rows
         # state columns may be sorted differently than self.columns
-        keys_a = state.key_columns[state.columns.index(self.columns[0])]
-        keys_b = state.key_columns[state.columns.index(self.columns[1])]
+        ia = state.columns.index(self.columns[0])
+        ib = state.columns.index(self.columns[1])
+        if getattr(state, "is_spilled", False):
+            value = _spilled_mutual_information(state, ia, ib, total)
+            return DoubleMetric(self.entity, self.name, self.instance, Success(value))
+        keys_a = state.key_columns[ia]
+        keys_b = state.key_columns[ib]
         counts = state.counts.astype(np.float64)
 
         _, codes_a = np.unique(keys_a.astype(str), return_inverse=True)
@@ -407,3 +440,26 @@ class MutualInformation(FrequencyBasedAnalyzer):
 
     def __repr__(self) -> str:
         return f"MutualInformation({_scala_list_repr(self.columns)})"
+
+
+def _spilled_mutual_information(state, ia: int, ib: int, total: int) -> float:
+    """Two passes over a spilled state's partitions: the marginal counts
+    (memory O(|A| + |B|), far below the joint groups), then the joint sum
+    in partition order."""
+    marg_a: Dict[str, float] = {}
+    marg_b: Dict[str, float] = {}
+    for part in state.partitions():
+        counts = part.counts.astype(np.float64)
+        for keys, marg in ((part.key_columns[ia], marg_a), (part.key_columns[ib], marg_b)):
+            uniq, inv = np.unique(keys.astype(str), return_inverse=True)
+            for u, c in zip(uniq, np.bincount(inv, weights=counts)):
+                marg[u] = marg.get(u, 0.0) + c
+    value = 0.0
+    for part in state.partitions():
+        pxy = part.counts.astype(np.float64) / total
+        ua, inv_a = np.unique(part.key_columns[ia].astype(str), return_inverse=True)
+        ub, inv_b = np.unique(part.key_columns[ib].astype(str), return_inverse=True)
+        px = np.array([marg_a[u] for u in ua])[inv_a] / total
+        py = np.array([marg_b[u] for u in ub])[inv_b] / total
+        value += float(np.sum(pxy * np.log(pxy / (px * py))))
+    return value

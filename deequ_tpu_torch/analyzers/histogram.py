@@ -90,8 +90,22 @@ class Histogram(Analyzer):
 
         return [param_check, Preconditions.has_column(self.column)]
 
-    def compute_state_from(self, table: Table) -> FrequenciesAndNumRows:
+    def compute_state_from(self, table: Table, device=None) -> Optional[FrequenciesAndNumRows]:
         runtime.record_group_pass()
+        if hasattr(table, "with_columns"):
+            table = table.with_columns([self.column])
+        if getattr(table, "is_streaming", False):
+            # the bounded fold of compute_frequencies, with its disk spill:
+            # a high-cardinality column must not hold every group in memory
+            from deequ_tpu_torch.analyzers.freq_spill import GroupCountAccumulator
+
+            acc = GroupCountAccumulator([self.column])
+            for batch in table.batches(table.batch_rows):
+                acc.add(self._state_of_batch(batch))
+            return acc.finalize()
+        return self._state_of_batch(table)
+
+    def _state_of_batch(self, table: Table) -> FrequenciesAndNumRows:
         col = table.column(self.column)
         if self.binning_udf is None:
             # group on dictionary codes, stringify only the unique values
@@ -124,11 +138,17 @@ class Histogram(Analyzer):
             )
 
         def build() -> Distribution:
-            # (count desc, key asc): a deterministic tie-break
-            order = top_n_order(state.key_columns[0], state.counts, self.max_detail_bins)
+            if getattr(state, "is_spilled", False):
+                # the exact global top-N from each partition's top-N
+                top_keys, top_counts = state.top_n(self.max_detail_bins)
+                keys, counts = top_keys[0], top_counts
+            else:
+                # (count desc, key asc): a deterministic tie-break
+                order = top_n_order(state.key_columns[0], state.counts, self.max_detail_bins)
+                keys, counts = state.key_columns[0][order], state.counts[order]
             details = {
                 value: DistributionValue(int(absolute), int(absolute) / state.num_rows)
-                for value, absolute in zip(state.key_columns[0][order], state.counts[order])
+                for value, absolute in zip(keys, counts)
             }
             return Distribution(details, number_of_bins=state.num_groups)
 

@@ -210,7 +210,12 @@ class Completeness(_RatioAnalyzer):
 
 
 def _pred_spec(predicate: str) -> InputSpec:
-    return InputSpec(key=f"pred:{predicate}", build=Predicate(predicate).eval_mask)
+    pred = Predicate(predicate)
+    return InputSpec(
+        key=f"pred:{predicate}",
+        build=pred.eval_mask,
+        columns=tuple(sorted(set(pred.referenced_columns()))),
+    )
 
 
 def _pred_nonnull_spec(predicate: str) -> InputSpec:
@@ -220,7 +225,11 @@ def _pred_nonnull_spec(predicate: str) -> InputSpec:
         _, null, _ = pred.eval(t)
         return ~null
 
-    return InputSpec(key=f"prednn:{predicate}", build=build)
+    return InputSpec(
+        key=f"prednn:{predicate}",
+        build=build,
+        columns=tuple(sorted(set(pred.referenced_columns()))),
+    )
 
 
 @dataclass(frozen=True)
@@ -296,7 +305,7 @@ def _match_spec(column: str, pattern: str) -> InputSpec:
     def build(t: Table) -> np.ndarray:
         return cached_column_encode(t.column(column), f"match:{pattern}", compute)
 
-    return InputSpec(key=f"match:{column}:{pattern}", build=build)
+    return InputSpec(key=f"match:{column}:{pattern}", build=build, columns=(column,))
 
 
 @dataclass(frozen=True)
@@ -690,7 +699,7 @@ def _dtclass_spec(column: str) -> InputSpec:
         # column-deterministic: memoized per table, sliced per batch
         return cached_column_encode(t.column(column), "dtclass", compute)
 
-    return InputSpec(key=f"dtclass:{column}", build=build)
+    return InputSpec(key=f"dtclass:{column}", build=build, columns=(column,))
 
 
 _CLASS_LABELS = ("null", "fractional", "integral", "boolean", "string")

@@ -38,7 +38,13 @@ from deequ_tpu_torch.core.exceptions import (
 )
 from deequ_tpu_torch.core.maybe import Failure, Success
 from deequ_tpu_torch.core.metrics import DoubleMetric, KeyedDoubleMetric, Metric
-from deequ_tpu_torch.data.table import ColumnType, Table, cached_column_encode, gather_with_null
+from deequ_tpu_torch.data.table import (
+    ColumnType,
+    Table,
+    cached_column_encode,
+    gather_with_null,
+    hashed_dictionary,
+)
 from deequ_tpu_torch.ops import cuda_kernels
 from deequ_tpu_torch.ops.sketches import hll
 from deequ_tpu_torch.ops.sketches.kll import KLLSketch, k_for_error
@@ -71,12 +77,8 @@ def _packed_codes(col) -> np.ndarray:
     pack to 0 (idx 0, rank 0 — a no-op for the register max)."""
     if col.ctype == ColumnType.STRING:
         # hash the dictionary's unique strings only, gather to rows
-        from deequ_tpu_torch.ops.strings import hash_strings
-
-        codes, uniques = col.dict_encode()
-        idx_u, rank_u = hll.registers_from_hashes(
-            hash_strings(np.asarray(uniques, dtype=object))
-        )
+        codes, _uniques = col.dict_encode()
+        idx_u, rank_u = hll.registers_from_hashes(hashed_dictionary(col))
         return gather_with_null(((idx_u << 6) | rank_u).astype(np.int32), codes, 0)
     return hll.pack_codes(col.values, col.valid)
 
@@ -86,7 +88,7 @@ def _hll_spec(column: str) -> InputSpec:
         # column-deterministic: hashed once per table, sliced per batch
         return cached_column_encode(t.column(column), "hll_packed", _packed_codes)
 
-    return InputSpec(key=f"hll:{column}", build=build)
+    return InputSpec(key=f"hll:{column}", build=build, columns=(column,))
 
 
 @dataclass(frozen=True)

@@ -4,11 +4,20 @@ Numeric and bool columns are dense numpy arrays plus a validity mask;
 strings stay on the host (object arrays + dictionary encoding). Batches
 are row slices that the fused pass packs and ships to the device.
 NaN in a float column counts as NULL (the pandas/Arrow convention).
+
+The Arrow, pandas and Parquet surface (`from_arrow`, `to_arrow`,
+`from_pandas`, `to_pandas`, `from_parquet`, `to_parquet`) converts whole
+tables; `scan_parquet` and `scan_parquet_dataset` stream a file or a
+dataset through every pass (data/source.py). A streamed string column
+keeps its Arrow dictionary: its codes serve the analyzers, and per-row
+Python strings are built only if something reads `values`.
 """
 
 from __future__ import annotations
 
 import enum
+import threading
+from collections import OrderedDict
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -44,20 +53,46 @@ class Column:
     epoch) — never NaN — so masked reductions can consume the backing
     array directly. Build Columns through `Table.from_numpy`, which
     enforces this.
+
+    `values` may be a zero-argument callable: the column then builds its
+    values on first read (a streamed string column, whose dictionary
+    codes serve the analyzers).
     """
 
-    def __init__(self, name: str, ctype: ColumnType, values: np.ndarray, valid: np.ndarray):
-        if len(values) != len(valid):
-            raise ValueError(
-                f"column {name!r}: {len(values)} values but {len(valid)} mask entries"
-            )
+    # content digest of the Arrow dictionary a streamed string column was
+    # decoded from: values derived from the dictionary itself (its parse,
+    # classes, hashes) are shared by the batches whose dictionaries are equal
+    _dict_content_key = None
+
+    def __init__(self, name: str, ctype: ColumnType, values, valid: np.ndarray):
+        if callable(values):
+            self._values = None
+            self._values_fn = values
+        else:
+            if len(values) != len(valid):
+                raise ValueError(
+                    f"column {name!r}: {len(values)} values but {len(valid)} mask entries"
+                )
+            self._values = values
+            self._values_fn = None
         self.name = name
         self.ctype = ctype
-        self.values = values
         self.valid = valid
         # per-instance memo for derived encodings (dict codes, numeric
         # views, packed hashes) shared by every analyzer reading it
         self._cache: Dict[str, object] = {}
+
+    @property
+    def values(self) -> np.ndarray:
+        if self._values is None:
+            values = self._values_fn()
+            if len(values) != len(self.valid):
+                raise ValueError(
+                    f"column {self.name!r}: {len(values)} values but "
+                    f"{len(self.valid)} mask entries"
+                )
+            self._values = values
+        return self._values
 
     def __repr__(self) -> str:
         return f"Column({self.name!r}, {self.ctype})"
@@ -65,9 +100,21 @@ class Column:
     def __len__(self) -> int:
         return len(self.valid)
 
+    @property
+    def null_count(self) -> int:
+        return int(len(self.valid) - np.count_nonzero(self.valid))
+
+    def non_null_values(self) -> np.ndarray:
+        return self.values[self.valid]
+
     def slice(self, start: int, stop: int) -> "Column":
         child = Column(
-            self.name, self.ctype, self.values[start:stop], self.valid[start:stop]
+            self.name,
+            self.ctype,
+            # lazy through the slice: a lazy parent builds its values only
+            # if the child's are read
+            lambda: self.values[start:stop],
+            self.valid[start:stop],
         )
         # derived encodings are row-wise, so a slice reuses the parent's:
         # a column is encoded once per table, not once per batch
@@ -117,6 +164,11 @@ class Column:
             slicer=lambda v, s, e: (v[0][s:e], v[1][s:e]),
         )
 
+    def as_float(self) -> np.ndarray:
+        """Values as float64; null and unparseable slots are 0.0 (the mask
+        comes from `numeric_values`)."""
+        return self.numeric_values()[0]
+
     def dict_encode(self) -> Tuple[np.ndarray, np.ndarray]:
         """Dictionary-encode: (codes, uniques). Null rows get code -1.
         Memoized per table: every string consumer shares one encode."""
@@ -132,10 +184,13 @@ class Column:
 def _compute_dict_encode(col: "Column") -> Tuple[np.ndarray, np.ndarray]:
     if not col.valid.any():
         return (
-            np.full(len(col.values), -1, dtype=np.int64),
+            np.full(len(col), -1, dtype=np.int64),
             np.array([], dtype=object),
         )
-    arr = None
+    arrow_arr = col._cache.get("arrow")
+    if arrow_arr is not None:
+        # an Arrow-backed string column: Arrow's hash encode, no objects
+        return _arrow_dict_encode(arrow_arr)
     if col.ctype == ColumnType.STRING:
         # arrow's hash-based dictionary encode is far faster than numpy's
         # sort-based unique over object arrays; without pyarrow, numpy below
@@ -145,22 +200,15 @@ def _compute_dict_encode(col: "Column") -> Tuple[np.ndarray, np.ndarray]:
             pa = None
         if pa is not None:
             try:
-                arr = pa.array(
-                    col.values,
-                    type=pa.string(),
-                    mask=None if col.valid.all() else ~col.valid,
+                return _arrow_dict_encode(
+                    pa.array(
+                        col.values,
+                        type=pa.string(),
+                        mask=None if col.valid.all() else ~col.valid,
+                    )
                 )
             except pa.lib.ArrowException:
                 pass  # backing values that are not str: numpy below
-        if arr is not None:
-            encoded = arr.dictionary_encode()
-            codes = (
-                encoded.indices.fill_null(-1)
-                .to_numpy(zero_copy_only=False)
-                .astype(np.int64)
-            )
-            uniques = encoded.dictionary.to_numpy(zero_copy_only=False)
-            return codes, uniques.astype(object, copy=False)
     vals = col.values[col.valid]
     if col.ctype == ColumnType.STRING:
         vals = vals.astype(str)
@@ -168,6 +216,15 @@ def _compute_dict_encode(col: "Column") -> Tuple[np.ndarray, np.ndarray]:
     codes = np.full(len(col.values), -1, dtype=np.int64)
     codes[col.valid] = inv
     return codes, uniques
+
+
+def _arrow_dict_encode(arrow_arr) -> Tuple[np.ndarray, np.ndarray]:
+    """(int64 codes with -1 for null, object uniques) from Arrow's hash
+    dictionary encode of one array."""
+    encoded = arrow_arr.dictionary_encode()
+    codes = encoded.indices.fill_null(-1).to_numpy(zero_copy_only=False).astype(np.int64)
+    uniques = encoded.dictionary.to_numpy(zero_copy_only=False)
+    return codes, uniques.astype(object, copy=False)
 
 
 def cached_column_encode(col: "Column", key: str, compute, slicer=None):
@@ -193,18 +250,75 @@ def cached_column_encode(col: "Column", key: str, compute, slicer=None):
     return cached
 
 
+# The cross-batch tier of `cached_dictionary_encode`: values derived from
+# equal dictionaries, keyed by the dictionary's content digest, LRU-bounded
+# by entries and by bytes so a stream of distinct dictionaries cannot pin
+# memory for the process's lifetime.
+_DICT_DERIVED_CACHE: "OrderedDict" = OrderedDict()
+_DICT_DERIVED_MAX = 256
+_DICT_DERIVED_MAX_BYTES = 32 << 20
+_DICT_DERIVED_BYTES = 0
+_DICT_DERIVED_LOCK = threading.Lock()
+
+
+def _derived_nbytes(value) -> int:
+    if isinstance(value, np.ndarray):
+        return int(value.nbytes)
+    if isinstance(value, (tuple, list)):
+        return sum(_derived_nbytes(v) for v in value)
+    return 64
+
+
 def cached_dictionary_encode(col: "Column", key: str, compute):
     """A value derived from a STRING column's dictionary (its parse, its
-    classes), memoized on the root column: every batch slice shares the
-    root's dictionary, so it is derived once per table."""
+    classes, its hashes), memoized on the root column: every batch slice
+    shares the root's dictionary, so it is derived once per table. A
+    streamed column also shares it across batches whose Arrow dictionaries
+    have equal content (`_dict_content_key`)."""
+    global _DICT_DERIVED_BYTES
     root = col
     while getattr(root, "_parent", None) is not None:
         root = root._parent[0]
     cached = root._cache.get(key)
-    if cached is None:
-        cached = compute(root)
-        root._cache[key] = cached
-    return cached
+    if cached is not None:
+        return cached
+    content_key = root._dict_content_key
+    if content_key is not None:
+        with _DICT_DERIVED_LOCK:
+            hit = _DICT_DERIVED_CACHE.get((content_key, key))
+            if hit is not None:
+                _DICT_DERIVED_CACHE.move_to_end((content_key, key))
+                root._cache[key] = hit[0]
+                return hit[0]
+    value = compute(root)
+    root._cache[key] = value
+    if content_key is not None:
+        nbytes = _derived_nbytes(value)
+        with _DICT_DERIVED_LOCK:
+            _DICT_DERIVED_CACHE[(content_key, key)] = (value, nbytes)
+            _DICT_DERIVED_BYTES += nbytes
+            while _DICT_DERIVED_CACHE and (
+                len(_DICT_DERIVED_CACHE) > _DICT_DERIVED_MAX
+                or _DICT_DERIVED_BYTES > _DICT_DERIVED_MAX_BYTES
+            ):
+                _evicted, (_value, evicted_bytes) = _DICT_DERIVED_CACHE.popitem(last=False)
+                _DICT_DERIVED_BYTES -= evicted_bytes
+    return value
+
+
+def _arrow_dictionary_digest(dictionary):
+    """The cross-batch memo key of an Arrow string dictionary: its length
+    and a sha1 over its buffers. None (no sharing) for a sliced or an
+    oversized dictionary, whose buffer bytes need not equal its content."""
+    if dictionary.offset != 0 or len(dictionary) > (1 << 16):
+        return None
+    import hashlib
+
+    h = hashlib.sha1()
+    for buf in dictionary.buffers():
+        if buf is not None:
+            h.update(buf)
+    return (len(dictionary), h.digest())
 
 
 def parsed_dictionary(col: "Column") -> Tuple[np.ndarray, np.ndarray]:
@@ -217,6 +331,18 @@ def parsed_dictionary(col: "Column") -> Tuple[np.ndarray, np.ndarray]:
         col,
         "dictparse",
         lambda c: parse_floats(np.asarray(c.dict_encode()[1], dtype=object)),
+    )
+
+
+def hashed_dictionary(col: "Column") -> np.ndarray:
+    """uint64 hash per dictionary entry of a STRING column (the HLL
+    input), shared like `parsed_dictionary`."""
+    from deequ_tpu_torch.ops.strings import hash_strings
+
+    return cached_dictionary_encode(
+        col,
+        "dicthash",
+        lambda c: hash_strings(np.asarray(c.dict_encode()[1], dtype=object)),
     )
 
 
@@ -269,6 +395,122 @@ def _column_from_list(name: str, values: Sequence, ctype: Optional[ColumnType]) 
             dtype=NUMPY_BACKING[ctype],
         )
     return Column(name, ctype, arr, valid)
+
+
+def shared_all_true(shared: Dict[str, np.ndarray], n: int) -> np.ndarray:
+    """One read-only all-true mask shared by every null-free column of a
+    decoded batch. `shared` is the scratch dict of one `from_arrow`."""
+    mask = shared.get("all_true")
+    if mask is None or len(mask) != n:
+        mask = np.ones(n, dtype=bool)
+        mask.setflags(write=False)
+        shared["all_true"] = mask
+    return mask
+
+
+def pool_empty(n: int, dtype) -> np.ndarray:
+    """An uninitialized, writable array in Arrow's memory pool, which
+    recycles the pages of earlier batches (a fresh `np.empty` of batch
+    size faults on every page at first touch); `np.empty` without
+    pyarrow."""
+    try:
+        import pyarrow as pa
+    except ImportError:
+        return np.empty(n, dtype=dtype)
+    dt = np.dtype(dtype)
+    out = np.frombuffer(pa.allocate_buffer(int(n) * dt.itemsize), dtype=dt)
+    if not out.flags.writeable:
+        raise RuntimeError("pyarrow handed out a read-only buffer")
+    return out
+
+
+def _arrow_logical_decimal(arrow_table, name: str) -> bool:
+    """True when a float64 field carries the DECIMAL logical-type
+    annotation that `Table.to_arrow` writes."""
+    field_ = arrow_table.schema.field(name)
+    md = field_.metadata or {}
+    return md.get(b"deequ_tpu.logical_type") == ColumnType.DECIMAL.value.encode()
+
+
+def dictionary_uniques_fallback(dictionary) -> np.ndarray:
+    """A dictionary's entries as a host object array: the only string
+    materialization of a dictionary decode (per-row strings stay lazy)."""
+    uniques = dictionary.to_numpy(zero_copy_only=False)
+    return uniques.astype(object, copy=False)
+
+
+def _column_from_arrow_fallback(name, arr, arrow_table, shared) -> Column:
+    """One (single-chunk) Arrow array as a Column, on the host. A string
+    dictionary array keeps its codes as the column's `dict_encode` and
+    builds per-row strings only when `values` is read."""
+    import pyarrow as pa
+
+    t = arr.type
+    string_dict = pa.types.is_dictionary(t) and (
+        pa.types.is_string(t.value_type) or pa.types.is_large_string(t.value_type)
+    )
+    if pa.types.is_dictionary(t) and not string_dict:
+        # only string dictionaries have a code path of their own; others
+        # decode to their value type, as the schema reports them
+        arr = arr.dictionary_decode()
+        t = arr.type
+    no_nulls = arr.null_count == 0
+    valid = shared_all_true(shared, len(arr)) if no_nulls else np.asarray(arr.is_valid())
+    if pa.types.is_boolean(t):
+        vals = np.asarray(arr if no_nulls else arr.fill_null(False))
+        return Column(name, ColumnType.BOOLEAN, vals, valid)
+    if pa.types.is_integer(t):
+        vals = np.asarray(arr if no_nulls else arr.fill_null(0)).astype(np.int64, copy=False)
+        return Column(name, ColumnType.LONG, vals, valid)
+    if pa.types.is_floating(t):
+        vals = np.asarray(arr if no_nulls else arr.fill_null(0.0)).astype(np.float64, copy=False)
+        nan = np.isnan(vals)
+        if nan.any():
+            valid = valid & ~nan
+            vals = np.where(valid, vals, 0.0)
+        # a float64 field that to_arrow annotated keeps its DECIMAL type
+        ctype = (
+            ColumnType.DECIMAL
+            if _arrow_logical_decimal(arrow_table, name)
+            else ColumnType.DOUBLE
+        )
+        return Column(name, ctype, vals, valid)
+    if pa.types.is_decimal(t):
+        vals = pool_empty(len(arr), np.float64)
+        vals[:] = [float(v) if v is not None else 0.0 for v in arr.to_pylist()]
+        return Column(name, ColumnType.DECIMAL, vals, valid)
+    if pa.types.is_timestamp(t):
+        vals = np.asarray(arr.cast(pa.timestamp("us")).fill_null(0))
+        return Column(name, ColumnType.TIMESTAMP, vals.astype("datetime64[us]"), valid)
+    if string_dict:
+        # the codes ARE the dict_encode result (int32 stays int32)
+        idx = arr.indices
+        if idx.null_count == 0:
+            codes = idx.to_numpy(zero_copy_only=True)
+        else:
+            codes = idx.fill_null(-1).to_numpy(zero_copy_only=False)
+        uniques = dictionary_uniques_fallback(arr.dictionary)
+        col = Column(
+            name,
+            ColumnType.STRING,
+            lambda: gather_with_null(uniques, codes, ""),
+            valid,
+        )
+        col._cache["dict_encode"] = (codes, uniques)
+        col._dict_content_key = _arrow_dictionary_digest(arr.dictionary)
+        return col
+    if pa.types.is_string(t) or pa.types.is_large_string(t):
+        vals = arr.to_numpy(zero_copy_only=False).astype(object, copy=False)
+        if not no_nulls:
+            vals[~valid] = ""
+        col = Column(name, ColumnType.STRING, vals, valid)
+        # dict_encode runs Arrow's hash encode on the array it came from
+        col._cache["arrow"] = arr
+        return col
+    vals = np.array(
+        [str(v) if v is not None else "" for v in arr.to_pylist()], dtype=object
+    )
+    return Column(name, ColumnType.STRING, vals, valid)
 
 
 class Table:
@@ -349,6 +591,143 @@ class Table:
             cols.append(Column(name, ctype, arr, np.asarray(v, dtype=np.bool_)))
         return Table(cols)
 
+    @staticmethod
+    def from_pandas(df) -> "Table":
+        """Columns from a pandas DataFrame, typed by dtype; object columns
+        of bools only are BOOLEAN, other object columns STRING."""
+        cols = []
+        for name in df.columns:
+            s = df[name]
+            valid = (~s.isna()).to_numpy(dtype=np.bool_)
+            if s.dtype == object or str(s.dtype) in ("string", "str"):
+                raw = s.tolist()
+                arr = np.array(
+                    ["" if not ok else str(v) for v, ok in zip(raw, valid)], dtype=object
+                )
+                if valid.any() and all(
+                    isinstance(v, bool) for v, ok in zip(raw, valid) if ok
+                ):
+                    barr = np.array(
+                        [bool(v) if ok else False for v, ok in zip(raw, valid)], dtype=np.bool_
+                    )
+                    cols.append(Column(str(name), ColumnType.BOOLEAN, barr, valid))
+                    continue
+                cols.append(Column(str(name), ColumnType.STRING, arr, valid))
+            elif str(s.dtype).startswith("datetime"):
+                arr = s.to_numpy(dtype="datetime64[us]")
+                arr = np.where(valid, arr, np.datetime64(0, "us"))
+                cols.append(Column(str(name), ColumnType.TIMESTAMP, arr, valid))
+            elif s.dtype == np.bool_ or str(s.dtype) == "boolean":
+                arr = s.fillna(False).to_numpy(dtype=np.bool_)
+                cols.append(Column(str(name), ColumnType.BOOLEAN, arr, valid))
+            elif str(s.dtype).startswith(("Int", "UInt")) or (
+                isinstance(s.dtype, np.dtype) and np.issubdtype(s.dtype, np.integer)
+            ):
+                arr = s.fillna(0).to_numpy(dtype=np.int64)
+                cols.append(Column(str(name), ColumnType.LONG, arr, valid))
+            else:
+                # float64 and pandas' nullable Float32/Float64
+                arr = s.to_numpy(dtype=np.float64, na_value=np.nan)
+                valid = valid & ~np.isnan(np.where(valid, arr, 0.0))
+                arr = np.where(valid, arr, 0.0)
+                cols.append(Column(str(name), ColumnType.DOUBLE, arr, valid))
+        return Table(cols)
+
+    @staticmethod
+    def from_arrow(arrow_table) -> "Table":
+        """An Arrow table as engine Columns, decoded on the host. String
+        dictionary columns keep their codes; per-row strings stay lazy."""
+        import pyarrow as pa
+
+        cols = []
+        shared: Dict[str, np.ndarray] = {}  # one mask for null-free columns
+        for name in arrow_table.column_names:
+            chunked = arrow_table.column(name)
+            chunks = list(chunked.chunks) if isinstance(chunked, pa.ChunkedArray) else [chunked]
+            # one chunk (every row group and slice) skips the combine copy
+            if len(chunks) == 1:
+                arr = chunks[0]
+            elif not chunks:
+                arr = pa.array([], chunked.type)
+            else:
+                arr = chunked.combine_chunks()
+                if isinstance(arr, pa.ChunkedArray):
+                    arr = arr.chunk(0)
+            cols.append(_column_from_arrow_fallback(name, arr, arrow_table, shared))
+        return Table(cols)
+
+    def to_arrow(self, dictionary_encode_strings: bool = False):
+        """An Arrow table with real nulls (null slots become Arrow nulls,
+        not the neutral fill). DECIMAL columns, float64 in memory, are
+        written as float64 with the logical type in the field's metadata,
+        so a round trip keeps the DecimalType but not more precision than
+        float64 holds."""
+        import pyarrow as pa
+
+        arrays, fields = [], []
+        for name, ctype in self.schema:
+            col = self.column(name)
+            values = col.values
+            valid = np.asarray(col.valid)
+            if values.dtype == object:
+                # explicit string type: an ALL-NULL column would otherwise
+                # infer Arrow's null type, which Parquet cannot dictionary-write
+                kind = pa.string() if ctype == ColumnType.STRING else None
+                try:
+                    arr = pa.array(values, type=kind, mask=~valid)
+                except (pa.lib.ArrowException, TypeError):
+                    # backing values Arrow will not take as they are
+                    arr = pa.array([v if ok else None for v, ok in zip(values, valid)], type=kind)
+                if dictionary_encode_strings and pa.types.is_string(arr.type):
+                    arr = arr.dictionary_encode()
+            else:
+                arr = pa.array(values, mask=~valid)
+            metadata = (
+                {b"deequ_tpu.logical_type": ctype.value.encode()}
+                if ctype == ColumnType.DECIMAL
+                else None
+            )
+            fields.append(pa.field(name, arr.type, metadata=metadata))
+            arrays.append(arr)
+        return pa.table(arrays, schema=pa.schema(fields))
+
+    def to_parquet(
+        self,
+        path: str,
+        row_group_size: Optional[int] = None,
+        dictionary_encode_strings: bool = False,
+    ) -> None:
+        import pyarrow.parquet as pq
+
+        pq.write_table(
+            self.to_arrow(dictionary_encode_strings), path, row_group_size=row_group_size
+        )
+
+    @staticmethod
+    def from_parquet(path: str, columns: Optional[List[str]] = None) -> "Table":
+        import pyarrow.parquet as pq
+
+        return Table.from_arrow(pq.read_table(path, columns=columns))
+
+    @staticmethod
+    def scan_parquet(path: str, columns: Optional[List[str]] = None, batch_rows: int = 1 << 22):
+        """A Parquet file as a streamed source every pass consumes in
+        batches of at most `batch_rows` rows: host memory stays bounded,
+        and decode overlaps the device's work."""
+        from deequ_tpu_torch.data.source import ParquetSource
+
+        return ParquetSource(path, columns=columns, batch_rows=batch_rows)
+
+    @staticmethod
+    def scan_parquet_dataset(
+        paths, columns: Optional[List[str]] = None, batch_rows: int = 1 << 22
+    ):
+        """A directory (or a list) of Parquet partition files, folded one
+        partition at a time and merged in the files' name order."""
+        from deequ_tpu_torch.data.source import PartitionedParquetSource
+
+        return PartitionedParquetSource(paths, columns=columns, batch_rows=batch_rows)
+
     @property
     def num_rows(self) -> int:
         return self._num_rows
@@ -419,6 +798,11 @@ class Table:
                 vals = c.values.tolist()
             out[c.name] = [v if ok else None for v, ok in zip(vals, c.valid.tolist())]
         return out
+
+    def to_pandas(self):
+        import pandas as pd
+
+        return pd.DataFrame(self.to_pydict())
 
     def batches(self, batch_size: int) -> Iterator["Table"]:
         """Fixed-size row slices (the unit shipped to the device)."""

@@ -10,8 +10,9 @@ JAX counterpart is deequ_tpu/ops/freq_agg.py.
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, List, Sequence
+from typing import TYPE_CHECKING, List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from deequ_tpu_torch.core.metrics import Metric
@@ -29,17 +30,30 @@ def run_shared_freq_agg(
     analyzers: Sequence["ScanShareableFrequencyBasedAnalyzer"],
     device: torch.device,
 ) -> List[Metric]:
-    """One shared aggregation on `device` -> one metric per analyzer (in order)."""
+    """One shared aggregation on `device` -> one metric per analyzer (in
+    order). A spilled state reduces partition by partition on `device`,
+    and the leaves sum on the host in partition order: every aggregation
+    is a sum over groups, so this is exact, and the whole counts array
+    is never built."""
     runtime.record_pass()
-    counts = torch.from_numpy(state.counts).to(device=device, dtype=torch.float64)
     num_rows = torch.tensor(float(state.num_rows), dtype=torch.float64, device=device)
-    outs = [a.freq_reduce(counts, num_rows) for a in analyzers]
-    leaves = [value for out in outs for value in out.values()]
-    flat = torch.stack(leaves).cpu().tolist() if leaves else []
+
+    def reduce(counts) -> Tuple[list, np.ndarray]:
+        counts = torch.tensor(np.asarray(counts), dtype=torch.float64, device=device)
+        outs = [a.freq_reduce(counts, num_rows) for a in analyzers]
+        leaves = [value for out in outs for value in out.values()]
+        return outs, (torch.stack(leaves).cpu().numpy() if leaves else np.zeros(0))
+
+    if getattr(state, "is_spilled", False):
+        outs, flat = reduce(np.zeros(0))
+        for part in state.partitions():
+            flat = flat + reduce(part.counts)[1]
+    else:
+        outs, flat = reduce(state.counts)
     metrics = []
     pos = 0
     for analyzer, out in zip(analyzers, outs):
-        agg = dict(zip(out, flat[pos : pos + len(out)]))
+        agg = dict(zip(out, flat[pos : pos + len(out)].tolist()))
         pos += len(out)
         metrics.append(analyzer.metric_from_freq_agg(agg, state))
     return metrics

@@ -21,6 +21,16 @@ codes, which never ship: they fold each batch on the host
 (`fold_host_batch`) from the same lazily built inputs, and a failed
 input fails only the members that read it.
 
+A streamed source (data/source.py) runs the same per-batch steps over
+its decoded batches, with only the columns its inputs read. With the
+pipeline on, each batch's prep (device input builds, wire packing and
+the host-to-device copy, issued on a CUDA copy stream of its own) runs on
+a stage thread ahead of the consumer (ops/pipeline.py), which launches
+the program on its own stream once the copy's event has fired and folds
+every batch in order: the same bits as the serial loop. A partitioned
+source folds each partition on its own and merges the states in
+partition order.
+
 reference: runners/AnalysisRunner.scala:279-326 (all scan-shareable
 analyzers in one `df.agg(...)`); the JAX counterpart is
 deequ_tpu/ops/fused.py.
@@ -28,6 +38,7 @@ deequ_tpu/ops/fused.py.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
@@ -38,7 +49,7 @@ import torch
 from deequ_tpu_torch.analyzers.base import ScanShareableAnalyzer
 from deequ_tpu_torch.analyzers.states import State
 from deequ_tpu_torch.data.table import Table
-from deequ_tpu_torch.ops import runtime
+from deequ_tpu_torch.ops import pipeline, runtime
 
 DEFAULT_BATCH_SIZE = 1 << 22  # 4,194,304 rows, as the JAX package
 
@@ -73,6 +84,46 @@ class AnalyzerRunResult:
         if self.error is not None:
             raise self.error
         return self.state
+
+
+def _merge_partition_results(a: AnalyzerRunResult, b: AnalyzerRunResult) -> AnalyzerRunResult:
+    """One analyzer's outcome over two partitions: an error wins, a None
+    state (an empty partition) is the identity, and a failing merge is
+    that analyzer's error, never the pass's."""
+    if a.error is not None:
+        return a
+    if b.error is not None:
+        return b
+    if a.state is None:
+        return AnalyzerRunResult(a.analyzer, state=b.state)
+    if b.state is None:
+        return a
+    try:
+        return AnalyzerRunResult(a.analyzer, state=a.state.merge(b.state))
+    except Exception as e:  # noqa: BLE001
+        return AnalyzerRunResult(a.analyzer, error=e)
+
+
+def prune_table_columns(table, specs: Dict[str, Any]):
+    """A streamed source restricted to the union of the columns its input
+    specs read, so it decodes only what the pass consumes. An in-memory
+    Table has no `with_columns` and is returned as is; a spec that does
+    not declare its columns turns pruning off."""
+    with_columns = getattr(table, "with_columns", None)
+    if with_columns is None:
+        return table
+    needed: set = set()
+    for spec in specs.values():
+        if spec.columns is None:
+            return table
+        needed.update(spec.columns)
+    if not needed:
+        # a Size()-only pass counts rows: the first column will do
+        names = table.column_names
+        if not names:
+            return table
+        needed = {names[0]}
+    return with_columns(sorted(needed))
 
 
 # ---------------------------------------------------------------------------
@@ -430,23 +481,53 @@ class PipelinedAggFold:
 
 class FusedScanPass:
     """Runs a set of scan-shareable analyzers in one device pass over a
-    table. `device` is where the pass runs: CUDA unless the caller asks
-    for the CPU."""
+    table or a streamed source. `device` is where the pass runs: CUDA
+    unless the caller asks for the CPU. A `controller`
+    (core/controller.RunController) is checked before every batch and
+    every partition."""
 
     def __init__(
         self,
         analyzers: Sequence[ScanShareableAnalyzer],
         batch_size: Optional[int] = None,
         device: runtime.DeviceLike = None,
+        controller=None,
     ):
         self.analyzers = list(analyzers)
         self.batch_size = batch_size if batch_size is not None else DEFAULT_BATCH_SIZE
         if self.batch_size < 1:
             raise ValueError(f"batch_size must be positive, got {self.batch_size}")
         self.device = runtime.resolve_device(device)
+        self._controller = controller
 
     def run(self, table: Table) -> List[AnalyzerRunResult]:
+        if getattr(table, "partitions", None) is not None:
+            return self._run_partitioned(table)
         return self._run_single(table)
+
+    def _run_partitioned(self, source) -> List[AnalyzerRunResult]:
+        """Fold each partition through the single-source pass, in the
+        source's (name) order, and merge the results through
+        `State.merge` in that order. A controller is checked at each
+        partition boundary."""
+        parts = list(source.partitions())
+        merged: Optional[List[AnalyzerRunResult]] = None
+        ctl = self._controller
+        for done, part in enumerate(parts):
+            if ctl is not None:
+                ctl.check(
+                    where=f"partition {part.name}",
+                    progress={"partitions_done": done, "partitions_total": len(parts)},
+                )
+            results = FusedScanPass(
+                self.analyzers, self.batch_size, self.device, controller=ctl
+            ).run(part.source())
+            merged = (
+                results
+                if merged is None
+                else [_merge_partition_results(m, r) for m, r in zip(merged, results)]
+            )
+        return merged
 
     def _run_single(self, table: Table) -> List[AnalyzerRunResult]:
         results: Dict[int, AnalyzerRunResult] = {}
@@ -458,6 +539,7 @@ class FusedScanPass:
         host_assisted = [(i, self.analyzers[i]) for i in plan.host_assisted_idx]
         if not (members or assisted or host_assisted):
             return [results[i] for i in range(len(self.analyzers))]
+        table = prune_table_columns(table, plan.specs)
         folded, host_results, device_error = self._run_pass(
             table, members, assisted, host_assisted, plan
         )
@@ -485,39 +567,139 @@ class FusedScanPass:
         results, None) or (None, host members' results, the input build
         error that stopped the device program)."""
         runtime.record_pass()
-        device_keys = sorted(plan.device_keys)
-        use_device = bool(analyzers or assisted)
-        pin = self.device.type == "cuda"
-        sticky: Dict[str, Any] = {}
-        fold = PipelinedAggFold(analyzers, self.device, assisted)
-        host_states: Dict[int, Optional[State]] = {}
-        host_errors: Dict[int, BaseException] = {}
-        device_error: Optional[BaseException] = None
-        for batch in table.batches(self.batch_size):
-            built = HostInputs(plan.specs, batch)
-            if use_device and device_error is None:
-                try:
-                    items = [(key, built[key]) for key in device_keys]
-                except NotImplementedError:
-                    raise
-                except Exception as e:  # noqa: BLE001
-                    device_error = e
-                else:
-                    host, layout = pack_batch_inputs(
-                        items, runtime.wire_pad_size(batch.num_rows), sticky,
-                        batch.num_rows, pin=pin,
-                    )
-                    wire = {k: v.to(self.device, non_blocking=True) for k, v in host.items()}
-                    program = get_fused_fn(analyzers, layout, self.device, assisted)
-                    # assisted members finish against the batch's host inputs
-                    fold.submit(*program(wire, batch.num_rows), built if assisted else None)
-            fold_host_batch(built, host_assisted, plan.host_keys, host_states, host_errors)
-            if (device_error is not None or not use_device) and len(host_errors) == len(host_assisted):
-                break  # every member has failed: stop scanning
+        scan = _BatchScan(self.device, self._controller, analyzers, assisted, host_assisted, plan)
+        if getattr(table, "is_streaming", False) and runtime.pipeline_enabled():
+            scan.run_pipelined(table.batches(self.batch_size))
+        else:
+            scan.run_serial(table.batches(self.batch_size))
         host_results = {
-            i: AnalyzerRunResult(member, state=host_states.get(i), error=host_errors.get(i))
+            i: AnalyzerRunResult(member, state=scan.host_states.get(i), error=scan.host_errors.get(i))
             for i, member in host_assisted
         }
-        if device_error is not None:
-            return None, host_results, device_error
-        return fold.finish(), host_results, None
+        if scan.device_error is not None:
+            return None, host_results, scan.device_error
+        return scan.fold.finish(), host_results, None
+
+
+@dataclass
+class _Prepped:
+    """One batch after prep: its host inputs and, for the device program,
+    its wire on the device, the copy's event and the wire's layout (or
+    the input build error that stopped the program)."""
+
+    batch: Table
+    built: HostInputs
+    wire: Optional[Dict[str, torch.Tensor]] = None
+    copied: Any = None
+    layout: Any = None
+    error: Optional[BaseException] = None
+
+
+class _BatchScan:
+    """One pass's per-batch loop: `prep` builds a batch's device inputs,
+    packs them and copies the wire to the device; `fold_item` launches
+    the program on the batch and folds it, the host-only members too.
+    The serial loop runs both on the caller; the pipelined loop runs
+    `prep` on a stage thread (ops/pipeline.py), with its copies on a CUDA
+    stream of its own, and `fold_item` on the caller in batch order. The
+    sticky wire dict is written by `prep` alone, in batch order, so both
+    loops give the same bits."""
+
+    def __init__(self, device, controller, analyzers, assisted, host_assisted, plan):
+        self.device = device
+        self.controller = controller
+        self.analyzers = analyzers
+        self.assisted = assisted
+        self.host_assisted = host_assisted
+        self.plan = plan
+        self.device_keys = sorted(plan.device_keys)
+        self.use_device = bool(analyzers or assisted)
+        self.sticky: Dict[str, Any] = {}
+        self.fold = PipelinedAggFold(analyzers, self.device, assisted)
+        self.host_states: Dict[int, Optional[State]] = {}
+        self.host_errors: Dict[int, BaseException] = {}
+        self.device_error: Optional[BaseException] = None
+        # read by the prep stage, so batches in flight stop packing
+        self.device_down = threading.Event()
+        self.copy_stream = None
+        self.batches = 0
+        self.rows = 0
+
+    def prep(self, batch: Table) -> _Prepped:
+        built = HostInputs(self.plan.specs, batch)
+        item = _Prepped(batch, built)
+        if not self.use_device or self.device_down.is_set():
+            return item
+        try:
+            items = [(key, built[key]) for key in self.device_keys]
+        except NotImplementedError:
+            raise
+        except Exception as e:  # noqa: BLE001
+            item.error = e
+            self.device_down.set()
+            return item
+        host, item.layout = pack_batch_inputs(
+            items, runtime.wire_pad_size(batch.num_rows), self.sticky, batch.num_rows,
+            pin=self.device.type == "cuda",
+        )
+        if self.copy_stream is None:
+            item.wire = {k: v.to(self.device, non_blocking=True) for k, v in host.items()}
+            return item
+        # the copy on the copy stream, behind an event the consumer's
+        # stream waits on; the pinned buffers go back to the host
+        # allocator only once the copy recorded on this stream has landed
+        with torch.cuda.stream(self.copy_stream):
+            item.wire = {k: v.to(self.device, non_blocking=True) for k, v in host.items()}
+            item.copied = torch.cuda.Event()
+            item.copied.record(self.copy_stream)
+        return item
+
+    def fold_item(self, item: _Prepped) -> bool:
+        """Fold one prepped batch; False once every member has failed."""
+        if self.controller is not None:
+            self.controller.check(
+                where="fused_scan batch", progress={"batches": self.batches, "rows": self.rows}
+            )
+        device_live = self.use_device and self.device_error is None
+        host_live = len(self.host_errors) < len(self.host_assisted)
+        if not device_live and not host_live:
+            return False
+        if device_live:
+            if item.error is not None:
+                self.device_error = item.error
+                self.device_down.set()
+            elif item.wire is not None:
+                wire = item.wire
+                if item.copied is not None:
+                    stream = torch.cuda.current_stream(self.device)
+                    stream.wait_event(item.copied)
+                    for tensor in wire.values():
+                        # the copy stream's allocator must not hand these
+                        # blocks out again while this stream still reads them
+                        tensor.record_stream(stream)
+                program = get_fused_fn(self.analyzers, item.layout, self.device, self.assisted)
+                # assisted members finish against the batch's host inputs
+                self.fold.submit(
+                    *program(wire, item.batch.num_rows), item.built if self.assisted else None
+                )
+        fold_host_batch(
+            item.built, self.host_assisted, self.plan.host_keys, self.host_states, self.host_errors
+        )
+        self.batches += 1
+        self.rows += item.batch.num_rows
+        return True
+
+    def run_serial(self, batches) -> None:
+        with contextlib.closing(iter(batches)) as it:
+            for batch in it:
+                if not self.fold_item(self.prep(batch)):
+                    break  # every member has failed: stop scanning
+
+    def run_pipelined(self, batches) -> None:
+        if self.device.type == "cuda" and self.use_device:
+            self.copy_stream = torch.cuda.Stream(device=self.device)
+        items = pipeline.staged(batches, self.prep, name="prep")
+        with contextlib.closing(items):
+            for item in items:
+                if not self.fold_item(item):
+                    break

@@ -148,3 +148,15 @@ def record_group_pass() -> None:
     """One group-by counting pass over a table."""
     for sink in _sinks():
         sink.group_passes += 1
+
+
+# -- stream knob (data/source.py, ops/pipeline.py) ------------------------------
+
+
+def pipeline_enabled() -> bool:
+    """Whether a streamed scan runs the staged pipeline: decode on a
+    prefetch thread, per-batch prep (input builds, wire packing, the H2D
+    copy on its own CUDA stream) on a stage thread, every fold on the
+    caller in batch order. ``DEEQU_TPU_PIPELINE=0`` (or ``off``) runs it
+    all on the caller; both give the same bits."""
+    return os.environ.get("DEEQU_TPU_PIPELINE", "") not in ("0", "off")

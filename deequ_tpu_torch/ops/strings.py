@@ -225,19 +225,17 @@ def _equals_literal(cm: np.ndarray, length: np.ndarray, literal: str) -> np.ndar
 
 
 def parse_floats(uniques: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """(float64 values, ok mask) per unique string, accepting the forms
-    the JAX package's parse (pandas.to_numeric) accepts: float()'s, less
-    digit-group underscores. "nan" parses to NaN, which is NULL under this
-    engine's convention, so its ok is False."""
-    parsed = np.full(len(uniques), np.nan, dtype=np.float64)
-    for i, v in enumerate(uniques):
-        text = str(v)
-        if "_" in text:
-            continue
-        try:
-            parsed[i] = float(text)
-        except ValueError:
-            pass
+    """(float64 values, ok mask) per unique string, through
+    `pandas.to_numeric(errors="coerce")` as the JAX package parses: its
+    answer, quirks included, is the reference's. "nan" parses to NaN,
+    which is NULL under this engine's convention, so its ok is False."""
+    if len(uniques) == 0:
+        return np.zeros(0, dtype=np.float64), np.zeros(0, dtype=bool)
+    import pandas as pd
+
+    parsed = pd.to_numeric(pd.Series(uniques, dtype=object), errors="coerce").to_numpy(
+        dtype=np.float64
+    )
     ok = ~np.isnan(parsed)
     return np.where(ok, parsed, 0.0), ok
 

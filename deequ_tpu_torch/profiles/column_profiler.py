@@ -19,7 +19,9 @@ runs all four kernels: masked_moments and masked_centered_sumsq for the
 numeric family, hll_register_max for every column's distinct count and
 hist16 for each numeric column's quantiles.
 
-The profile runs on CUDA unless the caller passes ``device="cpu"``.
+The profile runs on CUDA unless the caller passes ``device="cpu"``. Over
+a streamed source pass 2 casts batch by batch (a `MappedSource`) and the
+histogram pass counts batch by batch, keyed by value.
 """
 
 from __future__ import annotations
@@ -289,12 +291,31 @@ def _extract_generic_statistics(
 def _cast_numeric_string_columns(columns: Sequence[str], data: Table) -> Table:
     """The inferred-numeric string columns cast to DOUBLE for pass 2
     (reference: ColumnProfiler.scala:329-339, 399-417); a value that does
-    not parse becomes NULL."""
-    out = data
-    for name in columns:
-        values, valid = data.column(name).numeric_values()
-        out = out.with_column(Column(name, ColumnType.DOUBLE, values, valid))
-    return out
+    not parse becomes NULL. Over a streamed source the cast is a lazy
+    per-batch transform."""
+    to_cast = list(columns)
+
+    def cast_batch(batch: Table) -> Table:
+        out = batch
+        for name in to_cast:
+            if not batch.has_column(name):
+                continue  # a column-pruned batch: nothing to cast
+            values, valid = batch.column(name).numeric_values()
+            out = out.with_column(Column(name, ColumnType.DOUBLE, values, valid))
+        return out
+
+    if getattr(data, "is_streaming", False):
+        from deequ_tpu_torch.data.source import MappedSource
+
+        return MappedSource(
+            data,
+            cast_batch,
+            schema_overrides=[(name, ColumnType.DOUBLE) for name in to_cast],
+            # cast_batch rewrites the columns it reads in place, so it
+            # needs no base columns beyond those the pass asks for
+            fn_columns=(),
+        )
+    return cast_batch(data)
 
 
 @dataclass
@@ -370,28 +391,46 @@ def _compute_histograms(
     data: Table, target_columns: Sequence[str], num_records: int
 ) -> Dict[str, Distribution]:
     """One exact counting pass over all target columns
-    (reference: ColumnProfiler.scala:523-565)."""
+    (reference: ColumnProfiler.scala:523-565). A streamed source folds
+    per-batch counts keyed by value (each batch has its own dictionary),
+    so host memory is O(distinct values)."""
     if not target_columns:
         return {}
     runtime.record_group_pass()
+    if hasattr(data, "with_columns"):
+        data = data.with_columns(list(target_columns))
+    totals: Dict[str, Dict[str, int]] = {name: {} for name in target_columns}
+    null_counts: Dict[str, int] = {name: 0 for name in target_columns}
+
+    def accumulate(batch: Table) -> None:
+        for name in target_columns:
+            col = batch.column(name)
+            codes, uniques = col.dict_encode()
+            counts = np.bincount(codes + 1, minlength=len(uniques) + 1)
+            null_counts[name] += int(counts[0])
+            bucket = totals[name]
+            for i, unique in enumerate(uniques):
+                if counts[i + 1] == 0:
+                    continue
+                if col.ctype == ColumnType.BOOLEAN:
+                    key = "true" if unique else "false"
+                else:
+                    key = str(unique)
+                bucket[key] = bucket.get(key, 0) + int(counts[i + 1])
+
+    if getattr(data, "is_streaming", False):
+        for batch in data.batches(data.batch_rows):
+            accumulate(batch)
+    else:
+        accumulate(data)
     histograms: Dict[str, Distribution] = {}
     for name in target_columns:
-        col = data.column(name)
-        codes, uniques = col.dict_encode()
-        counts = np.bincount(codes + 1, minlength=len(uniques) + 1)
-        totals: Dict[str, int] = {}
-        for i, unique in enumerate(uniques):
-            if counts[i + 1] == 0:
-                continue
-            if col.ctype == ColumnType.BOOLEAN:
-                key = "true" if unique else "false"
-            else:
-                key = str(unique)
-            totals[key] = totals.get(key, 0) + int(counts[i + 1])
         values: Dict[str, DistributionValue] = {}
-        if counts[0] > 0:
-            values["NullValue"] = DistributionValue(int(counts[0]), int(counts[0]) / num_records)
-        for key, count in totals.items():
+        if null_counts[name] > 0:
+            values["NullValue"] = DistributionValue(
+                null_counts[name], null_counts[name] / num_records
+            )
+        for key, count in totals[name].items():
             values[key] = DistributionValue(count, count / num_records)
         histograms[name] = Distribution(values, number_of_bins=len(values))
     return histograms

@@ -128,8 +128,8 @@ class _LowCardCounts(ScanShareableAnalyzer):
             return np.asarray(col.dict_encode()[1])
 
         return [
-            InputSpec(key=f"lcc_codes:{column}", build=build_codes),
-            InputSpec(key=f"lcc_uniq:{column}", build=build_uniques),
+            InputSpec(key=f"lcc_codes:{column}", build=build_codes, columns=(column,)),
+            InputSpec(key=f"lcc_uniq:{column}", build=build_uniques, columns=(column,)),
         ]
 
     def host_batch(self, inputs: Dict[str, Any]) -> Dict[str, Any]:
@@ -279,8 +279,8 @@ class _OptimisticNumericStats(ScanShareableAnalyzer):
             return run
 
         return [
-            InputSpec(key=f"optnum:{column}", build=build(0)),
-            InputSpec(key=f"optnumv:{column}", build=build(1)),
+            InputSpec(key=f"optnum:{column}", build=build(0), columns=(column,)),
+            InputSpec(key=f"optnumv:{column}", build=build(1), columns=(column,)),
         ]
 
     def _from_counts(self, inputs: Dict[str, Any], lcc) -> Optional[Dict[str, Any]]:

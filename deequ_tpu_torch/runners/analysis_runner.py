@@ -8,6 +8,7 @@ Pipeline (reference: runners/AnalysisRunner.scala:98-193):
   4. run one frequency pass per grouping-column set (grouping_runner),
   5. turn the folded states into metrics.
 
+`data` is an in-memory Table or a streamed source (data/source.py).
 Persisting or loading states (`aggregate_with`, `save_states_with`) is
 not ported yet: a run given either raises NotImplementedError.
 """
@@ -29,8 +30,8 @@ from deequ_tpu_torch.runners.grouping_runner import run_grouping_analyzers
 class AnalysisRunner:
     @staticmethod
     def on_data(table: Table, device: runtime.DeviceLike = None) -> "AnalysisRunBuilder":
-        """A run over `table` on `device` (CUDA unless the caller asks for
-        the CPU with ``device="cpu"``)."""
+        """A run over `table` (a Table or a streamed source) on `device`
+        (CUDA unless the caller asks for the CPU with ``device="cpu"``)."""
         from deequ_tpu_torch.runners.analysis_run_builder import AnalysisRunBuilder
 
         return AnalysisRunBuilder(table, device)
@@ -42,7 +43,10 @@ class AnalysisRunner:
         device: runtime.DeviceLike = None,
         aggregate_with=None,
         save_states_with=None,
+        controller=None,
     ) -> AnalyzerContext:
+        """`controller` (core/controller.RunController) is checked at every
+        batch and partition boundary of the fused pass."""
         if aggregate_with is not None or save_states_with is not None:
             raise NotImplementedError(
                 "aggregate_with / save_states_with: state persistence is not ported yet"
@@ -75,7 +79,7 @@ class AnalysisRunner:
 
         # the fused scan pass (reference: AnalysisRunner.scala:279-326)
         if shareable:
-            for result in FusedScanPass(shareable, device=device).run(data):
+            for result in FusedScanPass(shareable, device=device, controller=controller).run(data):
                 analyzer = result.analyzer
                 if result.error is not None:
                     metrics[analyzer] = analyzer.to_failure_metric(result.error)
@@ -83,7 +87,7 @@ class AnalysisRunner:
                     metrics[analyzer] = analyzer.compute_metric_from(result.state)
         for analyzer in scanning:
             if not isinstance(analyzer, ScanShareableAnalyzer):
-                metrics[analyzer] = analyzer.calculate(data)
+                metrics[analyzer] = analyzer.calculate(data, device)
 
         # one frequency pass per grouping-column set
         # (reference: AnalysisRunner.scala:164-180, 249-277)

@@ -34,7 +34,7 @@ def run_grouping_analyzers(
     groups: Dict[Tuple[str, ...], List[FrequencyBasedAnalyzer]] = {}
     for analyzer in analyzers:
         if not isinstance(analyzer, FrequencyBasedAnalyzer):
-            metrics[analyzer] = analyzer.calculate(data)
+            metrics[analyzer] = analyzer.calculate(data, device)
             continue
         groups.setdefault(tuple(sorted(analyzer.grouping_columns())), []).append(analyzer)
     for cols, group in groups.items():

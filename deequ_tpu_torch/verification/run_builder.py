@@ -5,7 +5,7 @@ reference: VerificationRunBuilder.scala:28-308.
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, List, Sequence
+from typing import TYPE_CHECKING, List, Optional, Sequence
 
 from deequ_tpu_torch.analyzers.base import Analyzer
 from deequ_tpu_torch.checks.check import Check
@@ -23,6 +23,21 @@ class VerificationRunBuilder:
         self._device = device
         self._checks: List[Check] = []
         self._required_analyzers: List[Analyzer] = []
+        self._controller = None
+        self._deadline_s: Optional[float] = None
+
+    def with_controller(self, controller) -> "VerificationRunBuilder":
+        """Attach a `RunController` (core/controller.py) whose `cancel()`
+        any thread may call: the run raises `RunCancelled` at its next
+        batch or partition boundary, after every stage thread joined."""
+        self._controller = controller
+        return self
+
+    def with_deadline(self, seconds: float) -> "VerificationRunBuilder":
+        """Bound the run's wall time: past `seconds` the next batch check
+        raises `RunCancelled` (DQ402)."""
+        self._deadline_s = float(seconds)
+        return self
 
     def add_check(self, check: Check) -> "VerificationRunBuilder":
         self._checks.append(check)
@@ -42,5 +57,10 @@ class VerificationRunBuilder:
 
     def run(self) -> VerificationResult:
         return VerificationSuite.do_verification_run(
-            self._data, self._checks, self._required_analyzers, self._device
+            self._data,
+            self._checks,
+            self._required_analyzers,
+            self._device,
+            controller=self._controller,
+            deadline_s=self._deadline_s,
         )

@@ -6,7 +6,7 @@ runs one fused analysis on the run's device, evaluates the checks.
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Dict, List, Sequence
+from typing import TYPE_CHECKING, Dict, List, Optional, Sequence
 
 from deequ_tpu_torch.analyzers.base import Analyzer
 from deequ_tpu_torch.checks.check import Check, CheckResult, CheckStatus
@@ -22,8 +22,9 @@ if TYPE_CHECKING:
 class VerificationSuite:
     @staticmethod
     def on_data(data: "Table", device: runtime.DeviceLike = None):
-        """A verification run over `data` on `device` (CUDA unless the
-        caller asks for the CPU with ``device="cpu"``)."""
+        """A verification run over `data` (a Table or a streamed source) on
+        `device` (CUDA unless the caller asks for the CPU with
+        ``device="cpu"``)."""
         from deequ_tpu_torch.verification.run_builder import VerificationRunBuilder
 
         return VerificationRunBuilder(data, device)
@@ -34,12 +35,22 @@ class VerificationSuite:
         checks: Sequence[Check],
         required_analyzers: Sequence[Analyzer] = (),
         device: runtime.DeviceLike = None,
+        controller=None,
+        deadline_s: Optional[float] = None,
     ) -> VerificationResult:
-        """reference: VerificationSuite.scala:107-144."""
+        """reference: VerificationSuite.scala:107-144. A `controller`
+        (core/controller.RunController) is checked at every batch and
+        partition boundary; `deadline_s` without one makes one."""
+        if controller is None and deadline_s is not None:
+            from deequ_tpu_torch.core.controller import RunController
+
+            controller = RunController(deadline_s=deadline_s)
         analyzers: List[Analyzer] = list(required_analyzers)
         for check in checks:
             analyzers.extend(check.required_analyzers())
-        analysis_results = AnalysisRunner.do_analysis_run(data, analyzers, device)
+        analysis_results = AnalysisRunner.do_analysis_run(
+            data, analyzers, device, controller=controller
+        )
         return VerificationSuite.evaluate(checks, analysis_results)
 
     @staticmethod

@@ -123,3 +123,67 @@ def test_moment_family_shares_one_moments_result():
         memo = inputs["__moments:x:where:<all>"]
         first = memo if first is None else first
         assert memo is first
+
+
+# -- Analyzer.calculate on the scan-shareable analyzers -----------------------
+
+
+def _port_table(jtable):
+    """A port Table with the JAX fixture's columns, types and values."""
+    from deequ_tpu_torch.data.table import ColumnType
+
+    types = {name: ColumnType[ctype.name] for name, ctype in jtable.schema}
+    return PTable.from_pydict(jtable.to_pydict(), types=types)
+
+
+CALCULATE_CASES = [
+    ("get_df_full", lambda m: m.Size()),
+    ("get_df_missing", lambda m: m.Size()),
+    ("get_df_with_numeric_values", lambda m: m.Size(where="att1 > 3")),
+    ("get_df_missing", lambda m: m.Completeness("att1")),
+    ("get_df_missing", lambda m: m.Completeness("att2")),
+    ("get_df_full", lambda m: m.Completeness("att1")),
+    ("get_df_full", lambda m: m.Completeness("nope")),
+    ("get_df_with_numeric_values", lambda m: m.Mean("att1")),
+    ("get_df_with_numeric_values", lambda m: m.Mean("att1", where="att2 = 0")),
+    ("get_df_full", lambda m: m.Mean("att1")),
+    ("get_df_full", lambda m: m.ApproxCountDistinct("att1")),
+    ("get_df_full", lambda m: m.ApproxCountDistinct("item")),
+    ("get_df_missing", lambda m: m.ApproxCountDistinct("att2")),
+    ("get_full_nulls", lambda m: m.Completeness("att1")),
+]
+
+
+@pytest.mark.parametrize(
+    "fixture,make", CALCULATE_CASES, ids=[f"{f}-{i}" for i, (f, _m) in enumerate(CALCULATE_CASES)]
+)
+def test_calculate_equals_jax(monkeypatch, fixture, make):
+    """`calculate` runs a one-analyzer fused pass, as the JAX package's
+    does (it failed on every scan-shareable analyzer before): the same
+    metric, or the same failure, on the shared toy fixtures."""
+    import fixtures
+
+    monkeypatch.setenv("DEEQU_TPU_PLACEMENT", "device")
+    jtable = getattr(fixtures, fixture)()
+    jm = make(J).calculate(jtable)
+    pm = make(P).calculate(_port_table(jtable), device="cpu")
+    assert (pm.entity.value, pm.name, pm.instance) == (jm.entity.value, jm.name, jm.instance)
+    assert pm.value.is_success == jm.value.is_success, (pm.value, jm.value)
+    if jm.value.is_success:
+        assert pm.value.get() == jm.value.get()
+    else:
+        assert type(pm.value.exception).__name__ == type(jm.value.exception).__name__
+        assert str(pm.value.exception) == str(jm.value.exception)
+
+
+def test_size_calculate_defaults_to_cuda():
+    """With no device, `calculate` resolves CUDA as the runners do: it
+    raises where no CUDA device is present, and never moves to the CPU."""
+    import fixtures
+
+    table = _port_table(fixtures.get_df_full())
+    if torch.cuda.is_available():
+        assert P.Size().calculate(table).value.get() == 4.0
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            P.Size().calculate(table)

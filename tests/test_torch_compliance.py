@@ -122,3 +122,39 @@ def test_failing_inputs_fail_the_metric_alone(data):
             assert pm.value.get() == jm.value.get()
         else:
             assert str(pm.value.exception) == str(jm.value.exception)
+
+
+# -- string-to-number parsing: the JAX package's pandas.to_numeric ------------
+
+PARSE_STRINGS = [
+    "٥", "١٢", "٣.٥", "٥٠", "５", "\xa05", "5\xa0", "\xa05\xa0", " 5", "5 ",
+    "1_0", "nan", "inf", "1e3", " 5 ", "5", "+5", "5.", ".5", "-0", "x", "",
+]
+
+
+@pytest.mark.parametrize("text", PARSE_STRINGS, ids=lambda t: ascii(t))
+def test_parse_floats_equals_jax(text):
+    """Each string parses (or fails) exactly as the JAX package's parse."""
+    from deequ_tpu.ops.strings import parse_floats as jparse
+    from deequ_tpu_torch.ops.strings import parse_floats as pparse
+
+    uniques = np.array([text], dtype=object)
+    (jv, jok), (pv, pok) = jparse(uniques), pparse(uniques)
+    assert pok.tolist() == jok.tolist()
+    assert pv.tobytes() == jv.tobytes()
+
+
+def test_expr_and_analyzers_agree_on_string_numerics():
+    """A Compliance predicate and `numeric_values` see the same rows as
+    numeric; the non-ASCII digit and the underscore are not numbers."""
+    data = {"s": ["10", "1_0", "٥", "30", "x"]}
+    jt, pt = JTable.from_pydict(data), PTable.from_pydict(data)
+    results = PPass([Compliance("c", "s >= 0")], device="cpu").run(pt)
+    compliance = results[0].analyzer.compute_metric_from(results[0].state_or_raise()).value.get()
+    _vals, valid = pt.column("s").numeric_values()
+    assert valid.tolist() == [True, False, False, True, False]
+    assert compliance == valid.sum() / 5 == 0.4
+    jresults = JPass([JCompliance("c", "s >= 0")]).run(jt)
+    assert compliance == jresults[0].analyzer.compute_metric_from(
+        jresults[0].state_or_raise()
+    ).value.get()

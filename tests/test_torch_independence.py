@@ -34,6 +34,10 @@ def _port_sources():
             if name.endswith(".py"):
                 yield os.path.join(dirpath, name)
     yield os.path.join(REPO, "chip_smoke.py")
+    tools = os.path.join(REPO, "tools")
+    for name in sorted(os.listdir(tools)):
+        if name.startswith("torch_") and name.endswith(".py"):
+            yield os.path.join(tools, name)
 
 
 # the modules of the port's later slices, some of which carry their own
@@ -57,6 +61,10 @@ SLICE_MODULES = [
     "deequ_tpu_torch.suggestions.suggestion",
     "deequ_tpu_torch.suggestions.rules",
     "deequ_tpu_torch.suggestions.runner",
+    "deequ_tpu_torch.data.source",
+    "deequ_tpu_torch.ops.pipeline",
+    "deequ_tpu_torch.core.controller",
+    "deequ_tpu_torch.analyzers.freq_spill",
 ]
 
 
@@ -104,10 +112,7 @@ def test_import_loads_neither_jax_nor_the_jax_package():
     assert len(modules) >= 20, modules
 
 
-@pytest.mark.parametrize(
-    "path", list(_port_sources()), ids=lambda p: os.path.relpath(p, REPO)
-)
-def test_no_source_imports_jax_or_the_jax_package(path):
+def _imported_modules(path):
     with open(path, encoding="utf-8") as f:
         tree = ast.parse(f.read(), filename=path)
     imported = []
@@ -116,4 +121,39 @@ def test_no_source_imports_jax_or_the_jax_package(path):
             imported += [alias.name for alias in node.names]
         elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
             imported.append(node.module)
+    return imported
+
+
+def test_streaming_source_loads_no_jax():
+    """Importing the streamed sources (which pull in pyarrow and the
+    table, the runtime and the pipeline) loads no JAX."""
+    code = (
+        "import sys\n"
+        "import deequ_tpu_torch.data.source\n"
+        "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'deequ_tpu.'))))\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]", proc.stdout
+
+
+def test_chip_smoke_imports_are_walked():
+    """Every port module chip_smoke.py imports (its stream phase's
+    included) is one the subprocess import check loads."""
+    modules = set(_port_modules()) | {"deequ_tpu_torch"}
+    imported = [m for m in _imported_modules(os.path.join(REPO, "chip_smoke.py"))
+                if m.startswith("deequ_tpu_torch")]
+    assert "deequ_tpu_torch.data.source" in imported
+    assert [m for m in imported if m not in modules] == []
+
+
+@pytest.mark.parametrize(
+    "path", list(_port_sources()), ids=lambda p: os.path.relpath(p, REPO)
+)
+def test_no_source_imports_jax_or_the_jax_package(path):
+    imported = _imported_modules(path)
     assert not [m for m in imported if _forbidden(m)], imported
