@@ -4,7 +4,7 @@ profiling and constraint suggestion.
 
 Run from the repository root on a machine with one CUDA GPU:
 
-    python3 chip_smoke.py [--rows 16777216] [--seed 7] [--profile-rows 10000000]
+    python3 chip_smoke.py [--rows 8388608] [--seed 7] [--profile-rows 10000000]
                           [--stream-rows 8388608]
 
 Phases, one JSON line each:
@@ -72,9 +72,32 @@ Phases, one JSON line each:
               and bit for bit, with the grouping analyzers folded through
               GroupCountAccumulator. Files go to a temporary directory;
               their writing is timed apart from the runs.
+ 10. incremental  BASELINE.json config 5's incremental state merge:
+              INCREMENTAL_DAYS (100) daily Parquet partitions of the
+              main path's schema, INCREMENTAL_ROWS (131,072) rows each,
+              verified on CUDA with a FileSystemStateRepository and a
+              FileSystemMetricsRepository (the flagship analyzers, one
+              approximate quantile, one predicate, one string pattern
+              and is_unique("id")). A cold fill scans every partition;
+              after one more day the rerun scans that day alone and
+              launches one partition's worth of K1-K4
+              (incremental_launches), while the id group-by reads every
+              partition on every run (incremental_passes); a rescan with
+              DEEQU_TPU_STATE_CACHE=0 equals it bit for bit; a truncated
+              envelope gives DQ314 and a rescan of that partition alone;
+              a device="cpu" run over the first ten partitions caches
+              none of the card's entries and agrees with merge_range
+              over the card's states (counts, minima, maxima, HLL
+              registers and sketch bytes exactly, sums within
+              METRIC_RTOL); the metrics repository gives back each run's
+              metrics; the flows of the three incremental examples (one
+              with a frequency analyzer over merged states) equal their
+              CPU runs. The append run's time is split into
+              loading the envelopes and scanning the new partition.
 Then the kernels' summary line (launches on the main path, on the
-profile as `launches_profile`, and on the streamed profile and
-verification as `launches_stream`) and, last, the device line. Any failed
+profile as `launches_profile`, on the streamed profile and verification
+as `launches_stream`, and on the incremental append run as
+`launches_incremental`) and, last, the device line. Any failed
 check raises: the script exits non-zero and prints no result. Without
 CUDA it exits non-zero at once.
 """
@@ -517,9 +540,14 @@ def refused_launch_phase(torch, ck, cuda_build, device):
 
 
 def flagship_table(rows: int, seed: int):
-    import numpy as np
-
     from deequ_tpu_torch.data.table import ColumnType, Table
+
+    data = flagship_data(rows, seed)
+    return data, Table.from_numpy(data, types={"cat": ColumnType.STRING})
+
+
+def flagship_data(rows: int, seed: int):
+    import numpy as np
 
     rng = np.random.default_rng(seed)
     x = rng.normal(3.0, 2.0, rows)
@@ -529,8 +557,7 @@ def flagship_table(rows: int, seed: int):
     cats = np.array(["ok", "warn", "err", "skip", None], dtype=object)
     cat = cats[rng.integers(0, len(cats), rows)]
     grp = rng.integers(0, 5, rows)
-    data = {"x": x, "y": y, "id": ids, "cat": cat, "grp": grp}
-    return data, Table.from_numpy(data, types={"cat": ColumnType.STRING})
+    return {"x": x, "y": y, "id": ids, "cat": cat, "grp": grp}
 
 
 def numpy_reference(data):
@@ -671,6 +698,79 @@ def flagship_launches(rows: int):
         "hll_register_max": batches,
         "hist16": 2 * batches,  # one per batch and quantile analyzer
     }
+
+
+INCREMENTAL_DAYS = 100
+INCREMENTAL_ROWS = 1 << 17  # rows of one daily partition: 131,072
+INCREMENTAL_INEXACT = ("Mean", "Sum", "StandardDeviation", "Correlation")  # float sums
+
+
+def incremental_check():
+    """The incremental phase's check over daily partitions: the flagship
+    analyzers, one quantile and one predicate, so K1-K4 all run, one
+    string predicate, which caches with the scan, and one grouping
+    analyzer, whose group-by reads every partition on every run."""
+    from deequ_tpu_torch import Check, CheckLevel
+
+    return (
+        Check(CheckLevel.ERROR, "daily")
+        .has_size(lambda n: n > 0)
+        .is_complete("x")  # fails: every 11th x is null
+        .has_completeness("x", lambda c: c > 0.9)
+        .has_mean("x", lambda v: 2.9 < v < 3.1)
+        .has_min("x", lambda v: v < 0)
+        .has_max("x", lambda v: v > 6)
+        .has_sum("x", lambda v: v > 0)
+        .has_standard_deviation("x", lambda v: 1.9 < v < 2.1)
+        .has_correlation("x", "y", lambda r: r > 0.5)
+        .has_approx_count_distinct("id", lambda v: v > 0)
+        .has_approx_quantile("x", 0.5, lambda m: 2.9 < m < 3.1)
+        .satisfies("x > 0 OR x IS NULL", "x positive or null", lambda r: r > 0.9)
+        .has_pattern("cat", "^(ok|warn)$", lambda r: 0.35 < r < 0.45)
+        .is_unique("id")  # fails: every day draws ids from one range
+    )
+
+
+def incremental_launches(partitions: int, rows_per_partition: int):
+    """Each kernel's launches when `partitions` partitions of
+    `rows_per_partition` rows are scanned with incremental_check(): every
+    partition folds its own batches, each batch launches every kernel
+    once (hist16 once per quantile analyzer, and the check has one), and
+    a partition whose states load from the repository launches nothing."""
+    batches = partitions * -(-rows_per_partition // BATCH)
+    return {
+        "masked_moments": batches,
+        "masked_centered_sumsq": batches,
+        "hll_register_max": batches,
+        "hist16": batches,
+    }
+
+
+def incremental_passes(scanned: int, rows_in_source: int):
+    """The engine's work in one incremental_check() run that scans
+    `scanned` partitions of a source of `rows_in_source` rows: a fused
+    pass per scanned partition and one shared frequency aggregation on
+    the device, and one group-by over the whole source. The partition
+    cache holds scan states only, so the group-by reads every row of
+    every partition, cached or not."""
+    return {"device_passes": scanned + 1, "group_passes": 1, "group_rows": rows_in_source}
+
+
+@contextlib.contextmanager
+def counted_rows(owner, name, totals):
+    """Sum in totals[name] the rows of the table that each call of
+    owner.<name> gets as its first argument."""
+    original = getattr(owner, name)
+
+    def wrapper(table, *args, **kwargs):
+        totals[name] = totals.get(name, 0) + table.num_rows
+        return original(table, *args, **kwargs)
+
+    setattr(owner, name, wrapper)
+    try:
+        yield totals
+    finally:
+        setattr(owner, name, original)
 
 
 def verdicts(result):
@@ -1385,9 +1485,317 @@ def compare_stream_profile(streamed, memory):
     return differences
 
 
+def write_daily_partition(directory: str, day: int, rows: int, seed: int) -> str:
+    """One day of the flagship table's schema as its own Parquet file."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    path = os.path.join(directory, f"day-{day:03d}.parquet")
+    pq.write_table(pa.table(flagship_data(rows, seed + day)), path)
+    return path
+
+
+def context_values(metric_map):
+    return {repr(a): m.value.get() for a, m in metric_map.items()}
+
+
+def assert_same_values(got, want, label: str) -> None:
+    if list(got) != list(want):
+        raise AssertionError(f"{label}: metrics {list(got)} vs {list(want)}")
+    for key, value in want.items():
+        if not same_bits(got[key], value):
+            raise AssertionError(f"{label} {key}: {got[key]!r} vs {value!r}")
+
+
+def incremental_phase(torch, ck, days: int, rows: int, seed: int, card: str, power_limit: str):
+    """BASELINE.json config 5's scan half on the card: `days` daily
+    partitions of `rows` rows, verified with a state repository and a
+    metrics repository (pyarrow must import). Steps: a cold fill scans
+    every partition; one more day, and the rerun scans that day alone;
+    a rescan with the cache off equals it bit for bit; a truncated
+    envelope warns DQ314 and rescans its partition alone; a CPU run over
+    ten partitions misses the card's entries and agrees with
+    `merge_range` of the card's states; the metrics repository gives back
+    each run's metrics; the three incremental examples equal their CPU
+    runs. Every run's passes and group-by rows are held to
+    incremental_passes. Returns the kernels' launches in the append run."""
+    import tempfile
+    import warnings
+
+    import pyarrow  # noqa: F401 - the incremental phase has no fallback
+
+    from deequ_tpu_torch import Table, VerificationSuite
+    from deequ_tpu_torch.analyzers import frequency
+    from deequ_tpu_torch.analyzers.base import ScanShareableAnalyzer
+    from deequ_tpu_torch.analyzers.grouping import GroupingAnalyzer
+    from deequ_tpu_torch.analyzers.state_provider import serialize_state
+    from deequ_tpu_torch.ops import fused, runtime
+    from deequ_tpu_torch.repository import (
+        FileSystemMetricsRepository, FileSystemStateRepository, ResultKey,
+    )
+    from deequ_tpu_torch.repository.states import StateRepository, merge_states, plan_signature_for
+
+    check = incremental_check()
+    # the fused pass's analyzers, in its order: the plan signature hashes them
+    shareable = [
+        a for a in dict.fromkeys(check.required_analyzers())
+        if isinstance(a, ScanShareableAnalyzer) and not isinstance(a, GroupingAnalyzer)
+    ]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_incremental_") as tmp:
+        data_dir = os.path.join(tmp, "daily")
+        os.makedirs(data_dir)
+        t0 = time.perf_counter()
+        paths = [write_daily_partition(data_dir, day, rows, seed) for day in range(days)]
+        write_s = time.perf_counter() - t0
+        states_dir = os.path.join(tmp, "states")
+        states = FileSystemStateRepository(states_dir)
+        metrics_repo = FileSystemMetricsRepository(os.path.join(tmp, "metrics.json"))
+
+        def run(label, key=None, device="cuda", files=None, split=None, expect=None):
+            source = Table.scan_parquet_dataset(files if files is not None else data_dir)
+            builder = (VerificationSuite.on_data(source, device=device).add_check(check)
+                       .with_state_repository(states, "daily"))
+            if key is not None:
+                builder = builder.use_repository(metrics_repo).save_or_append_result(
+                    ResultKey(key, {"dataset": "daily"}))
+            read = {}
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(counted_rows(frequency, "_frequencies_of_batch", read))
+                if split is not None:
+                    stack.enter_context(timed_calls(StateRepository, "load_states", split))
+                    stack.enter_context(timed_calls(StateRepository, "save_states", split))
+                    stack.enter_context(timed_calls(fused.FusedScanPass, "_run_single", split))
+                stats = stack.enter_context(runtime.monitored())
+                ck.reset_launch_counts()
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                result = builder.run()
+                wall = time.perf_counter() - start
+            counts = ck.launch_counts()
+            got = (stats.partitions_cached, stats.partitions_scanned, stats.partitions_total)
+            cached, scanned = expect
+            if got != (cached, scanned, cached + scanned):
+                raise AssertionError(f"incremental {label}: cached, scanned, total {got}, "
+                                     f"expected {(cached, scanned, cached + scanned)}")
+            want = (incremental_launches(scanned, rows) if device == "cuda"
+                    else dict.fromkeys(counts, 0))
+            if counts != want:
+                raise AssertionError(f"incremental {label}: launches {counts}, expected {want}")
+            passes = {"device_passes": stats.device_passes, "group_passes": stats.group_passes,
+                      "group_rows": read.get("_frequencies_of_batch", 0)}
+            want = incremental_passes(scanned, source.num_rows)
+            if passes != want:
+                raise AssertionError(f"incremental {label}: passes {passes}, expected {want}")
+            return {"result": result, "values": metric_values(result), "wall_s": wall,
+                    "launches": counts, "passes": passes, "split": got}
+
+        cold = run("cold fill", key=1, expect=(0, days))
+        paths.append(write_daily_partition(data_dir, days, rows, seed))
+        append_split = {}
+        append = run("append", key=2, split=append_split, expect=(days, 1))
+        with env(DEEQU_TPU_STATE_CACHE="0"):
+            rescan = run("rescan", key=3, expect=(0, days + 1))
+        assert_same_values(append["values"], rescan["values"], "incremental append vs rescan")
+        if verdicts(append["result"]) != verdicts(rescan["result"]) or (
+                append["result"].status != rescan["result"].status):
+            raise AssertionError("incremental: the append run's verdicts differ from the rescan's")
+
+        # a truncated envelope: DQ314, and exactly its partition rescans
+        source = Table.scan_parquet_dataset(data_dir)
+        card_signature = plan_signature_for(shareable, source, device="cuda")
+        victim = source.partitions()[days // 2]
+        envelope = os.path.join(states_dir, "daily", card_signature, f"{victim.fingerprint}.dqstate")
+        envelope_bytes = os.path.getsize(envelope)
+        with open(envelope, "r+b") as fh:
+            fh.truncate(envelope_bytes // 2)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            corrupt = run("truncated envelope", key=4, expect=(days, 1))
+        dq314 = [str(w.message) for w in caught if str(w.message).startswith("DQ314")]
+        if len(dq314) != 1 or victim.fingerprint[:12] not in dq314[0]:
+            raise AssertionError(f"incremental: DQ314 warnings {dq314}")
+        assert_same_values(corrupt["values"], rescan["values"], "incremental corrupt vs rescan")
+
+        # the CPU misses the card's entries: another fold, another signature
+        first = paths[:10]
+        cpu = run("cpu", device="cpu", files=first, expect=(0, len(first)))
+        first_source = Table.scan_parquet_dataset(first)
+        fingerprints = [p.fingerprint for p in first_source.partitions()]
+        card_sig = plan_signature_for(shareable, first_source, device="cuda")
+        cpu_sig = plan_signature_for(shareable, first_source, device="cpu")
+        if card_sig == cpu_sig:
+            raise AssertionError("incremental: the card's and the CPU's signatures are equal")
+        t0 = time.perf_counter()
+        ranged = context_values(states.merge_range("daily", fingerprints, shareable, card_sig).metric_map)
+        merge_range_s = time.perf_counter() - t0
+
+        def merged(signature):
+            out = [None] * len(shareable)
+            for fp in fingerprints:
+                loaded = states.load_states("daily", fp, signature, shareable)
+                out = [merge_states(m, s) for m, s in zip(out, loaded)]
+            return out
+
+        inexact = {}
+        for analyzer, card_state, cpu_state in zip(shareable, merged(card_sig), merged(cpu_sig)):
+            key = repr(analyzer)
+            got, want = ranged[key], cpu["values"][key]
+            if key.startswith(INCREMENTAL_INEXACT):
+                if not close(got, want, METRIC_RTOL):
+                    raise AssertionError(f"incremental merge_range {key}: {got!r} vs cpu {want!r}")
+                inexact[key] = [got, want]
+            elif (serialize_state(analyzer, card_state) != serialize_state(analyzer, cpu_state)
+                  or not same_bits(got, want)):
+                raise AssertionError(f"incremental merge_range {key}: the card's state differs "
+                                     "from the CPU's")
+
+        # the metrics repository gives back what each run returned
+        saved = {r.result_key.data_set_date: context_values(r.analyzer_context.metric_map)
+                 for r in metrics_repo.load().with_tag_values({"dataset": "daily"}).get()}
+        if sorted(saved) != [1, 2, 3, 4]:
+            raise AssertionError(f"incremental: saved keys {sorted(saved)}")
+        for key, step in zip((1, 2, 3, 4), (cold, append, rescan, corrupt)):
+            assert_same_values(saved[key], step["values"], f"incremental repository key {key}")
+
+    examples = incremental_example_flows("cuda")
+    if examples != incremental_example_flows("cpu"):
+        raise AssertionError("incremental examples: cuda and cpu differ")
+    emit({
+        "phase": "incremental",
+        "card": card,
+        "power_limit": power_limit,
+        "days": days,
+        "rows_per_day": rows,
+        "write_s": write_s,
+        "cold_fill_s": cold["wall_s"],
+        "append_run_s": append["wall_s"],
+        "rescan_s": rescan["wall_s"],
+        "truncated_envelope_run_s": corrupt["wall_s"],
+        "cpu_run_s": cpu["wall_s"],
+        "merge_range_s": merge_range_s,
+        "append_run_split_s": {
+            "load_envelopes": append_split.get("load_states", 0.0),
+            "scan_partition": append_split.get("_run_single", 0.0),
+            "save_envelope": append_split.get("save_states", 0.0),
+        },
+        "envelope_bytes": envelope_bytes,
+        "launches": {"cold_fill": cold["launches"], "append": append["launches"],
+                     "rescan": rescan["launches"], "truncated_envelope": corrupt["launches"]},
+        "passes": {"cold_fill": cold["passes"], "append": append["passes"],
+                   "rescan": rescan["passes"], "truncated_envelope": corrupt["passes"],
+                   "cpu": cpu["passes"]},
+        "merge_range_vs_cpu_within_rtol": inexact,
+        "status": append["result"].status.value,
+        "examples_equal_cpu": sorted(examples),
+    })
+    return append["launches"]
+
+
+def incremental_example_flows(device: str):
+    """The flows of examples/incremental_metrics_example.py,
+    update_metrics_on_partitioned_data_example.py and
+    metrics_repository_example.py against the port on `device`, with
+    their hand-derived values checked: {flow: what it printed}."""
+    import tempfile
+
+    import numpy as np
+
+    from deequ_tpu_torch import AnalysisRunner, Check, CheckLevel, Table, VerificationSuite
+    from deequ_tpu_torch.analyzers import ApproxCountDistinct, Completeness, Size
+    from deequ_tpu_torch.analyzers.state_provider import InMemoryStateProvider
+    from deequ_tpu_torch.repository import FileSystemMetricsRepository, ResultKey
+
+    def items(*rows):
+        return Table.from_numpy({
+            "id": np.array([r[0] for r in rows], dtype=np.int64),
+            "name": np.array([r[1] for r in rows], dtype=object),
+            "description": np.array([r[2] for r in rows], dtype=object),
+            "priority": np.array([r[3] for r in rows], dtype=object),
+            "numViews": np.array([r[4] for r in rows], dtype=np.int64),
+        })
+
+    def manufacturers(*rows):
+        return Table.from_numpy({
+            "id": np.array([r[0] for r in rows], dtype=np.int64),
+            "name": np.array([r[1] for r in rows], dtype=object),
+            "countryCode": np.array([r[2] for r in rows], dtype=object),
+        })
+
+    out = {}
+    # examples/incremental_metrics_example.py
+    analyzers = [Size(), ApproxCountDistinct("id"), Completeness("name"), Completeness("description")]
+    store = InMemoryStateProvider()
+    AnalysisRunner.do_analysis_run(
+        items((1, "Thingy A", "awesome thing.", "high", 0),
+              (2, "Thingy B", "available tomorrow", "low", 0),
+              (3, "Thing C", None, None, 5)),
+        analyzers, device, save_states_with=store)
+    after = AnalysisRunner.do_analysis_run(
+        items((4, "Thingy D", None, "low", 10), (5, "Thingy E", None, "high", 12)),
+        analyzers, device, aggregate_with=store)
+    out["incremental_metrics"] = context_values(after.metric_map)
+    if out["incremental_metrics"] != {"Size(None)": 5.0, "ApproxCountDistinct(id,None)": 5.0,
+                                      "Completeness(name,None)": 1.0,
+                                      "Completeness(description,None)": 0.4}:
+        raise AssertionError(f"incremental_metrics example: {out['incremental_metrics']}")
+
+    # examples/update_metrics_on_partitioned_data_example.py
+    check = (Check(CheckLevel.WARNING, "a check").is_complete("name")
+             .contains_url("name", lambda ratio: ratio == 0.0)
+             .is_contained_in("countryCode", ["DE", "US", "CN"])
+             .is_unique("id"))  # a frequency state, merged and aggregated on `device`
+    analyzers = sorted(check.required_analyzers(), key=repr)
+    de = manufacturers((1, "ManufacturerA", "DE"), (2, "ManufacturerB", "DE"))
+    us = manufacturers((3, "ManufacturerD", "US"), (4, "ManufacturerE", "US"),
+                       (5, "ManufacturerF", "US"))
+    cn = manufacturers((6, "ManufacturerG", "CN"), (7, "ManufacturerH", "CN"))
+    providers = []
+    for part in (de, us, cn):
+        providers.append(InMemoryStateProvider())
+        AnalysisRunner.do_analysis_run(part, analyzers, device, save_states_with=providers[-1])
+    whole = AnalysisRunner.run_on_aggregated_states(de, analyzers, providers, device=device)
+    updated_us = InMemoryStateProvider()
+    AnalysisRunner.do_analysis_run(
+        manufacturers((3, "ManufacturerDNew", "US"), (4, None, "US"),
+                      (5, "ManufacturerFNew http://clickme.com", "US")),
+        analyzers, device, save_states_with=updated_us)
+    updated = AnalysisRunner.run_on_aggregated_states(
+        de, analyzers, [providers[0], updated_us, providers[2]], device=device)
+    out["partitioned_whole"] = context_values(whole.metric_map)
+    out["partitioned_updated"] = context_values(updated.metric_map)
+    if (out["partitioned_updated"]["Completeness(name,None)"] != 6 / 7
+            or out["partitioned_updated"]["Uniqueness(List(id))"] != 1.0):
+        raise AssertionError(f"partitioned example: {out['partitioned_updated']}")
+
+    # examples/metrics_repository_example.py
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_repository_") as tmp:
+        repository = FileSystemMetricsRepository(os.path.join(tmp, "metrics.json"))
+        key = ResultKey(1_700_000_000_000, {"tag": "repositoryExample"})
+        VerificationSuite.on_data(items(
+            (1, "Thingy A", "awesome thing.", "high", 0),
+            (2, "Thingy B", "available at http://thingb.com", None, 0),
+            (3, None, None, "low", 5),
+            (4, "Thingy D", "checkout https://thingd.ca", "low", 10),
+            (5, "Thingy E", None, "high", 12),
+        ), device=device).add_check(
+            Check(CheckLevel.ERROR, "integrity checks")
+            .has_size(lambda size: size == 5).is_complete("id").is_complete("name")
+            .is_contained_in("priority", ["high", "low"]).is_non_negative("numViews")
+        ).use_repository(repository).save_or_append_result(key).run()
+        out["repository_completeness_of_name"] = (
+            repository.load_by_key(key).metric(Completeness("name")).value.get())
+        out["repository_json"] = repository.load().after(key.data_set_date - 600_000) \
+            .get_success_metrics_as_json()
+        out["repository_rows"] = (repository.load().with_tag_values({"tag": "repositoryExample"})
+                                  .get_success_metrics_as_rows())
+    if out["repository_completeness_of_name"] != 0.8:
+        raise AssertionError(f"repository example: {out['repository_completeness_of_name']}")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--rows", type=int, default=4 * BATCH)
+    parser.add_argument("--rows", type=int, default=2 * BATCH)
     parser.add_argument("--seed", type=int, default=7)
     parser.add_argument("--profile-rows", type=int, default=10_000_000)
     parser.add_argument("--stream-rows", type=int, default=2 * BATCH)
@@ -1445,13 +1853,17 @@ def main() -> int:
     suggest_phase(torch, ck, lineitem, warm_profile_s)
     stream_launches = stream_phase(torch, ck, lineitem, profiles, profile_launches,
                                    args.stream_rows, args.seed, card, power_limit)
+    append_launches = incremental_phase(
+        torch, ck, INCREMENTAL_DAYS, INCREMENTAL_ROWS, args.seed, card, power_limit)
     for row in summary:
         row["launches"] = launches[row["name"]]
         row["launches_profile"] = profile_launches[row["name"]]
         row["launches_stream"] = stream_launches[row["name"]]
-        if not (row["launches"] and row["launches_profile"] and row["launches_stream"]):
-            raise AssertionError(f"{row['name']} never launched on the main path, the profile "
-                                 "or the streamed path")
+        row["launches_incremental"] = append_launches[row["name"]]
+        if not (row["launches"] and row["launches_profile"] and row["launches_stream"]
+                and row["launches_incremental"]):
+            raise AssertionError(f"{row['name']} never launched on the main path, the profile, "
+                                 "the streamed path or the incremental path")
     emit({"kernels": summary})
     emit({
         "ok": True,

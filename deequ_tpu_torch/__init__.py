@@ -28,6 +28,13 @@ Every entry point also takes a streamed source in place of a table:
 `Table.scan_parquet_dataset(directory)` for a dataset of partition files
 (data/source.py), read in bounded batches on a decode thread while the
 GPU folds the batch before.
+
+Runs keep what they computed: state providers (`aggregate_with`,
+`save_states_with`), metrics repositories (`use_repository`,
+`save_or_append_result`, `reuse_existing_results_for_key`) and, over a
+partitioned dataset, a partition-state repository
+(`with_state_repository`) with which a rerun scans only its new
+partitions (deequ_tpu_torch/repository/).
 """
 
 from deequ_tpu_torch.checks.check import Check, CheckLevel, CheckStatus

@@ -11,7 +11,7 @@ batch (ops/fused.py).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -28,6 +28,9 @@ from deequ_tpu_torch.core.maybe import Failure
 from deequ_tpu_torch.core.metrics import DoubleMetric, Entity, Metric
 from deequ_tpu_torch.data.expr import Predicate
 from deequ_tpu_torch.data.table import ColumnType, Table
+
+if TYPE_CHECKING:
+    from deequ_tpu_torch.analyzers.state_provider import StateLoader, StatePersister
 
 
 def render_where(where: Optional[str]) -> str:
@@ -142,7 +145,10 @@ class Analyzer:
     def preconditions(self) -> List[Callable[[Table], None]]:
         return []
 
-    def compute_metric_from(self, state: Optional[State]) -> Metric:
+    def compute_metric_from(self, state: Optional[State], device=None) -> Metric:
+        """The metric of a state. A metric that reduces on a device (the
+        frequency aggregations) does so on `device`, and a state given
+        alone, with no device, reduces on the CPU; the others ignore it."""
         raise NotImplementedError
 
     def compute_state_from(self, table: Table, device=None) -> Optional[State]:
@@ -150,10 +156,15 @@ class Analyzer:
         resolved `device` where it folds on one."""
         raise NotImplementedError
 
-    def calculate(self, table: Table, device=None) -> Metric:
-        """reference: Analyzer.scala:63-83, without state persistence. The
-        device resolves as the runners resolve it: CUDA unless the caller
-        asks for ``"cpu"``."""
+    def calculate(
+        self,
+        table: Table,
+        aggregate_with: Optional["StateLoader"] = None,
+        save_states_with: Optional["StatePersister"] = None,
+        device=None,
+    ) -> Metric:
+        """reference: Analyzer.scala:63-83. The device resolves as the
+        runners resolve it: CUDA unless the caller asks for ``"cpu"``."""
         from deequ_tpu_torch.ops import runtime
 
         device = runtime.resolve_device(device)
@@ -164,7 +175,46 @@ class Analyzer:
             state = self.compute_state_from(table, device)
         except Exception as e:  # noqa: BLE001
             return self.to_failure_metric(e)
-        return self.compute_metric_from(state)
+        return self.calculate_metric(state, aggregate_with, save_states_with, device)
+
+    def calculate_metric(
+        self,
+        state: Optional[State],
+        aggregate_with: Optional["StateLoader"] = None,
+        save_states_with: Optional["StatePersister"] = None,
+        device=None,
+    ) -> Metric:
+        """Merge in the loaded state, persist, then compute the metric on
+        the resolved `device`."""
+        from deequ_tpu_torch.ops import runtime
+
+        device = runtime.resolve_device(device)
+        if aggregate_with is not None:
+            loaded = aggregate_with.load(self)
+            if loaded is not None:
+                state = loaded if state is None else loaded.merge(state)
+        if save_states_with is not None and state is not None:
+            save_states_with.persist(self, state)
+        return self.compute_metric_from(state, device)
+
+    def aggregate_state_to(
+        self,
+        source_a: "StateLoader",
+        source_b: "StateLoader",
+        target: "StatePersister",
+    ) -> None:
+        """reference: Analyzer.scala:130-147."""
+        a = source_a.load(self)
+        b = source_b.load(self)
+        merged = a.merge(b) if (a is not None and b is not None) else (a or b)
+        if merged is not None:
+            target.persist(self, merged)
+
+    def load_state_and_compute_metric(self, source: "StateLoader", device=None) -> Metric:
+        """The metric of the loaded state, on the resolved `device`."""
+        from deequ_tpu_torch.ops import runtime
+
+        return self.compute_metric_from(source.load(self), runtime.resolve_device(device))
 
     def to_failure_metric(self, exception: BaseException) -> Metric:
         return DoubleMetric(

@@ -244,14 +244,15 @@ class ScanShareableFrequencyBasedAnalyzer(FrequencyBasedAnalyzer):
     def metric_from_freq_agg(self, agg: Dict[str, float], state: FrequenciesAndNumRows) -> Metric:
         raise NotImplementedError
 
-    def compute_metric_from(self, state: Optional[FrequenciesAndNumRows]) -> Metric:
-        """A metric from a state alone (one carried in, say) reduces on the
-        CPU; a run reduces on its own device (runners/grouping_runner.py)."""
+    def compute_metric_from(self, state: Optional[FrequenciesAndNumRows], device=None) -> Metric:
+        """The shared aggregation of this one analyzer, on `device`: a run
+        passes its own, and a state given alone reduces on the CPU."""
         if state is None:
             return self.empty_state_failure()
         from deequ_tpu_torch.ops.freq_agg import run_shared_freq_agg
 
-        return run_shared_freq_agg(state, [self], torch.device("cpu"))[0]
+        device = torch.device("cpu" if device is None else device)
+        return run_shared_freq_agg(state, [self], device)[0]
 
     def to_success_metric(self, value: float) -> DoubleMetric:
         return DoubleMetric(self.entity, self.name, self.instance, Success(value))
@@ -412,7 +413,7 @@ class MutualInformation(FrequencyBasedAnalyzer):
     def preconditions(self) -> List[Callable[[Table], None]]:
         return [Preconditions.exactly_n_columns(self.columns, 2)] + super().preconditions()
 
-    def compute_metric_from(self, state: Optional[FrequenciesAndNumRows]) -> Metric:
+    def compute_metric_from(self, state: Optional[FrequenciesAndNumRows], device=None) -> Metric:
         if state is None or state.num_groups == 0:
             return self.empty_state_failure()
         runtime.record_pass()

@@ -129,7 +129,7 @@ class Histogram(Analyzer):
             keys, counts = np.unique(values, return_counts=True)
         return FrequenciesAndNumRows([self.column], [keys], counts, table.num_rows)
 
-    def compute_metric_from(self, state: Optional[FrequenciesAndNumRows]) -> Metric:
+    def compute_metric_from(self, state: Optional[FrequenciesAndNumRows], device=None) -> Metric:
         if state is None:
             return self.to_failure_metric(
                 EmptyStateException(

@@ -120,7 +120,7 @@ class Size(ScanShareableAnalyzer):
     def state_from_aggregates(self, agg) -> Optional[State]:
         return NumMatches(int(agg["n"]))
 
-    def compute_metric_from(self, state: Optional[State]) -> Metric:
+    def compute_metric_from(self, state: Optional[State], device=None) -> Metric:
         return _double_metric(self, state)
 
     def __repr__(self) -> str:
@@ -173,7 +173,7 @@ class _RatioAnalyzer(ScanShareableAnalyzer):
             return None
         return NumMatchesAndCount(int(agg["matches"]), int(agg["count"]))
 
-    def compute_metric_from(self, state: Optional[State]) -> Metric:
+    def compute_metric_from(self, state: Optional[State], device=None) -> Metric:
         return _double_metric(self, state)
 
 
@@ -395,7 +395,7 @@ class _NumericScanAnalyzer(ScanShareableAnalyzer):
     def _moments(self, inputs: Dict[str, Any]) -> torch.Tensor:
         return _family_moments(inputs, self.column, self.where)
 
-    def compute_metric_from(self, state: Optional[State]) -> Metric:
+    def compute_metric_from(self, state: Optional[State], device=None) -> Metric:
         return _double_metric(self, state)
 
 
@@ -639,7 +639,7 @@ class Correlation(ScanShareableAnalyzer):
             float(agg["y_mk"]),
         )
 
-    def compute_metric_from(self, state: Optional[State]) -> Metric:
+    def compute_metric_from(self, state: Optional[State], device=None) -> Metric:
         return _double_metric(self, state)
 
     def __repr__(self) -> str:
@@ -748,7 +748,7 @@ class DataType(ScanShareableAnalyzer):
     def state_from_aggregates(self, agg) -> Optional[State]:
         return DataTypeHistogram(*(int(agg[label]) for label in _CLASS_LABELS))
 
-    def compute_metric_from(self, state: Optional[State]) -> Metric:
+    def compute_metric_from(self, state: Optional[State], device=None) -> Metric:
         if state is None:
             return self.to_failure_metric(
                 EmptyStateException(

@@ -63,6 +63,9 @@ class ApproxCountDistinctState(DoubleValuedState):
     def metric_value(self) -> float:
         return hll.estimate(self.registers)
 
+    def words(self) -> np.ndarray:
+        return hll.pack_words(self.registers)
+
     def __eq__(self, other) -> bool:
         return isinstance(other, ApproxCountDistinctState) and np.array_equal(
             self.registers, other.registers
@@ -125,7 +128,7 @@ class ApproxCountDistinct(ScanShareableAnalyzer):
     def state_from_aggregates(self, agg) -> Optional[State]:
         return ApproxCountDistinctState(np.asarray(agg["registers"]).astype(np.int32))
 
-    def compute_metric_from(self, state: Optional[State]) -> Metric:
+    def compute_metric_from(self, state: Optional[State], device=None) -> Metric:
         if state is None:
             return self.empty_state_failure()
         return DoubleMetric(
@@ -312,7 +315,7 @@ class ApproxQuantile(_QuantileAnalyzerBase):
     def preconditions(self) -> List[Callable[[Table], None]]:
         return [_unit_interval_check("Quantile", self.quantile)] + self._numeric_column_checks()
 
-    def compute_metric_from(self, state: Optional[State]) -> Metric:
+    def compute_metric_from(self, state: Optional[State], device=None) -> Metric:
         if state is None:
             return self.empty_state_failure()
         return DoubleMetric(
@@ -356,7 +359,7 @@ class ApproxQuantiles(_QuantileAnalyzerBase):
             _unit_interval_check("Quantile", q) for q in self.quantiles
         ] + self._numeric_column_checks()
 
-    def compute_metric_from(self, state: Optional[State]) -> Metric:
+    def compute_metric_from(self, state: Optional[State], device=None) -> Metric:
         if state is None:
             return self.to_failure_metric(
                 EmptyStateException(

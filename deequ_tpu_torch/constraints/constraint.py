@@ -116,6 +116,12 @@ class AnalysisBasedConstraint(Constraint):
         self.value_picker = value_picker
         self.hint = hint
 
+    def calculate_and_evaluate(self, data, device=None) -> ConstraintResult:
+        """The analyzer's metric over `data` on `device` (CUDA unless the
+        caller asks for ``"cpu"``), then this constraint's verdict."""
+        metric = self.analyzer.calculate(data, device=device)
+        return self.evaluate({self.analyzer: metric})
+
     def evaluate(self, analysis_results: Dict[Analyzer, Metric]) -> ConstraintResult:
         metric = analysis_results.get(self.analyzer)
         if metric is None:

@@ -18,9 +18,12 @@ The JAX counterpart is deequ_tpu/data/source.py.
 
 from __future__ import annotations
 
+import hashlib
 import os
 import queue
+import struct
 import threading
+from collections import OrderedDict
 from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -330,15 +333,93 @@ class MappedSource(DataSource):
 
 # -- partitioned datasets ------------------------------------------------------
 
+# footer fingerprints memoized by (device, inode, size, mtime_ns): any
+# rewrite of the file changes size or mtime (and usually inode), so a
+# stat hit can only ever return the digest of the bytes currently on
+# disk. Bounded FIFO so a long-lived service scanning many datasets
+# can't grow it without limit.
+_FP_CACHE: "OrderedDict[str, Tuple[Tuple[int, int, int, int], str]]" = (
+    OrderedDict()
+)
+_FP_CACHE_LOCK = threading.Lock()
+_FP_CACHE_MAX = 8192
+
+
+def partition_fingerprint(path: str) -> str:
+    """Content fingerprint of one parquet partition file: sha256 over
+    the file's NAME within the dataset, its byte size, and the parquet
+    footer's row-group metadata (per-group row counts and byte sizes,
+    per-chunk column paths, compressed sizes and min/max/null-count
+    statistics). Any rewrite of the file — appended rows, mutated
+    values, recompression — changes the footer and therefore the
+    fingerprint, so a cached state for the old content can never be
+    reused (the state-cache invalidation contract,
+    repository/states.py). The directory part of the path is
+    deliberately excluded: relocating a dataset wholesale keeps its
+    cache warm, since entries are already namespaced by dataset.
+
+    Fingerprints are memoized per stat signature: a preempted run that
+    resumes over an N-partition dataset re-fingerprints nothing that
+    hasn't changed on disk, so time-to-first-resume-boundary stays flat
+    in N instead of costing one footer read per partition per attempt."""
+    import pyarrow.parquet as pq
+
+    fstat = os.stat(path)
+    stat_sig = (fstat.st_dev, fstat.st_ino, fstat.st_size, fstat.st_mtime_ns)
+    with _FP_CACHE_LOCK:
+        hit = _FP_CACHE.get(path)
+        if hit is not None and hit[0] == stat_sig:
+            _FP_CACHE.move_to_end(path)
+            return hit[1]
+
+    h = hashlib.sha256()
+    h.update(os.path.basename(path).encode("utf-8") + b"\x00")
+    h.update(struct.pack(">q", fstat.st_size))
+    pf = pq.ParquetFile(path)
+    try:
+        meta = pf.metadata
+        h.update(struct.pack(">qq", meta.num_rows, meta.num_row_groups))
+        for g in range(meta.num_row_groups):
+            rg = meta.row_group(g)
+            h.update(struct.pack(">qq", rg.num_rows, rg.total_byte_size))
+            for j in range(rg.num_columns):
+                chunk = rg.column(j)
+                h.update(chunk.path_in_schema.encode("utf-8") + b"\x00")
+                h.update(struct.pack(">q", chunk.total_compressed_size))
+                st = chunk.statistics
+                if st is not None and bool(getattr(st, "has_min_max", False)):
+                    h.update(repr(st.min).encode("utf-8") + b"\x00")
+                    h.update(repr(st.max).encode("utf-8") + b"\x00")
+                if st is not None and bool(getattr(st, "has_null_count", False)):
+                    h.update(struct.pack(">q", int(st.null_count)))
+    finally:
+        pf.close()
+    digest = h.hexdigest()
+    with _FP_CACHE_LOCK:
+        _FP_CACHE[path] = (stat_sig, digest)
+        _FP_CACHE.move_to_end(path)
+        while len(_FP_CACHE) > _FP_CACHE_MAX:
+            _FP_CACHE.popitem(last=False)
+    return digest
+
+
 class Partition:
-    """One partition of a `PartitionedParquetSource`: a Parquet file and
-    its name within the dataset."""
+    """One partition of a `PartitionedParquetSource`: a Parquet file, its
+    name within the dataset, and its content fingerprint (computed
+    lazily; a fingerprint reads footer metadata, never a row)."""
 
     def __init__(self, path: str, columns: Optional[List[str]], batch_rows: int):
         self.path = path
         self.name = os.path.basename(path)
         self._columns = columns
         self._batch_rows = batch_rows
+        self._fingerprint: Optional[str] = None
+
+    @property
+    def fingerprint(self) -> str:
+        if self._fingerprint is None:
+            self._fingerprint = partition_fingerprint(self.path)
+        return self._fingerprint
 
     def source(self) -> ParquetSource:
         """A fresh single-file source over this partition alone."""

@@ -9,7 +9,10 @@ continue from a state the JAX package computed.
 The dataclass states carry their own fields. Two states are not
 dataclasses and take these fields:
 
-  ApproxQuantileState    k, n, levels (the KLL sketch's `to_arrays()`)
+  ApproxQuantileState    k, n, levels (the KLL sketch's `to_arrays()`),
+                         and optionally rng_state (its `rng_state_bytes()`:
+                         without it the sketch's next merges draw other
+                         compaction offsets than the JAX package's would)
   FrequenciesAndNumRows  columns, key_columns, counts, num_rows
 
 The profiler's two internal states take their own fields, with
@@ -61,8 +64,11 @@ STATE_KINDS = {
 }
 
 
-def _quantile_state(k, n, levels) -> ApproxQuantileState:
-    return ApproxQuantileState(KLLSketch.from_arrays(int(k), int(n), list(levels)))
+def _quantile_state(k, n, levels, rng_state=None) -> ApproxQuantileState:
+    sketch = KLLSketch.from_arrays(int(k), int(n), list(levels))
+    if rng_state is not None:
+        sketch.set_rng_state_bytes(bytes(rng_state))
+    return ApproxQuantileState(sketch)
 
 
 def _frequencies(columns, key_columns, counts, num_rows) -> FrequenciesAndNumRows:
@@ -85,17 +91,19 @@ def _optimistic_numeric(n, total, minimum, maximum, m2, digest, dead) -> Optimis
     )
 
 
-# kind -> (field names, constructor) for the states that are not dataclasses
-# of plain numbers
+# kind -> (field names, optional field names, constructor) for the states
+# that are not dataclasses of plain numbers
 OTHER_KINDS: Dict[str, tuple] = {
-    "ApproxQuantileState": (("k", "n", "levels"), _quantile_state),
+    "ApproxQuantileState": (("k", "n", "levels"), ("rng_state",), _quantile_state),
     "FrequenciesAndNumRows": (
         ("columns", "key_columns", "counts", "num_rows"),
+        (),
         _frequencies,
     ),
-    "LowCardCountsState": (("counts", "null_count", "aborted", "cap"), _low_card_counts),
+    "LowCardCountsState": (("counts", "null_count", "aborted", "cap"), (), _low_card_counts),
     "OptimisticNumericState": (
         ("n", "total", "minimum", "maximum", "m2", "digest", "dead"),
+        (),
         _optimistic_numeric,
     ),
 }
@@ -115,8 +123,8 @@ def state_from_reference(kind: str, fields: Dict[str, Any]) -> State:
     """The port's state for a JAX-package state of class name `kind` with
     field values `fields` (name -> numpy array, list or number)."""
     if kind in OTHER_KINDS:
-        names, build = OTHER_KINDS[kind]
-        if set(fields) != set(names):
+        names, optional, build = OTHER_KINDS[kind]
+        if not set(names) <= set(fields) <= set(names) | set(optional):
             raise ValueError(f"{kind} has fields {sorted(names)}, got {sorted(fields)}")
         return build(**fields)
     cls = STATE_KINDS.get(kind)

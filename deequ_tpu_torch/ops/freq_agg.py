@@ -39,6 +39,7 @@ def run_shared_freq_agg(
     num_rows = torch.tensor(float(state.num_rows), dtype=torch.float64, device=device)
 
     def reduce(counts) -> Tuple[list, np.ndarray]:
+        runtime.record_launch()
         counts = torch.tensor(np.asarray(counts), dtype=torch.float64, device=device)
         outs = [a.freq_reduce(counts, num_rows) for a in analyzers]
         leaves = [value for out in outs for value in out.values()]

@@ -28,8 +28,9 @@ the host-to-device copy, issued on a CUDA copy stream of its own) runs on
 a stage thread ahead of the consumer (ops/pipeline.py), which launches
 the program on its own stream once the copy's event has fired and folds
 every batch in order: the same bits as the serial loop. A partitioned
-source folds each partition on its own and merges the states in
-partition order.
+source folds each partition on its own, or loads its states from an
+attached state repository (repository/states.py), and merges the states
+in partition order.
 
 reference: runners/AnalysisRunner.scala:279-326 (all scan-shareable
 analyzers in one `df.agg(...)`); the JAX counterpart is
@@ -492,13 +493,19 @@ class FusedScanPass:
         batch_size: Optional[int] = None,
         device: runtime.DeviceLike = None,
         controller=None,
+        state_cache=None,
     ):
         self.analyzers = list(analyzers)
+        # an explicit size (even the default's) enters the plan signature
+        self._batch_size_explicit = batch_size is not None
         self.batch_size = batch_size if batch_size is not None else DEFAULT_BATCH_SIZE
         if self.batch_size < 1:
             raise ValueError(f"batch_size must be positive, got {self.batch_size}")
         self.device = runtime.resolve_device(device)
         self._controller = controller
+        # repository/states.StateCacheContext (or None): lets a
+        # partitioned run load a partition's states instead of scanning it
+        self._state_cache = state_cache
 
     def run(self, table: Table) -> List[AnalyzerRunResult]:
         if getattr(table, "partitions", None) is not None:
@@ -506,27 +513,66 @@ class FusedScanPass:
         return self._run_single(table)
 
     def _run_partitioned(self, source) -> List[AnalyzerRunResult]:
-        """Fold each partition through the single-source pass, in the
-        source's (name) order, and merge the results through
-        `State.merge` in that order. A controller is checked at each
-        partition boundary."""
+        """For each partition in the source's (name) order, load its
+        states from the attached state cache (fingerprint and plan
+        signature hit) or scan it through the single-source pass and save
+        the states of a scan without error; then merge the results
+        through `State.merge` in partition order. Cache on, off or absent
+        fold and merge alike, so the bits equal a full rescan's. A
+        controller is checked at each partition boundary."""
         parts = list(source.partitions())
+        cache = (
+            self._state_cache
+            if self._state_cache is not None and runtime.state_cache_enabled()
+            else None
+        )
+        signature = None
+        if cache is not None:
+            from deequ_tpu_torch.repository.states import plan_signature_for
+
+            signature = plan_signature_for(
+                self.analyzers,
+                source,
+                batch_size=self.batch_size if self._batch_size_explicit else None,
+                device=self.device,
+            )
         merged: Optional[List[AnalyzerRunResult]] = None
+        cached_n = scanned_n = 0
         ctl = self._controller
-        for done, part in enumerate(parts):
+        for part in parts:
             if ctl is not None:
                 ctl.check(
                     where=f"partition {part.name}",
-                    progress={"partitions_done": done, "partitions_total": len(parts)},
+                    progress={
+                        "partitions_done": cached_n + scanned_n,
+                        "partitions_total": len(parts),
+                        "partitions_cached": cached_n,
+                    },
                 )
-            results = FusedScanPass(
-                self.analyzers, self.batch_size, self.device, controller=ctl
-            ).run(part.source())
+            results: Optional[List[AnalyzerRunResult]] = None
+            if cache is not None:
+                states = cache.repository.load_states(
+                    cache.dataset, part.fingerprint, signature, self.analyzers
+                )
+                if states is not None:
+                    results = [AnalyzerRunResult(a, state=s) for a, s in zip(self.analyzers, states)]
+                    cached_n += 1
+            if results is None:
+                results = FusedScanPass(
+                    self.analyzers, self.batch_size, self.device, controller=ctl
+                ).run(part.source())
+                scanned_n += 1
+                if cache is not None and all(r.error is None for r in results):
+                    cache.repository.save_states(
+                        cache.dataset, part.fingerprint, signature,
+                        [(r.analyzer, r.state) for r in results],
+                    )
             merged = (
                 results
                 if merged is None
                 else [_merge_partition_results(m, r) for m, r in zip(merged, results)]
             )
+        runtime.record_state_cache(cached_n, scanned_n, len(parts))
         return merged
 
     def _run_single(self, table: Table) -> List[AnalyzerRunResult]:
@@ -678,6 +724,7 @@ class _BatchScan:
                         # blocks out again while this stream still reads them
                         tensor.record_stream(stream)
                 program = get_fused_fn(self.analyzers, item.layout, self.device, self.assisted)
+                runtime.record_launch()
                 # assisted members finish against the batch's host inputs
                 self.fold.submit(
                     *program(wire, item.batch.num_rows), item.built if self.assisted else None

@@ -109,7 +109,13 @@ class ExecutionStats:
     """Counts of engine work during a `monitored()` block."""
 
     device_passes: int = 0  # one per fused scan over a table
+    device_launches: int = 0  # one per device program run (per batch)
     group_passes: int = 0  # one per group-by frequency computation
+    # partitioned scans: partitions whose states loaded from a state
+    # repository, partitions that scanned, and all of them
+    partitions_cached: int = 0
+    partitions_scanned: int = 0
+    partitions_total: int = 0
 
     @property
     def jobs(self) -> int:
@@ -144,10 +150,24 @@ def record_pass() -> None:
         sink.device_passes += 1
 
 
+def record_launch() -> None:
+    """One run of a batch's device program, or of a frequency aggregation."""
+    for sink in _sinks():
+        sink.device_launches += 1
+
+
 def record_group_pass() -> None:
     """One group-by counting pass over a table."""
     for sink in _sinks():
         sink.group_passes += 1
+
+
+def record_state_cache(cached: int, scanned: int, total: int) -> None:
+    """The split of one partitioned scan: loaded, scanned, all partitions."""
+    for sink in _sinks():
+        sink.partitions_cached += int(cached)
+        sink.partitions_scanned += int(scanned)
+        sink.partitions_total += int(total)
 
 
 # -- stream knob (data/source.py, ops/pipeline.py) ------------------------------
@@ -160,3 +180,13 @@ def pipeline_enabled() -> bool:
     caller in batch order. ``DEEQU_TPU_PIPELINE=0`` (or ``off``) runs it
     all on the caller; both give the same bits."""
     return os.environ.get("DEEQU_TPU_PIPELINE", "") not in ("0", "off")
+
+
+def state_cache_enabled() -> bool:
+    """Whether a partitioned scan may consult an attached state
+    repository (repository/states.py): a partition whose fingerprint and
+    plan signature already have a stored envelope loads its states
+    instead of scanning its rows. ``DEEQU_TPU_STATE_CACHE=0`` (or
+    ``off``) scans every partition, as with no repository; partitions
+    merge in partition order either way, so both give the same bits."""
+    return os.environ.get("DEEQU_TPU_STATE_CACHE", "") not in ("0", "off")

@@ -124,6 +124,12 @@ def registers_from_hashes(hashes: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return idx, rank
 
 
+def update_registers(registers: np.ndarray, idx: np.ndarray, rank: np.ndarray) -> np.ndarray:
+    """Host-side register max-merge; device path uses .at[idx].max."""
+    np.maximum.at(registers, idx, rank)
+    return registers
+
+
 def merge_registers(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return np.maximum(a, b)
 
@@ -168,3 +174,26 @@ def estimate(registers: np.ndarray) -> float:
         if h <= THRESHOLD_P9:
             return float(round(h))
     return float(round(e_bias_corrected))
+
+
+def pack_words(registers: np.ndarray) -> np.ndarray:
+    """512 6-bit registers -> 52 packed int64 words (10 registers/word),
+    the reference's persisted layout
+    (reference: StatefulHyperloglogPlus.scala:154, HLLConstants)."""
+    regs_per_word = 10
+    num_words = (M + regs_per_word - 1) // regs_per_word  # 52
+    words = np.zeros(num_words, dtype=np.uint64)
+    for i in range(M):
+        w, slot = divmod(i, regs_per_word)
+        words[w] |= np.uint64(int(registers[i]) & 0x3F) << np.uint64(6 * slot)
+    return words.view(np.int64)
+
+
+def unpack_words(words: np.ndarray) -> np.ndarray:
+    regs_per_word = 10
+    uw = words.view(np.uint64) if words.dtype == np.int64 else words.astype(np.uint64)
+    registers = np.zeros(M, dtype=np.int32)
+    for i in range(M):
+        w, slot = divmod(i, regs_per_word)
+        registers[i] = int((uw[w] >> np.uint64(6 * slot)) & np.uint64(0x3F))
+    return registers

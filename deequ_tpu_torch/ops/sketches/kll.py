@@ -211,3 +211,36 @@ class KLLSketch:
         sketch.n = n
         sketch.levels = [np.asarray(lv, dtype=np.float64) for lv in levels]
         return sketch
+
+    # `merge` seeds its result from self._rng, so a sketch's future merge
+    # behaviour depends on the generator's position, not just (k, n,
+    # levels). Round-tripping that position is what lets a deserialized
+    # partial (state cache, DCN envelope) merge bit-identically to the
+    # live sketch it was saved from.
+
+    RNG_STATE_LEN = 37
+
+    def rng_state_bytes(self) -> bytes:
+        """PCG64 generator position as a fixed 37-byte blob."""
+        st = self._rng.bit_generator.state
+        inner = st["state"]
+        return (
+            int(inner["state"]).to_bytes(16, "big")
+            + int(inner["inc"]).to_bytes(16, "big")
+            + int(st["has_uint32"]).to_bytes(1, "big")
+            + int(st["uinteger"]).to_bytes(4, "big")
+        )
+
+    def set_rng_state_bytes(self, raw: bytes) -> None:
+        """Inverse of rng_state_bytes; raises ValueError on a bad blob."""
+        if len(raw) != self.RNG_STATE_LEN:
+            raise ValueError(f"expected 37-byte rng state, got {len(raw)}")
+        self._rng.bit_generator.state = {
+            "bit_generator": "PCG64",
+            "state": {
+                "state": int.from_bytes(raw[:16], "big"),
+                "inc": int.from_bytes(raw[16:32], "big"),
+            },
+            "has_uint32": raw[32],
+            "uinteger": int.from_bytes(raw[33:37], "big"),
+        }

@@ -114,16 +114,14 @@ class ColumnProfiler:
         low_cardinality_histogram_threshold: int = DEFAULT_CARDINALITY_THRESHOLD,
         metrics_repository=None,
         reuse_existing_results_for_key=None,
+        fail_if_results_missing: bool = False,
         save_in_metrics_repository_using_key=None,
         engine: str = "auto",
         mesh=None,
         device: runtime.DeviceLike = None,
     ) -> ColumnProfiles:
-        """reference: ColumnProfiler.scala:81-188."""
-        if metrics_repository is not None or reuse_existing_results_for_key is not None or (
-            save_in_metrics_repository_using_key is not None
-        ):
-            raise NotImplementedError("the metrics repository is not ported yet")
+        """reference: ColumnProfiler.scala:81-188. Every pass takes the
+        metrics repository options (reference: :128-153)."""
         check_engine(engine, mesh)
         device = runtime.resolve_device(device)
         relevant = (
@@ -157,7 +155,19 @@ class ColumnProfiler:
             elif ctype.is_numeric:
                 analyzers_pass1.extend(_numeric_stat_analyzers(name))
 
-        results_pass1 = AnalysisRunner.do_analysis_run(data, analyzers_pass1, device)
+        def run_pass(table, analyzers) -> AnalyzerContext:
+            builder = AnalysisRunner.on_data(table, device).add_analyzers(analyzers)
+            if metrics_repository is not None:
+                builder = builder.use_repository(metrics_repository)
+                if reuse_existing_results_for_key is not None:
+                    builder = builder.reuse_existing_results_for_key(
+                        reuse_existing_results_for_key, fail_if_results_missing
+                    )
+                if save_in_metrics_repository_using_key is not None:
+                    builder = builder.save_or_append_result(save_in_metrics_repository_using_key)
+            return builder.run()
+
+        results_pass1 = run_pass(data, analyzers_pass1)
 
         generic_stats = _extract_generic_statistics(relevant, data, results_pass1)
         low_card_counts: Dict[str, LowCardCountsState] = {}
@@ -186,14 +196,22 @@ class ColumnProfiler:
             in (DataTypeInstances.INTEGRAL, DataTypeInstances.FRACTIONAL)
         ]
         combined = results_pass1
+        # pass 1's optimistic statistics replace pass 2 where they lived;
+        # with a reuse key pass 2 keeps the repository's short cut
         synthesized: Dict = {}
-        for name in list(cast_columns):
-            state = optimistic_numeric.get(name)
-            if state is not None:
-                synthesized.update(synthesize_numeric_metrics(name, state, _PERCENTILES))
-                cast_columns.remove(name)
+        if reuse_existing_results_for_key is None:
+            for name in list(cast_columns):
+                state = optimistic_numeric.get(name)
+                if state is not None:
+                    synthesized.update(synthesize_numeric_metrics(name, state, _PERCENTILES))
+                    cast_columns.remove(name)
         if synthesized:
-            combined = combined + AnalyzerContext(synthesized)
+            synthesized_ctx = AnalyzerContext(synthesized)
+            combined = combined + synthesized_ctx
+            if metrics_repository is not None and save_in_metrics_repository_using_key is not None:
+                AnalysisRunner._save_or_append(
+                    metrics_repository, save_in_metrics_repository_using_key, synthesized_ctx
+                )
         analyzers_pass2 = []
         for name in cast_columns:
             analyzers_pass2.extend(_numeric_stat_analyzers(name))
@@ -204,9 +222,7 @@ class ColumnProfiler:
                     f"in pass (2/{total_passes})..."
                 )
             casted_data = _cast_numeric_string_columns(cast_columns, data)
-            combined = combined + AnalysisRunner.do_analysis_run(
-                casted_data, analyzers_pass2, device
-            )
+            combined = combined + run_pass(casted_data, analyzers_pass2)
         numeric_stats = _extract_numeric_statistics(combined)
 
         # ---- Pass 3 (reference: :487-565) ---------------------------------

@@ -97,6 +97,9 @@ class _LowCardCounts(ScanShareableAnalyzer):
 
     column: str
     cap: int
+    # internal: its metric carries a raw state, never saved to a metrics
+    # repository nor required from one
+    internal = True
     device_assisted = True
     host_only = True
 
@@ -169,7 +172,7 @@ class _LowCardCounts(ScanShareableAnalyzer):
         )
         return partial if state is None else state.merge(partial)
 
-    def compute_metric_from(self, state: Optional[State]) -> Metric:
+    def compute_metric_from(self, state: Optional[State], device=None) -> Metric:
         return _internal_metric(self.name, self.instance, Success(state))
 
     def __repr__(self) -> str:
@@ -238,6 +241,7 @@ class _OptimisticNumericStats(ScanShareableAnalyzer):
 
     column: str
     relative_error: float = 0.01
+    internal = True  # as _LowCardCounts
     device_assisted = True
     host_only = True
 
@@ -373,7 +377,7 @@ class _OptimisticNumericStats(ScanShareableAnalyzer):
             )
         return partial if state is None else state.merge(partial)
 
-    def compute_metric_from(self, state: Optional[State]) -> Metric:
+    def compute_metric_from(self, state: Optional[State], device=None) -> Metric:
         return _internal_metric(self.name, self.instance, Success(state))
 
     def __repr__(self) -> str:

@@ -1,10 +1,8 @@
 """Fluent entry for column profiling.
 
 reference: profiles/ColumnProfilerRunner.scala:36-108 and
-ColumnProfilerRunBuilder.scala:70-217. The metrics repository options
-(`use_repository`, `reuse_existing_results_for_key`,
-`save_or_append_result`) are not ported yet: a run given one raises
-NotImplementedError, as does a distributed engine.
+ColumnProfilerRunBuilder.scala:70-217. A distributed engine raises
+NotImplementedError until multi-GPU runs are ported.
 """
 
 from __future__ import annotations
@@ -38,6 +36,7 @@ class ColumnProfilerRunBuilder:
         self._restrict_to_columns: Optional[Sequence[str]] = None
         self._metrics_repository = None
         self._reuse_key = None
+        self._fail_if_results_missing = False
         self._save_key = None
         self._save_profiles_json_path: Optional[str] = None
         self._overwrite_output_files = False
@@ -69,8 +68,11 @@ class ColumnProfilerRunBuilder:
         self._metrics_repository = repository
         return self
 
-    def reuse_existing_results_for_key(self, key) -> "ColumnProfilerRunBuilder":
+    def reuse_existing_results_for_key(
+        self, key, fail_if_results_missing: bool = False
+    ) -> "ColumnProfilerRunBuilder":
         self._reuse_key = key
+        self._fail_if_results_missing = fail_if_results_missing
         return self
 
     def save_or_append_result(self, key) -> "ColumnProfilerRunBuilder":
@@ -93,6 +95,7 @@ class ColumnProfilerRunBuilder:
             low_cardinality_histogram_threshold=self._low_cardinality_histogram_threshold,
             metrics_repository=self._metrics_repository,
             reuse_existing_results_for_key=self._reuse_key,
+            fail_if_results_missing=self._fail_if_results_missing,
             save_in_metrics_repository_using_key=self._save_key,
             engine=self._engine,
             mesh=self._mesh,

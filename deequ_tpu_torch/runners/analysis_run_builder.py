@@ -5,12 +5,16 @@ reference: runners/AnalysisRunBuilder.scala:26-186.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import TYPE_CHECKING, List, Optional, Sequence
 
 from deequ_tpu_torch.analyzers.base import Analyzer
 from deequ_tpu_torch.data.table import Table
 from deequ_tpu_torch.ops import runtime
 from deequ_tpu_torch.runners.context import AnalyzerContext
+
+if TYPE_CHECKING:
+    from deequ_tpu_torch.analyzers.state_provider import StateLoader, StatePersister
+    from deequ_tpu_torch.repository.base import MetricsRepository, ResultKey
 
 
 class AnalysisRunBuilder:
@@ -20,6 +24,14 @@ class AnalysisRunBuilder:
         self._analyzers: List[Analyzer] = []
         self._controller = None
         self._deadline_s: Optional[float] = None
+        self._aggregate_with = None
+        self._save_states_with = None
+        self._metrics_repository = None
+        self._reuse_key = None
+        self._fail_if_results_missing = False
+        self._save_key = None
+        self._state_repository = None
+        self._dataset_name = "default"
 
     def with_controller(self, controller) -> "AnalysisRunBuilder":
         """Attach a `RunController` (core/controller.py) whose `cancel()`
@@ -42,6 +54,41 @@ class AnalysisRunBuilder:
         self._analyzers.extend(analyzers)
         return self
 
+    def aggregate_with(self, loader: "StateLoader") -> "AnalysisRunBuilder":
+        self._aggregate_with = loader
+        return self
+
+    def save_states_with(self, persister: "StatePersister") -> "AnalysisRunBuilder":
+        self._save_states_with = persister
+        return self
+
+    def with_state_repository(self, repository, dataset: str = "default") -> "AnalysisRunBuilder":
+        """Attach a partition-state cache (repository/states.py). Over a
+        partitioned source (`Table.scan_parquet_dataset`), a partition
+        whose fingerprint and plan signature already have stored states
+        loads them instead of being scanned, and a newly scanned one
+        saves its states: a rerun costs its new partitions and gives the
+        bits of a full rescan. `dataset` namespaces the entries;
+        ``DEEQU_TPU_STATE_CACHE=0`` turns the cache off."""
+        self._state_repository = repository
+        self._dataset_name = dataset
+        return self
+
+    def use_repository(self, repository: "MetricsRepository") -> "AnalysisRunBuilder":
+        self._metrics_repository = repository
+        return self
+
+    def reuse_existing_results_for_key(
+        self, key: "ResultKey", fail_if_results_missing: bool = False
+    ) -> "AnalysisRunBuilder":
+        self._reuse_key = key
+        self._fail_if_results_missing = fail_if_results_missing
+        return self
+
+    def save_or_append_result(self, key: "ResultKey") -> "AnalysisRunBuilder":
+        self._save_key = key
+        return self
+
     def run(self) -> AnalyzerContext:
         from deequ_tpu_torch.runners.analysis_runner import AnalysisRunner
 
@@ -51,5 +98,16 @@ class AnalysisRunBuilder:
 
             controller = RunController(deadline_s=self._deadline_s)
         return AnalysisRunner.do_analysis_run(
-            self._data, self._analyzers, self._device, controller=controller
+            self._data,
+            self._analyzers,
+            self._device,
+            aggregate_with=self._aggregate_with,
+            save_states_with=self._save_states_with,
+            metrics_repository=self._metrics_repository,
+            reuse_existing_results_for_key=self._reuse_key,
+            fail_if_results_missing=self._fail_if_results_missing,
+            save_or_append_results_with_key=self._save_key,
+            state_repository=self._state_repository,
+            dataset_name=self._dataset_name,
+            controller=controller,
         )

@@ -1,21 +1,24 @@
 """AnalysisRunner: the scheduler of the metrics engine.
 
 Pipeline (reference: runners/AnalysisRunner.scala:98-193):
-  1. deduplicate the analyzers,
+  1. deduplicate the analyzers and skip those whose metrics already
+     exist in the metrics repository,
   2. partition out analyzers with failing preconditions -> failure metrics,
   3. run every scan-shareable analyzer in ONE fused device pass; an
      analyzer that is not shareable (Histogram) computes alone,
   4. run one frequency pass per grouping-column set (grouping_runner),
-  5. turn the folded states into metrics.
+  5. turn the folded states into metrics, merging in and saving states
+     where a state loader or persister is given,
+  6. merge with the reused results and save to the metrics repository.
 
-`data` is an in-memory Table or a streamed source (data/source.py).
-Persisting or loading states (`aggregate_with`, `save_states_with`) is
-not ported yet: a run given either raises NotImplementedError.
+`data` is an in-memory Table or a streamed source (data/source.py). Over
+a partitioned source a state repository (repository/states.py) lets a
+partition load its states instead of being scanned.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import TYPE_CHECKING, Dict, List, Optional, Sequence
 
 from deequ_tpu_torch.analyzers.base import Analyzer, Preconditions, ScanShareableAnalyzer
 from deequ_tpu_torch.analyzers.grouping import GroupingAnalyzer
@@ -25,6 +28,10 @@ from deequ_tpu_torch.ops import runtime
 from deequ_tpu_torch.ops.fused import FusedScanPass
 from deequ_tpu_torch.runners.context import AnalyzerContext
 from deequ_tpu_torch.runners.grouping_runner import run_grouping_analyzers
+
+if TYPE_CHECKING:
+    from deequ_tpu_torch.analyzers.state_provider import StateLoader, StatePersister
+    from deequ_tpu_torch.repository.base import MetricsRepository, ResultKey
 
 
 class AnalysisRunner:
@@ -41,16 +48,20 @@ class AnalysisRunner:
         data: Table,
         analyzers: Sequence[Analyzer],
         device: runtime.DeviceLike = None,
-        aggregate_with=None,
-        save_states_with=None,
+        aggregate_with: Optional["StateLoader"] = None,
+        save_states_with: Optional["StatePersister"] = None,
+        metrics_repository: Optional["MetricsRepository"] = None,
+        reuse_existing_results_for_key: Optional["ResultKey"] = None,
+        fail_if_results_missing: bool = False,
+        save_or_append_results_with_key: Optional["ResultKey"] = None,
+        state_repository=None,
+        dataset_name: str = "default",
         controller=None,
     ) -> AnalyzerContext:
         """`controller` (core/controller.RunController) is checked at every
-        batch and partition boundary of the fused pass."""
-        if aggregate_with is not None or save_states_with is not None:
-            raise NotImplementedError(
-                "aggregate_with / save_states_with: state persistence is not ported yet"
-            )
+        batch and partition boundary of the fused pass. `state_repository`
+        (repository/states.StateRepository) caches the states of each
+        partition of a partitioned source under `dataset_name`."""
         if not analyzers:
             return AnalyzerContext.empty()
         device = runtime.resolve_device(device)
@@ -61,6 +72,31 @@ class AnalysisRunner:
             if a not in seen:
                 seen.add(a)
                 unique.append(a)
+
+        # repository reuse (reference: AnalysisRunner.scala:116-135)
+        reused = AnalyzerContext.empty()
+        if metrics_repository is not None and reuse_existing_results_for_key is not None:
+            existing = metrics_repository.load_by_key(reuse_existing_results_for_key)
+            if existing is not None:
+                reused = AnalyzerContext(
+                    {a: existing.metric_map[a] for a in unique if a in existing.metric_map}
+                )
+            if fail_if_results_missing:
+                # internal (profiler pass-fusion) analyzers are never
+                # repository-backed; their absence is not "missing"
+                missing = [
+                    a
+                    for a in unique
+                    if a not in reused.metric_map and not getattr(a, "internal", False)
+                ]
+                if missing:
+                    raise RuntimeError(
+                        "Could not find all necessary results in the "
+                        "MetricsRepository, the calculation of the metrics "
+                        f"for these analyzers would be needed: "
+                        f"{', '.join(repr(a) for a in missing)}"
+                    )
+        unique = [a for a in unique if a not in reused.metric_map]
 
         # preconditions (reference: AnalysisRunner.scala:137-147)
         passed: List[Analyzer] = []
@@ -79,19 +115,108 @@ class AnalysisRunner:
 
         # the fused scan pass (reference: AnalysisRunner.scala:279-326)
         if shareable:
-            for result in FusedScanPass(shareable, device=device, controller=controller).run(data):
+            state_cache = None
+            if state_repository is not None and getattr(data, "partitions", None) is not None:
+                from deequ_tpu_torch.repository.states import StateCacheContext
+
+                state_cache = StateCacheContext(state_repository, dataset_name)
+            results = FusedScanPass(
+                shareable, device=device, controller=controller, state_cache=state_cache
+            ).run(data)
+            for result in results:
                 analyzer = result.analyzer
                 if result.error is not None:
                     metrics[analyzer] = analyzer.to_failure_metric(result.error)
                 else:
-                    metrics[analyzer] = analyzer.compute_metric_from(result.state)
+                    metrics[analyzer] = analyzer.calculate_metric(
+                        result.state, aggregate_with, save_states_with, device
+                    )
         for analyzer in scanning:
             if not isinstance(analyzer, ScanShareableAnalyzer):
-                metrics[analyzer] = analyzer.calculate(data, device)
+                metrics[analyzer] = analyzer.calculate(
+                    data, aggregate_with, save_states_with, device=device
+                )
 
         # one frequency pass per grouping-column set
         # (reference: AnalysisRunner.scala:164-180, 249-277)
-        context = AnalyzerContext(metrics)
+        context = reused + AnalyzerContext(metrics)
         if grouping:
-            context = context + run_grouping_analyzers(data, grouping, device)
+            context = context + run_grouping_analyzers(
+                data, grouping, device, aggregate_with, save_states_with
+            )
+
+        # save (reference: AnalysisRunner.scala:182-230)
+        if metrics_repository is not None and save_or_append_results_with_key is not None:
+            AnalysisRunner._save_or_append(
+                metrics_repository, save_or_append_results_with_key, context
+            )
         return context
+
+    @staticmethod
+    def run_on_aggregated_states(
+        schema_table: Table,
+        analyzers: Sequence[Analyzer],
+        state_loaders: Sequence["StateLoader"],
+        save_states_with: Optional["StatePersister"] = None,
+        metrics_repository: Optional["MetricsRepository"] = None,
+        save_or_append_results_with_key: Optional["ResultKey"] = None,
+        device: runtime.DeviceLike = None,
+    ) -> AnalyzerContext:
+        """Metrics purely from merged states, with no scan of data
+        (reference: runners/AnalysisRunner.scala:375-446). The frequency
+        aggregations run on the resolved `device`."""
+        from deequ_tpu_torch.analyzers.state_provider import InMemoryStateProvider
+
+        device = runtime.resolve_device(device)
+        if not analyzers or not state_loaders:
+            return AnalyzerContext.empty()
+
+        # precondition check against the schema
+        passed: List[Analyzer] = []
+        metrics: Dict[Analyzer, Metric] = {}
+        for a in analyzers:
+            err = Preconditions.find_first_failing(schema_table, a.preconditions())
+            if err is None:
+                passed.append(a)
+            else:
+                metrics[a] = a.to_failure_metric(err)
+
+        aggregated = InMemoryStateProvider()
+        for analyzer in passed:
+            for loader in state_loaders:
+                state = loader.load(analyzer)
+                if state is None:
+                    continue
+                existing = aggregated.load(analyzer)
+                aggregated.persist(
+                    analyzer, existing.merge(state) if existing is not None else state
+                )
+
+        for analyzer in passed:
+            state = aggregated.load(analyzer)
+            if save_states_with is not None and state is not None:
+                save_states_with.persist(analyzer, state)
+            metrics[analyzer] = analyzer.compute_metric_from(state, device)
+
+        context = AnalyzerContext(metrics)
+        if metrics_repository is not None and save_or_append_results_with_key is not None:
+            AnalysisRunner._save_or_append(
+                metrics_repository, save_or_append_results_with_key, context
+            )
+        return context
+
+    @staticmethod
+    def _save_or_append(
+        repository: "MetricsRepository",
+        key: "ResultKey",
+        context: AnalyzerContext,
+    ) -> None:
+        """Upsert semantics (reference: AnalysisRunner.scala:195-213).
+        Internal analyzers (profiler pass-fusion members) never reach the
+        repository: their metrics carry raw states and have no serde."""
+        context = AnalyzerContext(
+            {a: m for a, m in context.metric_map.items() if not getattr(a, "internal", False)}
+        )
+        existing = repository.load_by_key(key)
+        combined = (existing + context) if existing is not None else context
+        repository.save(key, combined)

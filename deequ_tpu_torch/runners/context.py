@@ -84,3 +84,21 @@ class AnalyzerContext:
         return json.dumps(
             sanitize_json_values(self.success_metrics_as_rows(for_analyzers))
         )
+
+    def success_metrics_as_table(self, for_analyzers=None):
+        """Rows as a Table (the DataFrame exporter analogue)."""
+        from deequ_tpu_torch.data.table import Table
+
+        rows = self.success_metrics_as_rows(for_analyzers)
+        return Table.from_pydict(
+            {
+                "entity": [r["entity"] for r in rows],
+                "instance": [r["instance"] for r in rows],
+                "name": [r["name"] for r in rows],
+                "value": [float(r["value"]) for r in rows],
+            }
+        )
+
+
+def success_metrics_as_data_frame(context: AnalyzerContext, for_analyzers=None):
+    return context.success_metrics_as_table(for_analyzers)

@@ -4,8 +4,7 @@ optionally evaluate suggestions on a held-out split.
 reference: suggestions/ConstraintSuggestionRunner.scala:58-322 +
 ConstraintSuggestionRunBuilder.scala:78-289. The profile and the
 held-out evaluation run on CUDA unless the caller passes
-``device="cpu"``. The metrics repository options are not ported yet: a
-run given one raises NotImplementedError.
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -69,6 +68,7 @@ class ConstraintSuggestionRunBuilder:
         self._restrict_to_columns: Optional[Sequence[str]] = None
         self._metrics_repository = None
         self._reuse_key = None
+        self._fail_if_results_missing = False
         self._save_key = None
         self._save_column_profiles_json_path: Optional[str] = None
         self._save_constraint_suggestions_json_path: Optional[str] = None
@@ -113,8 +113,11 @@ class ConstraintSuggestionRunBuilder:
         self._metrics_repository = repository
         return self
 
-    def reuse_existing_results_for_key(self, key) -> "ConstraintSuggestionRunBuilder":
+    def reuse_existing_results_for_key(
+        self, key, fail_if_results_missing: bool = False
+    ) -> "ConstraintSuggestionRunBuilder":
         self._reuse_key = key
+        self._fail_if_results_missing = fail_if_results_missing
         return self
 
     def save_or_append_result(self, key) -> "ConstraintSuggestionRunBuilder":
@@ -167,6 +170,7 @@ class ConstraintSuggestionRunBuilder:
             low_cardinality_histogram_threshold=self._low_cardinality_histogram_threshold,
             metrics_repository=self._metrics_repository,
             reuse_existing_results_for_key=self._reuse_key,
+            fail_if_results_missing=self._fail_if_results_missing,
             save_in_metrics_repository_using_key=self._save_key,
             device=self._device,
         )

@@ -29,6 +29,9 @@ class VerificationResult:
     def success_metrics_as_rows(self, for_analyzers=None) -> List[Dict[str, object]]:
         return AnalyzerContext(self.metrics).success_metrics_as_rows(for_analyzers)
 
+    def success_metrics_as_table(self, for_analyzers=None):
+        return AnalyzerContext(self.metrics).success_metrics_as_table(for_analyzers)
+
     def success_metrics_as_json(self, for_analyzers=None) -> str:
         return AnalyzerContext(self.metrics).success_metrics_as_json(for_analyzers)
 
@@ -52,6 +55,21 @@ class VerificationResult:
                     }
                 )
         return rows
+
+    def check_results_as_table(self, for_checks=None):
+        from deequ_tpu_torch.data.table import Table
+
+        rows = self.check_results_as_rows(for_checks)
+        return Table.from_pydict(
+            {
+                "check": [r["check"] for r in rows],
+                "check_level": [r["check_level"] for r in rows],
+                "check_status": [r["check_status"] for r in rows],
+                "constraint": [r["constraint"] for r in rows],
+                "constraint_status": [r["constraint_status"] for r in rows],
+                "constraint_message": [r["constraint_message"] for r in rows],
+            }
+        )
 
     def check_results_as_json(self, for_checks=None) -> str:
         return json.dumps(self.check_results_as_rows(for_checks))

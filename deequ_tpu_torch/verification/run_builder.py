@@ -14,7 +14,9 @@ from deequ_tpu_torch.verification.result import VerificationResult
 from deequ_tpu_torch.verification.suite import VerificationSuite
 
 if TYPE_CHECKING:
+    from deequ_tpu_torch.analyzers.state_provider import StateLoader, StatePersister
     from deequ_tpu_torch.data.table import Table
+    from deequ_tpu_torch.repository.base import MetricsRepository, ResultKey
 
 
 class VerificationRunBuilder:
@@ -25,6 +27,17 @@ class VerificationRunBuilder:
         self._required_analyzers: List[Analyzer] = []
         self._controller = None
         self._deadline_s: Optional[float] = None
+        self._metrics_repository: Optional["MetricsRepository"] = None
+        self._reuse_key: Optional["ResultKey"] = None
+        self._fail_if_results_missing = False
+        self._save_key: Optional["ResultKey"] = None
+        self._aggregate_with: Optional["StateLoader"] = None
+        self._save_states_with: Optional["StatePersister"] = None
+        self._state_repository = None
+        self._dataset_name = "default"
+        self._save_check_results_json_path: Optional[str] = None
+        self._save_success_metrics_json_path: Optional[str] = None
+        self._overwrite_output_files = False
 
     def with_controller(self, controller) -> "VerificationRunBuilder":
         """Attach a `RunController` (core/controller.py) whose `cancel()`
@@ -55,12 +68,89 @@ class VerificationRunBuilder:
         self._required_analyzers.extend(analyzers)
         return self
 
+    def aggregate_with(self, loader: "StateLoader") -> "VerificationRunBuilder":
+        self._aggregate_with = loader
+        return self
+
+    def save_states_with(self, persister: "StatePersister") -> "VerificationRunBuilder":
+        self._save_states_with = persister
+        return self
+
+    def with_state_repository(self, repository, dataset: str = "default") -> "VerificationRunBuilder":
+        """Persist and reuse per-partition analyzer states across runs:
+        over a partitioned source (`Table.scan_parquet_dataset`) the scan
+        loads the cached states of unchanged partitions and scans only new
+        or changed ones, with the bits of a full rescan. `dataset`
+        namespaces the entries."""
+        self._state_repository = repository
+        self._dataset_name = dataset
+        return self
+
+    def use_repository(self, repository: "MetricsRepository") -> "VerificationRunBuilder":
+        """reference: VerificationRunBuilder.scala:114-117 — unlocks the
+        repository-backed options below."""
+        self._metrics_repository = repository
+        return self
+
+    def reuse_existing_results_for_key(
+        self, key: "ResultKey", fail_if_results_missing: bool = False
+    ) -> "VerificationRunBuilder":
+        self._reuse_key = key
+        self._fail_if_results_missing = fail_if_results_missing
+        return self
+
+    def save_or_append_result(self, key: "ResultKey") -> "VerificationRunBuilder":
+        self._save_key = key
+        return self
+
+    def save_check_results_json_to_path(self, path: str) -> "VerificationRunBuilder":
+        """reference: VerificationRunBuilder.scala:226-231."""
+        self._save_check_results_json_path = path
+        return self
+
+    def save_success_metrics_json_to_path(self, path: str) -> "VerificationRunBuilder":
+        """reference: VerificationRunBuilder.scala:239-244."""
+        self._save_success_metrics_json_path = path
+        return self
+
+    def overwrite_output_files(self, value: bool) -> "VerificationRunBuilder":
+        """Whether previous files with identical names should be
+        overwritten (reference: VerificationRunBuilder.scala:253-256 —
+        where the reference's self-assignment bug makes the option a
+        no-op; here it works)."""
+        self._overwrite_output_files = value
+        return self
+
     def run(self) -> VerificationResult:
-        return VerificationSuite.do_verification_run(
+        result = VerificationSuite.do_verification_run(
             self._data,
             self._checks,
             self._required_analyzers,
             self._device,
+            aggregate_with=self._aggregate_with,
+            save_states_with=self._save_states_with,
+            metrics_repository=self._metrics_repository,
+            reuse_existing_results_for_key=self._reuse_key,
+            fail_if_results_missing=self._fail_if_results_missing,
+            save_or_append_results_with_key=self._save_key,
+            state_repository=self._state_repository,
+            dataset_name=self._dataset_name,
             controller=self._controller,
             deadline_s=self._deadline_s,
         )
+        # JSON file outputs (reference: VerificationSuite.scala:146-172)
+        from deequ_tpu_torch.core.fileio import write_text_output
+
+        if self._save_check_results_json_path is not None:
+            write_text_output(
+                self._save_check_results_json_path,
+                result.check_results_as_json(),
+                self._overwrite_output_files,
+            )
+        if self._save_success_metrics_json_path is not None:
+            write_text_output(
+                self._save_success_metrics_json_path,
+                result.success_metrics_as_json(),
+                self._overwrite_output_files,
+            )
+        return result

@@ -1,7 +1,8 @@
 """VerificationSuite: orchestrates a verification run.
 
 reference: VerificationSuite.scala:49-281. Collects the checks' analyzers,
-runs one fused analysis on the run's device, evaluates the checks.
+runs one fused analysis on the run's device, evaluates the checks and
+persists the results.
 """
 
 from __future__ import annotations
@@ -16,7 +17,9 @@ from deequ_tpu_torch.runners.context import AnalyzerContext
 from deequ_tpu_torch.verification.result import VerificationResult
 
 if TYPE_CHECKING:
+    from deequ_tpu_torch.analyzers.state_provider import StateLoader, StatePersister
     from deequ_tpu_torch.data.table import Table
+    from deequ_tpu_torch.repository.base import MetricsRepository, ResultKey
 
 
 class VerificationSuite:
@@ -29,18 +32,38 @@ class VerificationSuite:
 
         return VerificationRunBuilder(data, device)
 
+    # reference: VerificationSuite.scala:80-104 (deprecated run shortcut)
+    def run(
+        self,
+        data: "Table",
+        checks: Sequence[Check],
+        required_analyzers: Sequence[Analyzer] = (),
+        device: runtime.DeviceLike = None,
+    ) -> VerificationResult:
+        return self.do_verification_run(data, checks, required_analyzers, device)
+
     @staticmethod
     def do_verification_run(
         data: "Table",
         checks: Sequence[Check],
         required_analyzers: Sequence[Analyzer] = (),
         device: runtime.DeviceLike = None,
+        aggregate_with: Optional["StateLoader"] = None,
+        save_states_with: Optional["StatePersister"] = None,
+        metrics_repository: Optional["MetricsRepository"] = None,
+        reuse_existing_results_for_key: Optional["ResultKey"] = None,
+        fail_if_results_missing: bool = False,
+        save_or_append_results_with_key: Optional["ResultKey"] = None,
+        state_repository=None,
+        dataset_name: str = "default",
         controller=None,
         deadline_s: Optional[float] = None,
     ) -> VerificationResult:
         """reference: VerificationSuite.scala:107-144. A `controller`
         (core/controller.RunController) is checked at every batch and
-        partition boundary; `deadline_s` without one makes one."""
+        partition boundary; `deadline_s` without one makes one. With a
+        `state_repository` and a partitioned source, unchanged partitions
+        load their states instead of being scanned."""
         if controller is None and deadline_s is not None:
             from deequ_tpu_torch.core.controller import RunController
 
@@ -49,9 +72,70 @@ class VerificationSuite:
         for check in checks:
             analyzers.extend(check.required_analyzers())
         analysis_results = AnalysisRunner.do_analysis_run(
-            data, analyzers, device, controller=controller
+            data,
+            analyzers,
+            device,
+            aggregate_with=aggregate_with,
+            save_states_with=save_states_with,
+            metrics_repository=metrics_repository,
+            reuse_existing_results_for_key=reuse_existing_results_for_key,
+            fail_if_results_missing=fail_if_results_missing,
+            # saved after the checks are evaluated, so that a check that
+            # reads the repository sees only earlier runs
+            # (reference: VerificationSuite.scala:121-139)
+            save_or_append_results_with_key=None,
+            state_repository=state_repository,
+            dataset_name=dataset_name,
+            controller=controller,
         )
-        return VerificationSuite.evaluate(checks, analysis_results)
+        result = VerificationSuite.evaluate(checks, analysis_results)
+        if metrics_repository is not None and save_or_append_results_with_key is not None:
+            AnalysisRunner._save_or_append(
+                metrics_repository, save_or_append_results_with_key, analysis_results
+            )
+        return result
+
+    @staticmethod
+    def run_on_aggregated_states(
+        schema_table: "Table",
+        checks: Sequence[Check],
+        state_loaders: Sequence["StateLoader"],
+        required_analyzers: Sequence[Analyzer] = (),
+        save_states_with: Optional["StatePersister"] = None,
+        metrics_repository: Optional["MetricsRepository"] = None,
+        save_or_append_results_with_key: Optional["ResultKey"] = None,
+        device: runtime.DeviceLike = None,
+    ) -> VerificationResult:
+        """reference: VerificationSuite.scala:208-229, on the resolved
+        `device`."""
+        analyzers: List[Analyzer] = list(required_analyzers)
+        for check in checks:
+            analyzers.extend(check.required_analyzers())
+        analysis_results = AnalysisRunner.run_on_aggregated_states(
+            schema_table,
+            analyzers,
+            state_loaders,
+            save_states_with=save_states_with,
+            metrics_repository=metrics_repository,
+            save_or_append_results_with_key=None,
+            device=device,
+        )
+        result = VerificationSuite.evaluate(checks, analysis_results)
+        if metrics_repository is not None and save_or_append_results_with_key is not None:
+            AnalysisRunner._save_or_append(
+                metrics_repository, save_or_append_results_with_key, analysis_results
+            )
+        return result
+
+    @staticmethod
+    def is_check_applicable_to_data(
+        check: Check, schema, num_records: int = 1000, device: runtime.DeviceLike = None
+    ):
+        """Dry-run the check's analyzers on generated data matching the
+        schema (reference: VerificationSuite.scala:238-261)."""
+        from deequ_tpu_torch.applicability.applicability import Applicability
+
+        return Applicability(device=device).is_applicable(check, schema, num_records)
 
     @staticmethod
     def evaluate(

@@ -65,6 +65,17 @@ SLICE_MODULES = [
     "deequ_tpu_torch.ops.pipeline",
     "deequ_tpu_torch.core.controller",
     "deequ_tpu_torch.analyzers.freq_spill",
+    "deequ_tpu_torch.core.fsio",
+    "deequ_tpu_torch.analyzers.state_provider",
+    "deequ_tpu_torch.analyzers.analysis",
+    "deequ_tpu_torch.repository.base",
+    "deequ_tpu_torch.repository.memory",
+    "deequ_tpu_torch.repository.fs",
+    "deequ_tpu_torch.repository.serde",
+    "deequ_tpu_torch.repository.states",
+    "deequ_tpu_torch.lint.schema",
+    "deequ_tpu_torch.applicability.applicability",
+    "deequ_tpu_torch.schema.row_level_schema_validator",
 ]
 
 

@@ -85,7 +85,10 @@ def test_registers_become_int32():
 
 def _quantile_fields(state):
     k, n, levels = state.digest.to_arrays()
-    return {"k": k, "n": n, "levels": [np.array(lv) for lv in levels]}
+    return {
+        "k": k, "n": n, "levels": [np.array(lv) for lv in levels],
+        "rng_state": state.digest.rng_state_bytes(),
+    }
 
 
 @pytest.mark.parametrize(
@@ -176,3 +179,69 @@ def test_frequencies_carry_across(columns):
         got = getattr(P, name)(args).compute_metric_from(merged).value.get()
         want = getattr(J, name)(args).compute_metric_from(jwhole).value.get()
         assert abs(got - want) <= 1e-12 * max(1.0, abs(want)), name
+
+
+# every kind `state_from_reference` takes that has a serde layout, with an
+# analyzer whose state it is (LowCardCountsState and OptimisticNumericState,
+# the profiler's internal states, have none)
+SERDE_KINDS = {
+    "NumMatches": ("Size", ()),
+    "NumMatchesAndCount": ("Completeness", ("x",)),
+    "MeanState": ("Mean", ("x",)),
+    "SumState": ("Sum", ("x",)),
+    "MinState": ("Minimum", ("x",)),
+    "MaxState": ("Maximum", ("x",)),
+    "StandardDeviationState": ("StandardDeviation", ("x",)),
+    "CorrelationState": ("Correlation", ("x", "y")),
+    "ApproxCountDistinctState": ("ApproxCountDistinct", ("id",)),
+    "DataTypeHistogram": ("DataType", ("s",)),
+    "ApproxQuantileState": ("ApproxQuantile", ("x", 0.5)),
+    "FrequenciesAndNumRows": ("CountDistinct", (["id", "g"],)),
+}
+
+
+def test_serde_kinds_cover_every_kind_with_a_layout():
+    from deequ_tpu_torch.interop import OTHER_KINDS, STATE_KINDS
+
+    internal = {"LowCardCountsState", "OptimisticNumericState"}
+    assert set(SERDE_KINDS) == (set(STATE_KINDS) | set(OTHER_KINDS)) - internal
+
+
+@pytest.mark.parametrize("kind", sorted(SERDE_KINDS))
+def test_state_file_and_memory_routes_give_the_same_port_state(monkeypatch, tmp_path, kind):
+    """A JAX-package state reaches the port two ways: in memory through
+    `state_from_reference`, and as a state file the JAX package wrote
+    (its FileSystemStateProvider) that the port's provider reads. Both
+    give the same port state, byte for byte in the port's serde."""
+    from deequ_tpu.analyzers.frequency import compute_frequencies as jfreq
+    from deequ_tpu.analyzers.state_provider import FileSystemStateProvider as JProvider
+    from deequ_tpu_torch.analyzers.state_provider import FileSystemStateProvider as PProvider
+    from deequ_tpu_torch.analyzers.state_provider import serialize_state
+
+    monkeypatch.setenv("DEEQU_TPU_PLACEMENT", "device")
+    data, first, _second = halves()
+    first["g"] = first["id"] % 3
+    first["s"] = np.array(["1", "2.5", "w", None], dtype=object)[first["id"] % 4]
+    name, args = SERDE_KINDS[kind]
+    jan, pan = getattr(J, name)(*args), getattr(P, name)(*args)
+    if kind == "FrequenciesAndNumRows":
+        jstate = jfreq(JTable.from_numpy(first), list(args[0]))
+        fields = {
+            "columns": jstate.columns, "key_columns": jstate.key_columns,
+            "counts": jstate.counts, "num_rows": jstate.num_rows,
+        }
+    else:
+        jstate = JPass([jan]).run(JTable.from_numpy(first))[0].state_or_raise()
+        fields = (
+            _quantile_fields(jstate)
+            if kind == "ApproxQuantileState"
+            else {f.name: getattr(jstate, f.name) for f in dataclasses.fields(jstate)}
+        )
+    assert type(jstate).__name__ == kind
+    in_memory = state_from_reference(kind, fields)
+    prefix = str(tmp_path / "states")
+    JProvider(prefix).persist(jan, jstate)
+    from_file = PProvider(prefix).load(pan)
+    assert type(from_file) is type(in_memory)
+    assert serialize_state(pan, from_file) == serialize_state(pan, in_memory)
+    assert repr(pan.compute_metric_from(from_file)) == repr(pan.compute_metric_from(in_memory))

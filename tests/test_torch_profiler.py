@@ -363,18 +363,66 @@ def test_the_profiler_needs_cuda_unless_asked_for_the_cpu():
         PRunner.on_data(PTable.from_pydict(example_table())).run()
 
 
-@pytest.mark.parametrize(
-    "option",
-    ["use_repository", "reuse_existing_results_for_key", "save_or_append_result", "distributed"],
-)
+@pytest.mark.parametrize("option", ["distributed"])
 def test_unported_options_raise(option):
     builder = PRunner.on_data(PTable.from_pydict(example_table()), device="cpu")
-    if option == "distributed":
-        builder = builder.with_engine("distributed")
-    else:
-        builder = getattr(builder, option)(object())
+    builder = builder.with_engine(option)
     with pytest.raises(NotImplementedError):
         builder.run()
+
+
+def _saved(repository, key):
+    return {repr(a): m.value.get() for a, m in repository.load_by_key(key).metric_map.items()}
+
+
+def test_repository_saves_what_the_jax_package_saves(no_native):
+    """A profile saved to a metrics repository holds the JAX package's
+    metrics: the same analyzers, counts exact, sums within 1e-12."""
+    from deequ_tpu.repository import InMemoryMetricsRepository as JRepository
+    from deequ_tpu.repository import ResultKey as JKey
+    from deequ_tpu_torch.repository import InMemoryMetricsRepository, ResultKey
+
+    jrepo, prepo = JRepository(), InMemoryMetricsRepository()
+    JRunner.on_data(JTable.from_pydict(example_table())).with_engine("single").use_repository(
+        jrepo).save_or_append_result(JKey(1, {"run": "a"})).run()
+    PRunner.on_data(PTable.from_pydict(example_table()), device="cpu").use_repository(
+        prepo).save_or_append_result(ResultKey(1, {"run": "a"})).run()
+    jsaved, psaved = _saved(jrepo, JKey(1, {"run": "a"})), _saved(prepo, ResultKey(1, {"run": "a"}))
+    assert sorted(psaved) == sorted(jsaved)
+    for key, value in jsaved.items():
+        if key.startswith(("Mean", "Sum", "StandardDeviation")):
+            assert psaved[key] == pytest.approx(value, rel=1e-12)
+        elif hasattr(value, "number_of_bins"):
+            assert {k: v.absolute for k, v in psaved[key].values.items()} == {
+                k: v.absolute for k, v in value.values.items()
+            }
+        else:
+            assert psaved[key] == value, key
+
+
+def test_reuse_existing_results_runs_only_the_internal_members(no_native):
+    """A profile that reuses a saved key recomputes no saved metric: its
+    one pass folds only the internal members (which are never saved),
+    as the JAX package's does, and the profile is the same."""
+    from deequ_tpu.repository import InMemoryMetricsRepository as JRepository
+    from deequ_tpu.repository import ResultKey as JKey
+    from deequ_tpu_torch.repository import InMemoryMetricsRepository, ResultKey
+
+    def profiles(runner, table, repo, key, runtime):
+        first = runner(table).use_repository(repo).save_or_append_result(key).run()
+        with runtime.monitored() as stats:
+            again = runner(table).use_repository(repo).reuse_existing_results_for_key(
+                key, fail_if_results_missing=True).run()
+        return first, again, (stats.device_passes, stats.group_passes)
+
+    pfirst, pagain, pjobs = profiles(
+        lambda t: PRunner.on_data(t, device="cpu"), PTable.from_pydict(example_table()),
+        InMemoryMetricsRepository(), ResultKey(7, {}), pruntime)
+    _jfirst, _jagain, jjobs = profiles(
+        lambda t: JRunner.on_data(t).with_engine("single"), JTable.from_pydict(example_table()),
+        JRepository(), JKey(7, {}), jruntime)
+    assert json.loads(pagain.to_json()) == json.loads(pfirst.to_json())
+    assert pjobs == jjobs == (1, 0)
 
 
 def test_pass_counters_nest():

@@ -545,7 +545,9 @@ def test_cancel_at_a_partition_boundary(dataset_dir, monkeypatch):
             [P.Size()]
         ).with_controller(controller).run()
     assert info.value.code == "DQ401"
-    assert info.value.progress == {"partitions_done": 2, "partitions_total": 3}
+    assert info.value.progress == {
+        "partitions_done": 2, "partitions_total": 3, "partitions_cached": 0,
+    }
 
 
 # -- the profiler's straggler pass ----------------------------------------------

@@ -282,11 +282,27 @@ def test_written_file_honours_the_umask(tmp_path):
     assert stat.S_IMODE(path.stat().st_mode) == 0o640
 
 
-@pytest.mark.parametrize("option", ["use_repository", "reuse_existing_results_for_key",
-                                    "save_or_append_result"])
-def test_unported_options_raise(option):
-    builder = getattr(
-        PRunner.on_data(PTable.from_pydict(example_table()), device="cpu")
-        .add_constraint_rules(PRules.DEFAULT), option)(object())
-    with pytest.raises(NotImplementedError):
-        builder.run()
+def test_repository_options_save_and_reuse_the_profile():
+    """The suggestion runner hands its metrics repository to the profile:
+    a run saves the profile's metrics under its key, and a run that
+    reuses the key recomputes none of them (its one pass folds only the
+    profile's internal members, which are never saved) and suggests the
+    same constraints."""
+    from deequ_tpu_torch.ops import runtime
+    from deequ_tpu_torch.repository import InMemoryMetricsRepository, ResultKey
+
+    repo, key = InMemoryMetricsRepository(), ResultKey(3, {"run": "suggest"})
+
+    def suggest(reuse):
+        builder = (PRunner.on_data(PTable.from_pydict(example_table()), device="cpu")
+                   .add_constraint_rules(PRules.DEFAULT).use_repository(repo))
+        builder = builder.reuse_existing_results_for_key(key) if reuse else (
+            builder.save_or_append_result(key))
+        return builder.run()
+
+    first = suggest(reuse=False)
+    assert repo.load_by_key(key).metric_map
+    with runtime.monitored() as stats:
+        again = suggest(reuse=True)
+    assert (stats.device_passes, stats.group_passes) == (1, 0)
+    assert again.suggestions_as_json() == first.suggestions_as_json()

@@ -239,3 +239,59 @@ def test_slice2_check_methods_match_reference(monkeypatch, method):
             assert p.value.get().number_of_bins == j.value.get().number_of_bins
         else:
             assert abs(p.value.get() - j.value.get()) <= 1e-12, key
+
+
+def test_deprecated_analysis_container():
+    """Port-mapped from tests/test_analysis_runner.py: the legacy bag of
+    analyzers (reference: analyzers/Analysis.scala:29-63), on the CPU."""
+    import warnings
+
+    from deequ_tpu_torch.analyzers import Analysis, Mean, Size
+
+    analysis = Analysis().add_analyzer(Size()).add_analyzers([Mean("x")])
+    assert len(analysis.analyzers) == 2
+    table = PTable.from_numpy({"x": np.array([1.0, 2.0, 3.0])})
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        ctx = analysis.run(table, device="cpu")
+    assert any(issubclass(w.category, DeprecationWarning) for w in caught)
+    assert ctx.metric_map[Size()].value.get() == 3.0
+    assert ctx.metric_map[Mean("x")].value.get() == 2.0
+
+
+@pytest.mark.parametrize("bound", [0.5, 0.95])
+def test_calculate_and_evaluate_equals_jax(bound, monkeypatch):
+    """`Constraint.calculate_and_evaluate` computes the constraint's one
+    metric and judges it: the same status, message and metric as the JAX
+    package's, on the CPU."""
+    monkeypatch.setenv("DEEQU_TPU_PLACEMENT", "device")
+    data = example_data(2000)
+    jcheck = JCheck(JLevel.ERROR, "c").has_completeness("x", lambda c: c > bound)
+    pcheck = PCheck(PLevel.ERROR, "c").has_completeness("x", lambda c: c > bound)
+    jres = jcheck.constraints[0].inner.calculate_and_evaluate(JTable.from_numpy(data))
+    pres = pcheck.constraints[0].inner.calculate_and_evaluate(PTable.from_numpy(data), device="cpu")
+    assert (pres.status.value, pres.message) == (jres.status.value, jres.message)
+    assert pres.metric.value.get() == jres.metric.value.get()
+
+
+def test_success_metrics_as_table_equals_jax(monkeypatch):
+    """`AnalyzerContext.success_metrics_as_table` and the module's
+    `success_metrics_as_data_frame`: the JAX package's rows and columns
+    (exact on this integer table)."""
+    from deequ_tpu.runners.analysis_runner import AnalysisRunner as JRunner
+    from deequ_tpu.runners.context import success_metrics_as_data_frame as jframe
+    from deequ_tpu_torch.runners.analysis_runner import AnalysisRunner as PRunner
+    from deequ_tpu_torch.runners.context import success_metrics_as_data_frame as pframe
+
+    import deequ_tpu.analyzers as J
+    import deequ_tpu_torch.analyzers as P
+
+    monkeypatch.setenv("DEEQU_TPU_PLACEMENT", "device")
+    cols = {"x": np.arange(30.0) % 4, "g": np.arange(30) % 3}
+    spec = [("Size", ()), ("Maximum", ("x",)), ("Mean", ("x",)), ("Uniqueness", (["g"],))]
+    jctx = JRunner.do_analysis_run(
+        JTable.from_numpy(cols), [getattr(J, n)(*a) for n, a in spec], engine="single")
+    pctx = PRunner.do_analysis_run(
+        PTable.from_numpy(cols), [getattr(P, n)(*a) for n, a in spec], device="cpu")
+    assert pctx.success_metrics_as_table().to_pydict() == jctx.success_metrics_as_table().to_pydict()
+    assert pframe(pctx).to_pydict() == jframe(jctx).to_pydict()
