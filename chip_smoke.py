@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of deequ_tpu_torch's main paths: verification, column
-profiling and constraint suggestion.
+profiling, constraint suggestion, streamed Parquet, incremental runs and
+anomaly detection.
 
 Run from the repository root on a machine with one CUDA GPU:
 
@@ -11,6 +12,14 @@ Phases, one JSON line each:
   1. device   the card (nvidia-smi name and power limit), torch and CUDA,
               and whether pyarrow and pandas import;
   2. build    nvcc builds deequ_tpu_torch/csrc/ for sm_90a;
+     native   gcc builds the C host library (deequ_tpu_torch/ops/native/)
+              from the checkout's sources, with its build time and the
+              decompression codecs its Parquet reader can load on this
+              host; on one batch of the main path's columns the C HLL
+              codes (xxhash64_pack) of x, y and id and the three
+              dictionary-code bincount sites (Histogram, the profiler's
+              histograms, _LowCardCounts) equal their numpy routes
+              (DEEQU_TPU_NO_NATIVE) bit for bit, with both routes' times;
   3. kernel   each CUDA kernel against its plain PyTorch version on the
               card, at n = 0, 1, a ragged n and the main path's batch of
               4,194,304 rows, with its time, the plain version's time,
@@ -60,15 +69,23 @@ Phases, one JSON line each:
   9. stream   streamed Parquet (pyarrow must import): the lineitem table
               written with row groups of 4,194,304 rows and profiled
               through Table.scan_parquet twice with the default pipeline
-              and once with DEEQU_TPU_PIPELINE=0, the three bit for bit
-              alike and equal to phase 6's in-memory profile, with its
-              launches; the
-              warm run's wall time split into the consumer's wait for
-              batches, the fused pass's host work, host_finish_batch and
-              the device fold. Then phase 4's checks over --stream-rows
-              rows of its table written in row groups of 262,144 rows
-              (16 coalesce into each batch), streamed on CUDA: equal to
-              the in-memory CUDA run of the same rows, metric for metric
+              (its numeric columns read by the C reader where the host
+              loads libsnappy, decoded by the C kernels), once on the
+              pyarrow route (DEEQU_TPU_NATIVE_READER=0,
+              DEEQU_TPU_DECODE_FASTPATH=0) and once from an UNCOMPRESSED
+              copy with DEEQU_TPU_PIPELINE=0, whose every numeric column
+              the C reader must take: all four bit for bit alike and
+              equal to phase 6's in-memory profile, with its launches;
+              the columns the C reader took are printed; the warm run's
+              wall time split into the consumer's wait for batches, the
+              fused pass's host work, host_finish_batch and the device
+              fold, and the decode and prep threads' times into the C
+              reader, its assembly and the HLL hashing. Then phase 4's
+              checks over --stream-rows rows of its table written in row
+              groups of 262,144 rows (16 coalesce into each batch),
+              streamed on CUDA: equal to the in-memory CUDA run of the
+              same rows (phase 4's first run when it ran the same
+              table), metric for metric
               and bit for bit, with the grouping analyzers folded through
               GroupCountAccumulator. Files go to a temporary directory;
               their writing is timed apart from the runs.
@@ -93,7 +110,19 @@ Phases, one JSON line each:
               metrics; the flows of the three incremental examples (one
               with a frequency analyzer over merged states) equal their
               CPU runs. The append run's time is split into
-              loading the envelopes and scanning the new partition.
+              loading the envelopes and scanning the new partition. Then
+              BASELINE.json config 5's anomaly half: after the cold fill,
+              one VerificationSuite run per day over its partition alone
+              (the scan analyzers, no group-by), served by the partition
+              cache with no launch, saves its metrics under
+              ResultKey(day); day 101 (the appended partition) and a day
+              102 whose x is shifted by +1.0 run with three anomaly
+              checks (OnlineNormalStrategy and Holt-Winters on Mean("x"),
+              RateOfChangeStrategy on Size()), on CUDA and with
+              device="cpu": the verdicts equal, the Holt-Winters
+              parameters within 1e-6, day 102 flagged on Mean("x") by
+              both strategies; the fit's time, objective evaluations and
+              launches (torch.profiler over one more fit).
 Then the kernels' summary line (launches on the main path, on the
 profile as `launches_profile`, on the streamed profile and verification
 as `launches_stream`, and on the incremental append run as
@@ -914,7 +943,8 @@ def main_path_phase(torch, ck, rows: int, seed: int, card: str, power_limit: str
         "status": runs[0][0].status.value,
     }
     emit(out)
-    return runs[0][2]
+    # the first run, which the stream phase compares its streamed run with
+    return runs[0][2], ((rows, seed), runs[0])
 
 
 def basic_example_phase(torch, ck):
@@ -1262,6 +1292,134 @@ def suggest_phase(torch, ck, table, warm_profile_s: float):
 
 
 @contextlib.contextmanager
+def library_off():
+    """The C host library off for the block (DEEQU_TPU_NO_NATIVE), on
+    again after it."""
+    from deequ_tpu_torch.ops import native
+
+    native.reset()
+    try:
+        with env(DEEQU_TPU_NO_NATIVE="1"):
+            yield
+    finally:
+        native.reset()
+
+
+def median_s(fn, reps: int = 5) -> float:
+    times = []
+    for _ in range(reps):
+        start = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - start)
+    return statistics.median(times)
+
+
+def native_phase(torch, seed: int, card: str, power_limit: str):
+    """The C host library on the card's host: its build from the
+    checkout's sources, the codecs its reader can load there, and each C
+    route of the main path (HLL codes, the three dictionary-code bincount
+    sites) equal to its numpy route bit for bit on the main path's
+    columns, one batch of them, with the two routes' times."""
+    import numpy as np
+
+    from deequ_tpu_torch.analyzers import Histogram
+    from deequ_tpu_torch.ops import fused, native
+    from deequ_tpu_torch.ops.sketches import hll
+    from deequ_tpu_torch.profiles.column_profiler import _compute_histograms
+    from deequ_tpu_torch.profiles.internal_analyzers import _LowCardCounts
+
+    start = time.perf_counter()
+    library = native.build()
+    build_s = time.perf_counter() - start
+    if not native.available():
+        raise AssertionError("native: the C library is off")
+    codecs = native.reader_codecs()
+    data, table = flagship_table(BATCH, seed)
+
+    def routes(fn):
+        on = fn()
+        with library_off():
+            off = fn()
+        return on, off
+
+    codes_equal = {}
+    for name in ("x", "y", "id"):
+        col = table.column(name)
+        on, off = routes(lambda col=col: hll.pack_codes(col.values, col.valid))
+        if on.tobytes() != off.tobytes():
+            raise AssertionError(f"native: xxhash64_pack codes of {name} differ from numpy")
+        codes_equal[name] = int(np.count_nonzero(on))
+
+    def histogram_site():
+        state = Histogram("cat")._state_of_batch(table)
+        return dict(zip(state.key_columns[0].tolist(), state.counts.tolist())), state.num_rows
+
+    def profiler_site():
+        return {k: (v.absolute, v.ratio) for k, v in
+                _compute_histograms(table, ["cat"], table.num_rows)["cat"].values.items()}
+
+    def low_card_site():
+        (res,) = fused.FusedScanPass([_LowCardCounts("cat", 256)], device="cuda").run(table)
+        state = res.state_or_raise()
+        return state.counts, state.null_count
+
+    bincounts = {}
+    for label, site in (("histogram", histogram_site), ("column_profiler", profiler_site),
+                        ("low_card_counts", low_card_site)):
+        on, off = routes(site)
+        if on != off:
+            raise AssertionError(f"native: the {label} bincount differs from numpy: {on} vs {off}")
+        bincounts[label] = "equal"
+
+    canon = hll.canonical_int64(table.column("x").values)
+    valid = np.asarray(table.column("x").valid)
+    codes, _uniques = table.column("cat").dict_encode()
+
+    def numpy_pack():
+        idx, rank = hll.registers_from_hashes(hll.xxhash64_u64(canon[valid]))
+        packed = np.zeros(len(canon), dtype=np.int32)
+        packed[valid] = (idx << 6) | rank
+        return packed
+
+    times = {
+        "xxhash64_pack_s": median_s(lambda: native.xxhash64_pack(canon, valid)),
+        "xxhash64_pack_numpy_s": median_s(numpy_pack),
+        "bincount_s": median_s(lambda: native.bincount(codes, len(_uniques) + 1, base=1)),
+        "bincount_numpy_s": median_s(
+            lambda: np.bincount(codes + 1, minlength=len(_uniques) + 1)),
+    }
+    emit({
+        "phase": "native",
+        "card": card,
+        "power_limit": power_limit,
+        "library": os.path.relpath(library),
+        "build_s": build_s,
+        "reader_codecs": {name: bool(codecs & bit) for name, bit in native.READER_CODEC_MASK.items()},
+        "rows": BATCH,
+        "xxhash64_pack_equal_numpy_nonzero_codes": codes_equal,
+        "bincount_sites_equal_numpy": bincounts,
+        "one_column_times": times,
+    })
+    return codecs
+
+
+@contextlib.contextmanager
+def read_columns(native_reader, seen):
+    """Add to `seen` the column of every chunk the C reader decodes."""
+    original = native_reader.decode_chunk
+
+    def wrapper(raw, meta):
+        seen.add(meta.column)
+        return original(raw, meta)
+
+    native_reader.decode_chunk = wrapper
+    try:
+        yield seen
+    finally:
+        native_reader.decode_chunk = original
+
+
+@contextlib.contextmanager
 def timed_iteration(module, name, totals):
     """Replace module.<name>, a function returning an iterator, with one
     whose iterators add the time each `next()` takes to totals[name]:
@@ -1305,12 +1463,14 @@ def env(**values):
 
 
 def stream_phase(torch, ck, lineitem, memory_profiles, memory_launches, stream_rows: int,
-                 seed: int, card: str, power_limit: str):
+                 seed: int, card: str, power_limit: str, main_run=None):
     """Streamed Parquet on the card (pyarrow must import): the lineitem
     profile streamed three times, bit for bit alike and equal to phase
     6's in-memory profile with the same launches; then the main path's
     checks streamed over `stream_rows` rows, equal to the in-memory CUDA
-    run of the same rows. Returns the kernels' launches over the warm
+    run of the same rows: phase 4's first run (`main_run`, ((rows, seed),
+    (result, seconds, launches))) when it ran the same table, else a run
+    here. Returns the kernels' launches over the warm
     streamed profile and the streamed verification."""
     import tempfile
 
@@ -1320,18 +1480,24 @@ def stream_phase(torch, ck, lineitem, memory_profiles, memory_launches, stream_r
     from deequ_tpu_torch.analyzers import ApproxQuantiles
     from deequ_tpu_torch.analyzers.freq_spill import GroupCountAccumulator
     from deequ_tpu_torch.analyzers.sketch import _QuantileAnalyzerBase
-    from deequ_tpu_torch.data import source
+    from deequ_tpu_torch.data import native_reader, source
     from deequ_tpu_torch.data.source import ParquetSource
     from deequ_tpu_torch.ops import fused, runtime
+    from deequ_tpu_torch.ops.sketches import hll
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as tmp:
+        import pyarrow.parquet as pq
+
         lineitem_path = os.path.join(tmp, "lineitem.parquet")
         t0 = time.perf_counter()
-        lineitem.to_parquet(lineitem_path, row_group_size=BATCH)
+        arrow = lineitem.to_arrow()  # written twice: Snappy now, UNCOMPRESSED below
+        pq.write_table(arrow, lineitem_path, row_group_size=BATCH)
         lineitem_write_s = time.perf_counter() - t0
 
-        def profile(split=None):
+        def profile(split=None, path=None, read=None):
             with contextlib.ExitStack() as stack:
+                if read is not None:
+                    stack.enter_context(read_columns(native_reader, read))
                 if split is not None:
                     stack.enter_context(timed_calls(fused.FusedScanPass, "run", split))
                     stack.enter_context(timed_iteration(fused.pipeline, "staged", split))
@@ -1339,6 +1505,9 @@ def stream_phase(torch, ck, lineitem, memory_profiles, memory_launches, stream_r
                     # thread seconds on the decode and prep threads
                     stack.enter_context(timed_calls(source.Table, "from_arrow", split))
                     stack.enter_context(timed_calls(fused._BatchScan, "prep", split))
+                    stack.enter_context(timed_calls(hll, "pack_codes", split))
+                    stack.enter_context(timed_calls(ParquetSource, "_read_native", split))
+                    stack.enter_context(timed_calls(native_reader, "assemble_column", split))
                     stack.enter_context(timed_calls(_QuantileAnalyzerBase, "host_finish_batch", split))
                     stack.enter_context(timed_calls(fused.PipelinedAggFold, "_fold", split))
                     stack.enter_context(timed_calls(torch.cuda.Event, "synchronize", split))
@@ -1347,20 +1516,37 @@ def stream_phase(torch, ck, lineitem, memory_profiles, memory_launches, stream_r
                 torch.cuda.synchronize()
                 start = time.perf_counter()
                 result = ColumnProfilerRunner.on_data(
-                    Table.scan_parquet(lineitem_path), device="cuda").run()
+                    Table.scan_parquet(path or lineitem_path), device="cuda").run()
                 wall = time.perf_counter() - start
             return result, wall, ck.launch_counts(), stats.device_passes
 
         split, serial_split = {}, {}
-        runs = [profile(), profile(split)]
+        snappy_read, plain_read = set(), set()
+        runs = [profile(), profile(split, read=snappy_read)]
+        # the pyarrow route: no C reader, no C decode
+        with env(DEEQU_TPU_NATIVE_READER="0", DEEQU_TPU_DECODE_FASTPATH="0"):
+            runs.append(profile())
+        # an UNCOMPRESSED copy, which the C reader reads without libsnappy,
+        # with the pipeline off: the caller reads, decodes and folds
+        plain_path = os.path.join(tmp, "lineitem_plain.parquet")
+        t0 = time.perf_counter()
+        pq.write_table(arrow, plain_path, row_group_size=BATCH, compression="NONE")
+        plain_write_s = time.perf_counter() - t0
+        del arrow
         with env(DEEQU_TPU_PIPELINE="0"):
-            runs.append(profile(serial_split))
+            runs.append(profile(serial_split, path=plain_path, read=plain_read))
+        os.unlink(plain_path)
+        numeric = {name for name, ctype in lineitem.schema if ctype.name in ("LONG", "DOUBLE")}
+        if plain_read != numeric:
+            raise AssertionError(f"stream profile: the C reader took {sorted(plain_read)} of the "
+                                 f"UNCOMPRESSED file, not every numeric column {sorted(numeric)}")
         for result, _wall, launches, passes in runs:
             if launches != memory_launches or passes != 1:
                 raise AssertionError(f"stream profile: launches {launches}, passes {passes}; "
                                      f"in memory {memory_launches}")
             if result.to_json() != runs[0][0].to_json():
-                raise AssertionError("stream profile: the three streamed runs differ")
+                raise AssertionError("stream profile: the streamed runs differ (pipeline on and "
+                                     "off, C reader and pyarrow, Snappy and UNCOMPRESSED)")
         sum_differences = compare_stream_profile(runs[1][0], memory_profiles)
         warm = runs[1][1]
         fused_pass = split.get("run", 0.0)
@@ -1373,7 +1559,11 @@ def stream_phase(torch, ck, lineitem, memory_profiles, memory_launches, stream_r
             "first_run_s": runs[0][1],
             "warm_run_s": warm,
             "rows_per_s_warm_run": lineitem.num_rows / warm,
-            "serial_run_s": runs[2][1],
+            "pyarrow_route_run_s": runs[2][1],
+            "uncompressed_file_write_s": plain_write_s,
+            "uncompressed_file_serial_run_s": runs[3][1],
+            "c_reader_columns_snappy_file": sorted(snappy_read),
+            "c_reader_columns_uncompressed_file": sorted(plain_read),
             "warm_run_split_s": {
                 "fused_pass": fused_pass,
                 "consumer_wait_for_batches": waits,
@@ -1382,14 +1572,20 @@ def stream_phase(torch, ck, lineitem, memory_profiles, memory_launches, stream_r
                 "device_fold": fold - split.get("host_finish_batch", 0.0),
                 "device_fold_event_wait": split.get("synchronize", 0.0),
                 "decode_thread_s_arrow_to_table": split.get("from_arrow", 0.0),
+                "decode_thread_s_c_reader": split.get("_read_native", 0.0),
+                "decode_thread_s_c_assembly": split.get("assemble_column", 0.0),
                 "prep_thread_s": split.get("prep", 0.0),
+                "prep_thread_s_hll_codes": split.get("pack_codes", 0.0),
                 "prep_thread_wait_for_decode": split.get("batches", 0.0),
             },
-            "serial_run_split_s": {
+            "uncompressed_file_serial_run_split_s": {
                 "fused_pass": serial_split.get("run", 0.0),
                 "read_and_decode": serial_split.get("batches", 0.0),
                 "arrow_to_table": serial_split.get("from_arrow", 0.0),
+                "c_reader": serial_split.get("_read_native", 0.0),
+                "c_assembly": serial_split.get("assemble_column", 0.0),
                 "prep": serial_split.get("prep", 0.0),
+                "hll_codes": serial_split.get("pack_codes", 0.0),
                 "host_finish_batch": serial_split.get("host_finish_batch", 0.0),
             },
             "launches": runs[1][2],
@@ -1415,7 +1611,10 @@ def stream_phase(torch, ck, lineitem, memory_profiles, memory_launches, stream_r
                       .add_check(check).add_required_analyzer(quantiles_y).run())
             return result, time.perf_counter() - start, ck.launch_counts()
 
-        memory, memory_s, memory_counts = verify(table)
+        if main_run is not None and main_run[0] == (stream_rows, seed):
+            (memory, memory_s, memory_counts), memory_from = main_run[1], "main_path first run"
+        else:
+            (memory, memory_s, memory_counts), memory_from = verify(table), "stream phase"
         del table
         batch_rows = [b.num_rows for b in Table.scan_parquet(path).batches(BATCH)]
         adds = []
@@ -1449,6 +1648,7 @@ def stream_phase(torch, ck, lineitem, memory_profiles, memory_launches, stream_r
             "batch_rows": batch_rows,
             "write_s": flagship_write_s,
             "in_memory_run_s": memory_s,
+            "in_memory_run": memory_from,
             "streamed_run_s": streamed_s,
             "rows_per_s_streamed": stream_rows / streamed_s,
             "group_accumulator_adds": len(adds),
@@ -1485,13 +1685,17 @@ def compare_stream_profile(streamed, memory):
     return differences
 
 
-def write_daily_partition(directory: str, day: int, rows: int, seed: int) -> str:
-    """One day of the flagship table's schema as its own Parquet file."""
+def write_daily_partition(directory: str, day: int, rows: int, seed: int,
+                          x_shift: float = 0.0) -> str:
+    """One day of the flagship table's schema as its own Parquet file
+    (pyarrow's default Snappy), its x shifted by `x_shift`."""
     import pyarrow as pa
     import pyarrow.parquet as pq
 
+    data = flagship_data(rows, seed + day)
+    data["x"] = data["x"] + x_shift
     path = os.path.join(directory, f"day-{day:03d}.parquet")
-    pq.write_table(pa.table(flagship_data(rows, seed + day)), path)
+    pq.write_table(pa.table(data), path)
     return path
 
 
@@ -1590,6 +1794,8 @@ def incremental_phase(torch, ck, days: int, rows: int, seed: int, card: str, pow
                     "launches": counts, "passes": passes, "split": got}
 
         cold = run("cold fill", key=1, expect=(0, days))
+        daily = daily_runs(torch, ck, paths, shareable, states,
+                           FileSystemMetricsRepository(os.path.join(tmp, "anomaly.json")))
         paths.append(write_daily_partition(data_dir, days, rows, seed))
         append_split = {}
         append = run("append", key=2, split=append_split, expect=(days, 1))
@@ -1657,6 +1863,9 @@ def incremental_phase(torch, ck, days: int, rows: int, seed: int, card: str, pow
         for key, step in zip((1, 2, 3, 4), (cold, append, rescan, corrupt)):
             assert_same_values(saved[key], step["values"], f"incremental repository key {key}")
 
+        anomaly = anomaly_days(torch, paths[days], write_daily_partition(
+            tmp, days + 1, rows, seed, x_shift=1.0), shareable, daily["repository"])
+
     examples = incremental_example_flows("cuda")
     if examples != incremental_example_flows("cpu"):
         raise AssertionError("incremental examples: cuda and cpu differ")
@@ -1687,8 +1896,116 @@ def incremental_phase(torch, ck, days: int, rows: int, seed: int, card: str, pow
         "merge_range_vs_cpu_within_rtol": inexact,
         "status": append["result"].status.value,
         "examples_equal_cpu": sorted(examples),
+        "daily_runs": {k: v for k, v in daily.items() if k != "repository"},
+        "anomaly": anomaly,
     })
     return append["launches"]
+
+
+def daily_runs(torch, ck, paths, shareable, states, repository):
+    """One VerificationSuite run a day over the cold-filled partitions,
+    with the phase's scan analyzers and no group-by, each saving its
+    metrics under ResultKey(day): the partition cache serves every one,
+    so none may launch a kernel."""
+    from deequ_tpu_torch import Table, VerificationSuite
+    from deequ_tpu_torch.ops import runtime
+    from deequ_tpu_torch.repository import ResultKey
+
+    start = time.perf_counter()
+    for day, path in enumerate(paths, start=1):
+        with runtime.monitored() as stats:
+            ck.reset_launch_counts()
+            (VerificationSuite.on_data(Table.scan_parquet_dataset([path]), device="cuda")
+             .add_required_analyzers(shareable).with_state_repository(states, "daily")
+             .use_repository(repository)
+             .save_or_append_result(ResultKey(day, {"dataset": "daily"})).run())
+            torch.cuda.synchronize()
+        counts = ck.launch_counts()
+        if any(counts.values()) or (stats.partitions_cached, stats.partitions_total) != (1, 1):
+            raise AssertionError(f"daily run {day}: launches {counts}, "
+                                 f"cached {stats.partitions_cached} of {stats.partitions_total}")
+    return {"runs": len(paths), "wall_s": time.perf_counter() - start, "launches": 0,
+            "repository": repository}
+
+
+def anomaly_days(torch, day_101, day_102, shareable, repository):
+    """BASELINE.json config 5's anomaly half: day 101 (the appended
+    partition) and day 102 (x shifted by +1.0), each verified on the card
+    and with device="cpu" against the history of the daily runs, with
+    three anomaly checks: OnlineNormalStrategy and Holt-Winters (daily,
+    weekly) on Mean("x"), RateOfChangeStrategy (+-0.1) on Size(). The
+    card's verdicts equal the CPU's, its fitted Holt-Winters parameters
+    are within 1e-6 of the CPU's, and day 102 is flagged on Mean("x") by
+    both strategies. The CPU runs save nothing, so each pair sees the same
+    history; the card's runs save day 101 and 102."""
+    from deequ_tpu_torch import Table, VerificationSuite
+    from deequ_tpu_torch.analyzers import Mean, Size
+    from deequ_tpu_torch.anomaly import (
+        HoltWinters, MetricInterval, OnlineNormalStrategy, RateOfChangeStrategy, SeriesSeasonality,
+    )
+    from deequ_tpu_torch.repository import ResultKey
+
+    fits = []  # (device, detect's wall time, evaluations, series, interval)
+
+    def run(path, device, key):
+        holt = HoltWinters(MetricInterval.DAILY, SeriesSeasonality.WEEKLY, device=device)
+        detect = holt.detect
+
+        def timed_detect(series, interval):
+            start = time.perf_counter()
+            out = detect(series, interval)
+            fits.append((device, time.perf_counter() - start, holt.evaluations, series, interval))
+            return out
+
+        holt.detect = timed_detect
+        builder = (VerificationSuite.on_data(Table.scan_parquet_dataset([path]), device=device)
+                   .add_required_analyzers(shareable).use_repository(repository)
+                   .add_anomaly_check(OnlineNormalStrategy(), Mean("x"))
+                   .add_anomaly_check(holt, Mean("x"))
+                   .add_anomaly_check(RateOfChangeStrategy(max_rate_decrease=-0.1,
+                                                           max_rate_increase=0.1), Size()))
+        if key is not None:
+            builder = builder.save_or_append_result(ResultKey(key, {"dataset": "daily"}))
+        start = time.perf_counter()
+        result = builder.run()
+        torch.cuda.synchronize()
+        statuses = [r.status.value for r in result.check_results.values()]
+        return statuses, holt.params, time.perf_counter() - start
+
+    out = {}
+    for day, path in ((101, day_101), (102, day_102)):
+        cpu, cpu_params, _ = run(path, "cpu", None)
+        card, card_params, card_s = run(path, "cuda", day)
+        if card != cpu:
+            raise AssertionError(f"anomaly day {day}: card verdicts {card}, cpu {cpu}")
+        if float(max(abs(a - b) for a, b in zip(card_params, cpu_params))) > 1e-6:
+            raise AssertionError(f"anomaly day {day}: Holt-Winters parameters {card_params} "
+                                 f"on the card, {cpu_params} on the CPU")
+        out[f"day_{day}"] = {"verdicts": card, "run_s": card_s,
+                             "holt_winters_params": [float(v) for v in card_params],
+                             "holt_winters_params_cpu": [float(v) for v in cpu_params]}
+    if out["day_102"]["verdicts"][:2] != ["Warning", "Warning"]:
+        raise AssertionError(f"anomaly: day 102 not flagged on Mean(x): {out['day_102']}")
+
+    # the card's last fit again, under the profiler: its launches
+    _device, _s, _evals, series, interval = fits[-1]
+    holt = HoltWinters(MetricInterval.DAILY, SeriesSeasonality.WEEKLY, device="cuda")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        holt.detect(series, interval)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    out["holt_winters_fit"] = {
+        "history_points": len(series) - 1,
+        "card_s": [f[1] for f in fits if f[0] == "cuda"],
+        "cpu_s": [f[1] for f in fits if f[0] == "cpu"],
+        "evaluations": [f[2] for f in fits if f[0] == "cuda"],
+        "evaluations_cpu": [f[2] for f in fits if f[0] == "cpu"],
+        "launch_calls_per_fit": sum(e.count for e in events if "LaunchKernel" in e.key),
+        "device_kernels_per_fit": sum(
+            e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA),
+    }
+    return out
 
 
 def incremental_example_flows(device: str):
@@ -1833,6 +2150,7 @@ def main() -> int:
     cuda_build.build(verbose=True)
     emit({"phase": "build", "seconds": time.perf_counter() - start,
           "library": os.path.relpath(cuda_build.library_path())})
+    native_phase(torch, args.seed, card, power_limit)
 
     rng = np.random.default_rng(args.seed)
     timer = Timer(torch, device)
@@ -1845,14 +2163,14 @@ def main() -> int:
     summary = moments_phase(torch, ck, device, rng, timer, profile) + rest
     refused_launch_phase(torch, ck, cuda_build, device)
     del timer, profile  # frees the 256 MB L2 flush buffer before the main path
-    launches = main_path_phase(torch, ck, args.rows, args.seed, card, power_limit)
+    launches, main_run = main_path_phase(torch, ck, args.rows, args.seed, card, power_limit)
     basic_example_phase(torch, ck)
     warm_profile_s, profile_launches, lineitem, profiles = profile_phase(
         torch, ck, args.profile_rows, args.seed, card, power_limit)
     profile_example_phase(torch, ck)
     suggest_phase(torch, ck, lineitem, warm_profile_s)
     stream_launches = stream_phase(torch, ck, lineitem, profiles, profile_launches,
-                                   args.stream_rows, args.seed, card, power_limit)
+                                   args.stream_rows, args.seed, card, power_limit, main_run)
     append_launches = incremental_phase(
         torch, ck, INCREMENTAL_DAYS, INCREMENTAL_ROWS, args.seed, card, power_limit)
     for row in summary:

@@ -109,8 +109,12 @@ class Histogram(Analyzer):
         col = table.column(self.column)
         if self.binning_udf is None:
             # group on dictionary codes, stringify only the unique values
+            from deequ_tpu_torch.ops import native
+
             codes, uniques = col.dict_encode()
-            group_counts = np.bincount(codes + 1, minlength=len(uniques) + 1)
+            group_counts = native.bincount(codes, len(uniques) + 1, base=1)
+            if group_counts is None:
+                group_counts = np.bincount(codes + 1, minlength=len(uniques) + 1)
             labels = [NULL_FIELD_REPLACEMENT] + [_stringify(u, col.ctype) for u in uniques]
             label_totals: Dict[str, int] = {}
             for label, count in zip(labels, group_counts):

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import enum
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Set
+from typing import Callable, Dict, List, Optional, Set
 
 from deequ_tpu_torch.analyzers.base import Analyzer
 from deequ_tpu_torch.analyzers.scan import Patterns
@@ -156,6 +156,27 @@ class Check:
         return self.add_constraint(
             C.histogram_constraint(column, assertion, binning_udf, max_bins, hint)
         )
+
+    def is_newest_point_non_anomalous(
+        self,
+        metrics_repository,
+        anomaly_detection_strategy,
+        analyzer,
+        with_tag_values: Optional[Dict[str, str]] = None,
+        after_date: Optional[int] = None,
+        before_date: Optional[int] = None,
+        hint=None,
+    ) -> "Check":
+        # :322 — assertion closes over the repository (reference :926-983)
+        assertion = _is_newest_point_non_anomalous_assertion(
+            metrics_repository,
+            anomaly_detection_strategy,
+            analyzer,
+            with_tag_values or {},
+            after_date,
+            before_date,
+        )
+        return self.add_constraint(C.anomaly_constraint(analyzer, assertion, hint))
 
     def has_entropy(self, column, assertion, hint=None) -> "Check":
         # :353
@@ -416,3 +437,42 @@ class CheckWithLastConstraintFilterable(Check):
         adjusted = self.constraints[:-1] + [self._create_replacement(filter_)]
         return Check(self.level, self.description, adjusted)
 
+
+def _is_newest_point_non_anomalous_assertion(
+    metrics_repository,
+    anomaly_detection_strategy,
+    analyzer,
+    with_tag_values: Dict[str, str],
+    after_date: Optional[int],
+    before_date: Optional[int],
+) -> Callable[[float], bool]:
+    """Assertion closure that queries the repository for this analyzer's
+    metric history and runs the detector on history + current value
+    (reference: checks/Check.scala:926-983)."""
+
+    def assertion(current_value: float) -> bool:
+        from deequ_tpu_torch.anomaly.detector import AnomalyDetector, DataPoint
+
+        loader = metrics_repository.load()
+        if with_tag_values:
+            loader = loader.with_tag_values(with_tag_values)
+        if after_date is not None:
+            loader = loader.after(after_date)
+        if before_date is not None:
+            loader = loader.before(before_date)
+        results = loader.get()
+
+        data_points = []
+        for result in results:
+            metric = result.analyzer_context.metric_map.get(analyzer)
+            value = None
+            if metric is not None and metric.value.is_success:
+                value = float(metric.value.get())
+            data_points.append(DataPoint(result.result_key.data_set_date, value))
+
+        # sort by time; detect on history + new point
+        detector = AnomalyDetector(anomaly_detection_strategy)
+        detection = detector.is_new_point_anomalous(data_points, current_value)
+        return len(detection.anomalies) == 0
+
+    return assertion

@@ -291,6 +291,15 @@ def correlation_constraint(
     return NamedConstraint(constraint, f"CorrelationConstraint({correlation!r})")
 
 
+def anomaly_constraint(
+    analyzer: Analyzer,
+    anomaly_assertion: Callable[[float], bool],
+    hint: Optional[str] = None,
+) -> Constraint:
+    constraint = AnalysisBasedConstraint(analyzer, anomaly_assertion, hint=hint)
+    return NamedConstraint(constraint, f"AnomalyConstraint({analyzer!r})")
+
+
 def uniqueness_constraint(
     columns: Sequence[str],
     assertion: Callable[[float], bool],

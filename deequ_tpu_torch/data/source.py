@@ -1,5 +1,4 @@
-"""Streamed data sources: out-of-core input for every pass, on the
-pyarrow route.
+"""Streamed data sources: out-of-core input for every pass.
 
 A source answers the part of the `Table` interface the engine reads:
 ``num_rows``, ``column_names``, ``schema``, ``has_column``,
@@ -11,25 +10,33 @@ O(batch + groups), never O(rows).
 `ParquetSource` reads row group by row group, with string columns as
 Arrow dictionaries (their codes are the analyzers' `dict_encode`), on a
 prefetch thread; with `DEEQU_TPU_PIPELINE=0` on the caller's thread,
-which gives the same batches.
+which gives the same batches. Numeric and boolean columns the planner
+approves skip pyarrow's read (the C reader, data/native_reader.py) or
+its conversion to numpy (the C Arrow-buffer decode,
+data/arrow_decode.py); every route gives the same batches bit for bit.
 
 The JAX counterpart is deequ_tpu/data/source.py.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import hashlib
 import os
 import queue
 import struct
 import threading
 from collections import OrderedDict
-from typing import Callable, Iterator, List, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from deequ_tpu_torch.data.table import NUMPY_BACKING, Column, ColumnType, Table
 from deequ_tpu_torch.ops import runtime
+
+if TYPE_CHECKING:
+    from deequ_tpu_torch.data.native_reader import ChunkMeta
 
 _SENTINEL = object()
 
@@ -196,22 +203,39 @@ class DataSource:
 
 class ParquetSource(DataSource):
     """A Parquet file streamed in batches of at most `batch_rows` rows,
-    restricted to `columns` when given."""
+    restricted to `columns` when given.
+
+    `decode_fastpath` names the columns the planner sends through the C
+    library's Arrow-buffer decode (data/arrow_decode.py) and
+    `native_reader` those whose chunks the C reader reads from the file's
+    bytes (data/native_reader.py); both are normally attached by the
+    fused pass (ops/fused.py:apply_decode_plan). Every route gives the
+    same batches bit for bit. The footer is read once, here; every view
+    shares it."""
 
     def __init__(
-        self, path: str, columns: Optional[List[str]] = None, batch_rows: int = 1 << 22
+        self,
+        path: str,
+        columns: Optional[List[str]] = None,
+        batch_rows: int = 1 << 22,
+        decode_fastpath: Optional[Sequence[str]] = None,
+        native_reader: Optional[Sequence[str]] = None,
     ):
         import pyarrow.parquet as pq
 
         self.path = path
         self.columns = columns
         self.batch_rows = batch_rows
+        self.decode_fastpath = frozenset(decode_fastpath) if decode_fastpath else None
+        self.native_reader = frozenset(native_reader) if native_reader else None
+        self._reader_chunks: Optional[Dict[Tuple[int, str], "ChunkMeta"]] = None
         with pq.ParquetFile(path) as pf:
-            self._num_rows = pf.metadata.num_rows
-            arrow_schema = pf.schema_arrow
-        names = columns if columns is not None else arrow_schema.names
+            self._meta = pf.metadata
+            self._arrow_schema = pf.schema_arrow
+        self._num_rows = self._meta.num_rows
+        names = columns if columns is not None else self._arrow_schema.names
         self._schema_cache = [
-            (name, _arrow_ctype(arrow_schema.field(name).type)) for name in names
+            (name, _arrow_ctype(self._arrow_schema.field(name).type)) for name in names
         ]
 
     def _schema(self) -> List[Tuple[str, ColumnType]]:
@@ -221,6 +245,14 @@ class ParquetSource(DataSource):
     def num_rows(self) -> int:
         return self._num_rows
 
+    def _view(self, **changes) -> "ParquetSource":
+        view = copy.copy(self)
+        view.__dict__.update(changes)
+        if "columns" in changes:
+            keep = set(view.columns)
+            view._schema_cache = [(n, t) for n, t in self._schema_cache if n in keep]
+        return view
+
     def with_columns(self, names) -> "ParquetSource":
         """A view that decodes only `names` (the fused pass asks for the
         union of its inputs' columns)."""
@@ -228,59 +260,270 @@ class ParquetSource(DataSource):
         keep = [n for n, _ in self._schema_cache if n in wanted]
         if keep == [n for n, _ in self._schema_cache] or not keep:
             return self
-        return ParquetSource(self.path, columns=keep, batch_rows=self.batch_rows)
+        return self._view(columns=keep)
+
+    def with_decode_fastpath(self, names) -> "ParquetSource":
+        """A view whose `names` decode through the C Arrow-buffer kernels."""
+        names = frozenset(names)
+        if not names or names == (self.decode_fastpath or frozenset()):
+            return self
+        return self._view(decode_fastpath=names)
+
+    def with_native_reader(self, names, chunks=None) -> "ParquetSource":
+        """A view whose `names` the C reader reads from the file's bytes.
+        `chunks` are their recipes from `_reader_chunk_meta`, when the
+        planner has them already; else the view finds them at its scan."""
+        names = frozenset(names)
+        if not names or names == (self.native_reader or frozenset()):
+            return self
+        if chunks is not None:
+            chunks = {key: meta for key, meta in chunks.items() if key[1] in names}
+        return self._view(native_reader=names, _reader_chunks=chunks)
+
+    def decode_column_types(self) -> Dict[str, str]:
+        """Arrow type tokens per scanned column as the scan decodes them
+        (string columns arrive as dictionaries with int32 indices): the
+        vocabulary of the decode planner (ops/fused.py:
+        classify_decode_columns), keyed against native.DECODE_PRIMITIVES."""
+        import pyarrow as pa
+
+        out = {}
+        for name, _ in self._schema_cache:
+            t = self._arrow_schema.field(name).type
+            if pa.types.is_string(t) or pa.types.is_large_string(t):
+                out[name] = "dictionary<string,int32>"  # read_dictionary
+            elif (
+                pa.types.is_dictionary(t)
+                and (pa.types.is_string(t.value_type) or pa.types.is_large_string(t.value_type))
+                and t.index_type == pa.int32()
+            ):
+                out[name] = "dictionary<string,int32>"
+            else:
+                out[name] = str(t)
+        return out
+
+    def _reader_chunk_meta(self, names) -> Dict[Tuple[int, str], "ChunkMeta"]:
+        """The C reader's (row group, column) decode recipes for those of
+        `names` it can read, proved from the footer alone: a numeric or
+        boolean Arrow type it decodes (a DECIMAL-annotated float64 keeps
+        its type only through pyarrow), and in every chunk a physical type
+        that backs it, a codec this host can load, page encodings it
+        decodes (no dictionary-encoded booleans), no nesting and one value
+        per row. One chunk that fails leaves the whole column to pyarrow."""
+        from deequ_tpu_torch.data.native_reader import ChunkMeta
+        from deequ_tpu_torch.data.table import _arrow_logical_decimal
+        from deequ_tpu_torch.ops import native
+
+        codec_mask = native.reader_codecs()
+        meta, schema = self._meta, self._meta.schema
+        tokens = {}
+        for name in names:
+            try:
+                tok = str(self._arrow_schema.field(name).type)
+            except KeyError:
+                continue
+            if tok in native.READER_TOKENS and not _arrow_logical_decimal(self._arrow_schema, name):
+                tokens[name] = tok
+        recipes: Dict[str, List[Tuple[int, ChunkMeta]]] = {name: [] for name in tokens}
+        for g in range(meta.num_row_groups):
+            rg = meta.row_group(g)
+            for j in range(rg.num_columns):
+                chunk = rg.column(j)
+                name = chunk.path_in_schema
+                if recipes.get(name) is None:
+                    continue
+                tok = tokens[name]
+                allowed_phys, dtype = native.READER_TOKENS[tok]
+                try:
+                    se = schema.column(j)
+                    phys = str(chunk.physical_type)
+                    codec = str(chunk.compression)
+                    encodings = {str(e) for e in chunk.encodings}
+                    eligible = (
+                        phys in allowed_phys
+                        and codec in native.READER_CODEC_ENUM
+                        and bool(codec_mask & native.READER_CODEC_MASK[codec])
+                        and encodings <= native.READER_ENCODINGS
+                        and not (tok == "bool" and encodings & {"PLAIN_DICTIONARY", "RLE_DICTIONARY"})
+                        and se.max_repetition_level == 0
+                        and se.max_definition_level <= 1
+                        and int(chunk.num_values) == int(rg.num_rows)
+                    )
+                    if eligible:
+                        recipe = ChunkMeta(
+                            column=name,
+                            token=tok,
+                            dtype=dtype,
+                            phys=native.READER_PHYS_ENUM[phys],
+                            codec=native.READER_CODEC_ENUM[codec],
+                            offset=_chunk_offset(chunk),
+                            nbytes=int(chunk.total_compressed_size),
+                            num_values=int(chunk.num_values),
+                            max_def=int(se.max_definition_level),
+                        )
+                except (AttributeError, TypeError, ValueError):
+                    eligible = False  # a layout the footer cannot give
+                if eligible:
+                    recipes[name].append((g, recipe))
+                else:
+                    recipes[name] = None
+        return {
+            (g, name): recipe
+            for name, chunks in recipes.items()
+            if chunks
+            for g, recipe in chunks
+        }
+
+    def _decode_fastpath_set(self) -> Optional[frozenset]:
+        """The planner's fast-decode set, or None when
+        `DEEQU_TPU_DECODE_FASTPATH=0` sends every column to the host."""
+        if self.decode_fastpath and runtime.decode_fastpath_enabled():
+            return self.decode_fastpath
+        return None
+
+    def _native_reader_active(self) -> Optional[frozenset]:
+        """The planner's reader set when every gate allows it: the
+        `DEEQU_TPU_NATIVE_READER` switch, the decode fast path it
+        assembles through, and the C library itself."""
+        from deequ_tpu_torch.ops import native
+
+        if (
+            self.native_reader
+            and runtime.native_reader_enabled()
+            and runtime.decode_fastpath_enabled()
+            and native.available()
+        ):
+            return self.native_reader
+        return None
 
     def _string_columns(self) -> Optional[List[str]]:
         return [n for n, t in self._schema_cache if t == ColumnType.STRING] or None
 
+    def _plan_decode_units(self, size: int) -> List[Tuple[int, ...]]:
+        """The row groups of each decode unit, whose concatenation is cut
+        into batches of `size` rows. A group of at least size/4 rows is a
+        unit of its own; smaller groups (incremental writers make many
+        tiny ones) coalesce into a unit once they hold `size` rows, or
+        when a larger group or the file's end comes. Concatenating string
+        dictionaries costs more than the batch machinery it would save,
+        so large groups never coalesce."""
+        meta = self._meta
+        rows = [meta.row_group(g).num_rows for g in range(meta.num_row_groups)]
+        tiny = max(1, size // 4)
+        units: List[Tuple[int, ...]] = []
+        pending: List[int] = []
+        pending_rows = 0
+        for g, num in enumerate(rows):
+            if num < tiny:
+                pending.append(g)
+                pending_rows += num
+                if pending_rows < size:
+                    continue
+                units.append(tuple(pending))
+                pending, pending_rows = [], 0
+            else:
+                if pending:
+                    units.append(tuple(pending))
+                    pending, pending_rows = [], 0
+                units.append((g,))
+        if pending:
+            units.append(tuple(pending))
+        return units
+
     def _iter_tables(self, batch_size: int) -> Iterator[Table]:
-        """Row group by row group: `read_row_group` frees each group
+        """Decode unit by decode unit (`_plan_decode_units`): each unit's
+        row groups are read with `read_row_group`, which frees each group
         (pyarrow's batch iterators keep every decoded batch for the
-        reader's life), so memory is O(row group + batch). String columns
-        read as DictionaryArrays, whose codes are the analyzers'
-        dictionary encode. A group is sliced into batches of `size`;
-        groups under size/4 rows coalesce first (incremental writers make
-        many tiny groups), while larger groups pass through whole, since
-        concatenating string dictionaries costs more than the batch
-        machinery it saves."""
-        import pyarrow as pa
+        reader's life), so memory is O(unit + batch). String columns read
+        as DictionaryArrays, whose codes are the analyzers' dictionary
+        encode. The columns with a reader recipe skip pyarrow: their
+        chunks are pread and decoded by the C reader, the rest of the
+        unit read by pyarrow, and each batch assembled from both."""
         import pyarrow.parquet as pq
 
         size = min(batch_size, self.batch_rows)
-        tiny = max(1, size // 4)
-        pending: list = []
-        pending_rows = 0
+        fastpath = self._decode_fastpath_set()
+        native_cols = self._native_reader_active()
+        metas = {}
+        if native_cols:
+            metas = self._reader_chunks
+            if metas is None:
+                metas = self._reader_chunk_meta(native_cols)
+        with contextlib.ExitStack() as stack:
+            pf = stack.enter_context(
+                pq.ParquetFile(self.path, read_dictionary=self._string_columns())
+            )
+            fd = None
+            if metas:
+                fd = os.open(self.path, os.O_RDONLY)
+                stack.callback(os.close, fd)
+            for unit in self._plan_decode_units(size):
+                yield from self._decode_unit(pf, fd, unit, size, metas, fastpath)
 
-        def flush():
-            merged = pending[0] if len(pending) == 1 else pa.concat_tables(pending)
-            pending.clear()
-            return merged
+    def _read_native(self, fd: int, meta: "ChunkMeta"):
+        """One chunk through the C reader; None when its bytes come back
+        short or do not decode."""
+        from deequ_tpu_torch.data import native_reader
 
-        with pq.ParquetFile(self.path, read_dictionary=self._string_columns()) as pf:
-            for g in range(pf.metadata.num_row_groups):
-                group = pf.read_row_group(g, columns=self.columns)
-                if group.num_rows < tiny:
-                    pending.append(group)
-                    pending_rows += group.num_rows
-                    if pending_rows < size:
-                        continue
-                    group = flush()
-                    pending_rows = 0
-                elif pending:
-                    head = flush()
-                    pending_rows = 0
-                    for start in range(0, head.num_rows, size):
-                        yield Table.from_arrow(head.slice(start, size))
-                for start in range(0, group.num_rows, size):
-                    yield Table.from_arrow(group.slice(start, size))
-                del group
-            if pending:
-                tail = flush()
-                for start in range(0, tail.num_rows, size):
-                    yield Table.from_arrow(tail.slice(start, size))
+        raw = native_reader.fetch_chunk(fd, meta)
+        return None if raw is None else native_reader.decode_chunk(raw, meta)
+
+    def _decode_unit(self, pf, fd, unit, size, metas, fastpath) -> Iterator[Table]:
+        import pyarrow as pa
+
+        from deequ_tpu_torch.data import native_reader
+
+        scanned = [n for n, _ in self._schema_cache]
+        segments: Dict[str, list] = {}
+        failed = set()
+        for g in unit:
+            for name in scanned:
+                meta = metas.get((g, name))
+                if meta is None:
+                    continue
+                decoded = self._read_native(fd, meta)
+                if decoded is None:
+                    failed.add(name)
+                else:
+                    segments.setdefault(name, []).append(decoded)
+        # a column is the reader's in this unit only when every group's
+        # chunk decoded; the rest of the unit reads through pyarrow
+        covered = {n for n, segs in segments.items() if n not in failed and len(segs) == len(unit)}
+        merged = None
+        if len(covered) < len(scanned):
+            columns = self.columns if not covered else [n for n in scanned if n not in covered]
+            parts = [pf.read_row_group(g, columns=columns) for g in unit]
+            merged = parts[0] if len(parts) == 1 else pa.concat_tables(parts)
+            del parts
+            total = merged.num_rows
+        else:
+            total = sum(seg.num_values for seg in segments[scanned[0]])
+        tokens = {name: metas[(unit[0], name)].token for name in covered}
+        for start in range(0, total, size):
+            rest = Table.from_arrow(merged.slice(start, size), fastpath) if merged is not None else None
+            if not covered:
+                yield rest
+                continue
+            stop = min(start + size, total)
+            shared: Dict[str, np.ndarray] = {}
+            yield Table([
+                native_reader.assemble_column(name, tokens[name], segments[name], start, stop, shared)
+                if name in covered
+                else rest.column(name)
+                for name in scanned
+            ])
 
     def __repr__(self) -> str:
         return f"ParquetSource({self.path!r}, rows={self._num_rows})"
+
+
+def _chunk_offset(chunk) -> int:
+    """A column chunk's first page byte: its dictionary page's when it
+    has one."""
+    offset = int(chunk.data_page_offset)
+    if chunk.has_dictionary_page and chunk.dictionary_page_offset is not None:
+        offset = min(offset, int(chunk.dictionary_page_offset))
+    return offset
 
 
 class MappedSource(DataSource):

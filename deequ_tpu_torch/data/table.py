@@ -425,9 +425,9 @@ def pool_empty(n: int, dtype) -> np.ndarray:
 
 
 def _arrow_logical_decimal(arrow_table, name: str) -> bool:
-    """True when a float64 field carries the DECIMAL logical-type
-    annotation that `Table.to_arrow` writes."""
-    field_ = arrow_table.schema.field(name)
+    """True when a float64 field of an Arrow table (or schema) carries the
+    DECIMAL logical-type annotation that `Table.to_arrow` writes."""
+    field_ = getattr(arrow_table, "schema", arrow_table).field(name)
     md = field_.metadata or {}
     return md.get(b"deequ_tpu.logical_type") == ColumnType.DECIMAL.value.encode()
 
@@ -634,16 +634,32 @@ class Table:
         return Table(cols)
 
     @staticmethod
-    def from_arrow(arrow_table) -> "Table":
-        """An Arrow table as engine Columns, decoded on the host. String
-        dictionary columns keep their codes; per-row strings stay lazy."""
+    def from_arrow(arrow_table, fastpath_columns=None) -> "Table":
+        """An Arrow table as engine Columns. String dictionary columns keep
+        their codes; per-row strings stay lazy.
+
+        `fastpath_columns` (a set of names, normally the planner's
+        `plan_decode_fastpath` verdict carried by
+        `ParquetSource.with_decode_fastpath`) sends those columns through
+        the C library's buffer-level decode (data/arrow_decode.py): one
+        pass from the Arrow buffers to the Column backing. A column that
+        route cannot take decodes on the host; the two give the same
+        Columns bit for bit."""
         import pyarrow as pa
 
         cols = []
         shared: Dict[str, np.ndarray] = {}  # one mask for null-free columns
+        fast = None
+        if fastpath_columns:
+            from deequ_tpu_torch.data.arrow_decode import decode_fast_column as fast
         for name in arrow_table.column_names:
             chunked = arrow_table.column(name)
             chunks = list(chunked.chunks) if isinstance(chunked, pa.ChunkedArray) else [chunked]
+            if fast is not None and name in fastpath_columns:
+                col = fast(name, chunks, arrow_table, shared)
+                if col is not None:
+                    cols.append(col)
+                    continue
             # one chunk (every row group and slice) skips the combine copy
             if len(chunks) == 1:
                 arr = chunks[0]

@@ -22,7 +22,11 @@ codes, which never ship: they fold each batch on the host
 input fails only the members that read it.
 
 A streamed source (data/source.py) runs the same per-batch steps over
-its decoded batches, with only the columns its inputs read. With the
+its decoded batches, with only the columns its inputs read; a Parquet
+source's numeric and boolean columns (and its dictionary strings that
+are read packed only) decode through the C library's kernels, and those
+whose every chunk the footer proves readable skip pyarrow for the C
+reader (`plan_decode_fastpath`), with the same bits as pyarrow's route. With the
 pipeline on, each batch's prep (device input builds, wire packing and
 the host-to-device copy, issued on a CUDA copy stream of its own) runs on
 a stage thread ahead of the consumer (ops/pipeline.py), which launches
@@ -125,6 +129,94 @@ def prune_table_columns(table, specs: Dict[str, Any]):
             return table
         needed = {names[0]}
     return with_columns(sorted(needed))
+
+
+#: spec-key prefixes whose builds read only the packed form of a
+#: dictionary-string column (codes, mask, the dictionary's digest), never
+#: its per-row strings: such columns may take the C dictionary decode. A
+#: column with a consumer of another prefix stays on the host chain
+#: (conservative, never wrong). Numeric and boolean columns need no such
+#: proof: both routes materialize them whole.
+PACKED_SAFE_PREFIXES = frozenset(
+    {
+        "num", "valid", "where", "pred", "prednn", "match", "dtclass",
+        "hll", "lcc_codes", "lcc_uniq", "optnum", "optnumv",
+    }
+)
+
+
+@dataclass(frozen=True)
+class DecodePlan:
+    """The decode routing of one Parquet-backed scan: the columns that
+    take the C Arrow-buffer decode (`fast`; the rest take the host
+    chain), and of those the chunks the C reader reads (`reader_chunks`:
+    (row group, column) -> ChunkMeta, from the source's
+    `_reader_chunk_meta`). Only decode time depends on it: every route
+    gives the same Columns."""
+
+    fast: Tuple[str, ...]
+    reader_chunks: Dict[Tuple[int, str], Any] = field(default_factory=dict)
+
+    @property
+    def reader_cols(self) -> Tuple[str, ...]:
+        return tuple(sorted({name for _, name in self.reader_chunks}))
+
+
+def classify_decode_columns(col_types: Dict[str, str], specs: Dict[str, Any]) -> List[str]:
+    """The scan's columns that take the C decode; the rest take the host
+    chain. `col_types` is the source's `decode_column_types()`; `specs`
+    the live input specs, whose key prefixes prove which
+    dictionary-string columns are read packed only (plain strings,
+    timestamps and decimals always take the host chain)."""
+    from deequ_tpu_torch.ops import native
+
+    consumers: Dict[str, set] = {}
+    for spec in specs.values():
+        prefix = spec.key.split(":", 1)[0]
+        for col in spec.columns or ():
+            consumers.setdefault(col, set()).add(prefix)
+    fast: List[str] = []
+    for name in sorted(col_types):
+        token = col_types[name]
+        if token in native.DECODE_PRIMITIVES or token == "bool":
+            fast.append(name)
+        elif token == "dictionary<string,int32>" and consumers.get(name, set()) <= PACKED_SAFE_PREFIXES:
+            fast.append(name)
+    return fast
+
+
+def plan_decode_fastpath(table, specs: Dict[str, Any]) -> Optional[DecodePlan]:
+    """The DecodePlan of a Parquet-backed scan, after column pruning, or
+    None when `DEEQU_TPU_DECODE_FASTPATH=0`, the source cannot be
+    planned (an in-memory table) or the C library is off. With
+    `DEEQU_TPU_NATIVE_READER` on, the plan also holds the reader's
+    chunks."""
+    if not runtime.decode_fastpath_enabled():
+        return None
+    types_fn = getattr(table, "decode_column_types", None)
+    if types_fn is None or getattr(table, "with_decode_fastpath", None) is None:
+        return None
+    from deequ_tpu_torch.ops import native
+
+    if not native.available():
+        return None
+    col_types = types_fn()
+    if not col_types:
+        return None
+    fast = classify_decode_columns(col_types, specs)
+    reader_chunks = {}
+    if runtime.native_reader_enabled():
+        reader_chunks = table._reader_chunk_meta(fast)
+    return DecodePlan(fast=tuple(fast), reader_chunks=reader_chunks)
+
+
+def apply_decode_plan(table, plan: DecodePlan):
+    """The source with the plan's fast set and reader chunks attached."""
+    if plan.fast:
+        table = table.with_decode_fastpath(plan.fast)
+    if plan.reader_chunks:
+        table = table.with_native_reader(plan.reader_cols, plan.reader_chunks)
+    return table
 
 
 # ---------------------------------------------------------------------------
@@ -586,6 +678,11 @@ class FusedScanPass:
         if not (members or assisted or host_assisted):
             return [results[i] for i in range(len(self.analyzers))]
         table = prune_table_columns(table, plan.specs)
+        # decode routing comes last: it classifies the columns that
+        # survived pruning, and attaches to the final view
+        decode_plan = plan_decode_fastpath(table, plan.specs)
+        if decode_plan is not None:
+            table = apply_decode_plan(table, decode_plan)
         folded, host_results, device_error = self._run_pass(
             table, members, assisted, host_assisted, plan
         )

@@ -190,3 +190,25 @@ def state_cache_enabled() -> bool:
     ``off``) scans every partition, as with no repository; partitions
     merge in partition order either way, so both give the same bits."""
     return os.environ.get("DEEQU_TPU_STATE_CACHE", "") not in ("0", "off")
+
+
+# -- decode knobs (data/source.py, data/arrow_decode.py, data/native_reader.py) --
+
+
+def decode_fastpath_enabled() -> bool:
+    """Whether a Parquet scan may decode the planner's columns through
+    the C library's Arrow-buffer kernels (data/arrow_decode.py) instead
+    of the host chain. ``DEEQU_TPU_DECODE_FASTPATH=0`` (or ``off``) sends
+    every column through the host chain, and turns the C reader off with
+    it; both routes give the same Columns bit for bit."""
+    return os.environ.get("DEEQU_TPU_DECODE_FASTPATH", "") not in ("0", "off")
+
+
+def native_reader_enabled() -> bool:
+    """Whether the planner's column chunks may be read by the C Parquet
+    reader (data/native_reader.py): page headers parsed, pages
+    decompressed and decoded into the Arrow buffer layout the decode
+    kernels read, pyarrow never touching those chunks.
+    ``DEEQU_TPU_NATIVE_READER=0`` (or ``off``) reads every chunk through
+    pyarrow; both give the same batches bit for bit."""
+    return os.environ.get("DEEQU_TPU_NATIVE_READER", "") not in ("0", "off")

@@ -1,7 +1,8 @@
 """HyperLogLog++ distinct-count sketch: host hashing and estimation.
 
-The host hashes each value once (numpy xxhash64 for 8-byte values, a
-vectorized xxhash-style mix over unique strings, ops/strings.py) and packs
+The host hashes each value once (xxhash64 of 8-byte values in the C
+library, ops/native, or numpy with the library off; a vectorized
+xxhash-style mix over unique strings, ops/strings.py) and packs
 ``register idx << 6 | rank`` into one int32 per row; the device folds the
 packed codes into 512 registers (`ops/cuda_kernels.hll_register_max`);
 merging two sketches is a register-wise max.
@@ -87,7 +88,12 @@ def canonical_int64(values: np.ndarray) -> np.ndarray:
 
 
 def pack_codes(values: np.ndarray, valid: np.ndarray) -> np.ndarray:
-    """(register idx << 6 | rank) int32 per row; 0 for invalid rows."""
+    """(register idx << 6 | rank) int32 per row; 0 for invalid rows.
+
+    The C library's one-pass kernel (ops/native `xxhash64_pack`) hashes,
+    counts leading zeros and packs at memory speed; with the library off
+    the numpy route computes the same codes in about 15 passes. Strings
+    hash through their unique values instead."""
     if values.dtype == object or values.dtype.kind == "U":
         from deequ_tpu_torch.ops.strings import hash_strings
 
@@ -96,7 +102,12 @@ def pack_codes(values: np.ndarray, valid: np.ndarray) -> np.ndarray:
         packed = np.zeros(len(values), dtype=np.int32)
         packed[valid] = ((idx << 6) | rank)[inv]
         return packed
+    from deequ_tpu_torch.ops import native
+
     canon = canonical_int64(values)
+    packed = native.xxhash64_pack(canon, valid)
+    if packed is not None:
+        return packed
     idx, rank = registers_from_hashes(xxhash64_u64(canon[valid]))
     packed = np.zeros(len(values), dtype=np.int32)
     packed[valid] = (idx << 6) | rank

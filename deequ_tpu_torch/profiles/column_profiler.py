@@ -419,10 +419,14 @@ def _compute_histograms(
     null_counts: Dict[str, int] = {name: 0 for name in target_columns}
 
     def accumulate(batch: Table) -> None:
+        from deequ_tpu_torch.ops import native
+
         for name in target_columns:
             col = batch.column(name)
             codes, uniques = col.dict_encode()
-            counts = np.bincount(codes + 1, minlength=len(uniques) + 1)
+            counts = native.bincount(codes, len(uniques) + 1, base=1)
+            if counts is None:
+                counts = np.bincount(codes + 1, minlength=len(uniques) + 1)
             null_counts[name] += int(counts[0])
             bucket = totals[name]
             for i, unique in enumerate(uniques):

@@ -39,7 +39,7 @@ from deequ_tpu_torch.analyzers.states import State
 from deequ_tpu_torch.core.maybe import Success
 from deequ_tpu_torch.core.metrics import Entity, Metric
 from deequ_tpu_torch.data.table import ColumnType, Table, parsed_dictionary
-from deequ_tpu_torch.ops import counts_family
+from deequ_tpu_torch.ops import counts_family, native
 from deequ_tpu_torch.ops.sketches.kll import KLLSketch, k_for_error
 from deequ_tpu_torch.ops.strings import parse_floats
 
@@ -149,7 +149,9 @@ class _LowCardCounts(ScanShareableAnalyzer):
         aborted = len(uniques) > self.cap
         if aborted and len(uniques) > (1 << 16):
             return {"aborted": True}  # too many entries even for the memo
-        counts = np.bincount(codes + 1, minlength=len(uniques) + 1).astype(np.int64)
+        counts = native.bincount(codes, len(uniques) + 1, base=1)
+        if counts is None:
+            counts = np.bincount(codes + 1, minlength=len(uniques) + 1).astype(np.int64)
         # the per-entry counts serve _OptimisticNumericStats on this batch:
         # it derives the numeric family from them in O(#uniques)
         inputs[f"__lcccounts:{self.column}"] = (counts, uniques, len(codes))
@@ -321,9 +323,19 @@ class _OptimisticNumericStats(ScanShareableAnalyzer):
             if out is not None:
                 return out
         values = inputs[f"optnum:{self.column}"]
+        cast_valid = inputs[f"optnumv:{self.column}"]
         if np.asarray(values).ndim == 0:
             return {"dead": True}
-        mask = np.asarray(inputs[f"optnumv:{self.column}"], dtype=bool)
+        res = native.masked_moments_select(values, cast_valid, None, self._cap())
+        if res is not None:
+            mom, sample, n_valid, level = res
+            return {
+                "dead": False, "count": float(mom[0]), "sum": float(mom[1]),
+                "min": float(mom[2]), "max": float(mom[3]), "m2": float(mom[4]),
+                "sample": sample, "n": n_valid, "level": level,
+            }
+        # the library off: the same math and the same decimation law
+        mask = np.asarray(cast_valid, dtype=bool)
         xm = np.asarray(values, dtype=np.float64)[mask]
         n = xm.size
         if n == 0:

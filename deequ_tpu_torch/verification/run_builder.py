@@ -1,14 +1,16 @@
 """Fluent builder for verification runs.
 
-reference: VerificationRunBuilder.scala:28-308.
+reference: VerificationRunBuilder.scala:28-308 (incl. the repository
+variant's options and addAnomalyCheck).
 """
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, List, Optional, Sequence
+from dataclasses import dataclass
+from typing import TYPE_CHECKING, Dict, List, Optional, Sequence
 
 from deequ_tpu_torch.analyzers.base import Analyzer
-from deequ_tpu_torch.checks.check import Check
+from deequ_tpu_torch.checks.check import Check, CheckLevel
 from deequ_tpu_torch.ops import runtime
 from deequ_tpu_torch.verification.result import VerificationResult
 from deequ_tpu_torch.verification.suite import VerificationSuite
@@ -17,6 +19,17 @@ if TYPE_CHECKING:
     from deequ_tpu_torch.analyzers.state_provider import StateLoader, StatePersister
     from deequ_tpu_torch.data.table import Table
     from deequ_tpu_torch.repository.base import MetricsRepository, ResultKey
+
+
+@dataclass
+class AnomalyCheckConfig:
+    """reference: VerificationRunBuilder.scala:303."""
+
+    level: CheckLevel
+    description: str
+    with_tag_values: Optional[Dict[str, str]] = None
+    after_date: Optional[int] = None
+    before_date: Optional[int] = None
 
 
 class VerificationRunBuilder:
@@ -101,6 +114,35 @@ class VerificationRunBuilder:
 
     def save_or_append_result(self, key: "ResultKey") -> "VerificationRunBuilder":
         self._save_key = key
+        return self
+
+    def add_anomaly_check(
+        self,
+        anomaly_detection_strategy,
+        analyzer: Analyzer,
+        anomaly_check_config: Optional[AnomalyCheckConfig] = None,
+    ) -> "VerificationRunBuilder":
+        """reference: VerificationRunBuilder.scala:194-210. The check reads
+        the metric's history from the repository of `use_repository`,
+        which the run saves to only after evaluating its checks, so the
+        history holds earlier runs alone."""
+        if self._metrics_repository is None:
+            raise ValueError(
+                "addAnomalyCheck requires a repository — call use_repository first"
+            )
+        config = anomaly_check_config or AnomalyCheckConfig(
+            CheckLevel.WARNING,
+            f"Anomaly check for {analyzer!r}",
+        )
+        check = Check(config.level, config.description).is_newest_point_non_anomalous(
+            self._metrics_repository,
+            anomaly_detection_strategy,
+            analyzer,
+            config.with_tag_values,
+            config.after_date,
+            config.before_date,
+        )
+        self._checks.append(check)
         return self
 
     def save_check_results_json_to_path(self, path: str) -> "VerificationRunBuilder":

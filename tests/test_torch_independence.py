@@ -76,6 +76,14 @@ SLICE_MODULES = [
     "deequ_tpu_torch.lint.schema",
     "deequ_tpu_torch.applicability.applicability",
     "deequ_tpu_torch.schema.row_level_schema_validator",
+    "deequ_tpu_torch.anomaly",
+    "deequ_tpu_torch.anomaly.base",
+    "deequ_tpu_torch.anomaly.strategies",
+    "deequ_tpu_torch.anomaly.detector",
+    "deequ_tpu_torch.anomaly.holt_winters",
+    "deequ_tpu_torch.ops.native",
+    "deequ_tpu_torch.data.arrow_decode",
+    "deequ_tpu_torch.data.native_reader",
 ]
 
 
@@ -88,7 +96,8 @@ def test_slice_modules_are_checked(name):
     """Each is among the modules the subprocess import check loads, and
     its source among those the import scan reads."""
     assert name in _port_modules()
-    path = os.path.join(REPO, *name.split(".")) + ".py"
+    path = os.path.join(REPO, *name.split("."))
+    path = os.path.join(path, "__init__.py") if os.path.isdir(path) else path + ".py"
     assert path in list(_port_sources())
 
 
@@ -168,3 +177,16 @@ def test_chip_smoke_imports_are_walked():
 def test_no_source_imports_jax_or_the_jax_package(path):
     imported = _imported_modules(path)
     assert not [m for m in imported if _forbidden(m)], imported
+
+
+def test_the_c_library_builds_from_the_ports_sources_alone():
+    """The loader compiles the C files beside it, into the port's build
+    directory, and none of its paths reaches the JAX package."""
+    from deequ_tpu_torch.ops import native
+
+    native_dir = os.path.join(PORT, "ops", "native")
+    assert native.SOURCES and all(os.path.dirname(p) == native_dir for p in native.SOURCES)
+    assert sorted(os.path.basename(p) for p in native.SOURCES) == sorted(
+        n for n in os.listdir(native_dir) if n.endswith(".c")
+    )
+    assert os.path.dirname(native.library_path()) == os.path.join(PORT, "build")
