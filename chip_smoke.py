@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""GPU smoke run of deequ_tpu_torch's main paths: verification, column
-profiling, constraint suggestion, streamed Parquet, incremental runs and
-anomaly detection.
+"""GPU smoke run of deequ_tpu_torch's main paths: verification under each
+placement, column profiling, constraint suggestion, streamed Parquet
+with its host fast paths, incremental runs and anomaly detection.
 
 Run from the repository root on a machine with one CUDA GPU:
 
@@ -51,6 +51,17 @@ Phases, one JSON line each:
               pass and, inside it, the host's predicate evaluation, wire
               packing and quantile selection (host_finish_batch), and the
               grouping pass;
+     placement  the bandwidth probe on the card with an empty disk
+              cache (it must place as "device"; a second call is served
+              from the cache with no copy), then phase 4's check less its
+              containment and group-bys (`placement_check`) on the same
+              table under "device", "host-discrete" and "host-all", each
+              twice: the metrics and verdicts agree (float sums within
+              1e-12, quantiles within their rank error where the host
+              folds the table as one batch), K1-K4 launch as on the main
+              path under "device", K3 not under "host-discrete", nothing
+              under "host-all"; wall times split into the host fold and
+              the device program;
   5. basic_example  the README's example (examples/basic_example.py's
               checks) on the card, with BASELINE.md's outcome;
   6. profile  ColumnProfilerRunner over the TPC-H lineitem table of
@@ -76,7 +87,14 @@ Phases, one JSON line each:
               copy with DEEQU_TPU_PIPELINE=0, whose every numeric column
               the C reader must take: all four bit for bit alike and
               equal to phase 6's in-memory profile, with its launches;
-              the columns the C reader took are printed; the warm run's
+              the columns the C reader took are printed. Over the
+              UNCOMPRESSED copy (`stream_fusion_runs`): decode-to-wire of
+              four numeric columns read by merge members only
+              (DEEQU_TPU_WIRE_FUSED on and off, the same bits and
+              launches), and the encoded fold of four low-cardinality
+              columns under "host-all" (DEEQU_TPU_ENCODED_FOLD on and off,
+              the same bits, no launch), equal to the device-placed run;
+              the warm run's
               wall time split into the consumer's wait for batches, the
               fused pass's host work, host_finish_batch and the device
               fold, and the decode and prep threads' times into the C
@@ -125,8 +143,9 @@ Phases, one JSON line each:
               launches (torch.profiler over one more fit).
 Then the kernels' summary line (launches on the main path, on the
 profile as `launches_profile`, on the streamed profile and verification
-as `launches_stream`, and on the incremental append run as
-`launches_incremental`) and, last, the device line. Any failed
+as `launches_stream`, on the incremental append run as
+`launches_incremental`, and per placement of phase `placement` as
+`launches_placement`) and, last, the device line. Any failed
 check raises: the script exits non-zero and prints no result. Without
 CUDA it exits non-zero at once.
 """
@@ -141,6 +160,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 BATCH = 1 << 22  # the fused pass's batch: 4,194,304 rows
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
@@ -947,6 +967,194 @@ def main_path_phase(torch, ck, rows: int, seed: int, card: str, power_limit: str
     return runs[0][2], ((rows, seed), runs[0])
 
 
+PLACEMENT_RTOL = 1e-12  # float sums folded on the host and on the card (the CPU tests' bound)
+PLACEMENT_INEXACT = ("Mean", "Sum", "StandardDeviation", "Correlation")
+
+
+def placement_check(rows: int):
+    """Phase 4's check without its containment (a string IN list that is
+    the same work under every placement) and its grouping analyzers: the
+    flagship analyzers, one quantile, a Compliance and a pattern."""
+    from deequ_tpu_torch import Check, CheckLevel
+
+    return (
+        Check(CheckLevel.ERROR, "placement")
+        .has_size(lambda n: n == rows)
+        .is_complete("x")  # fails: every 11th x is null
+        .has_completeness("x", lambda c: c > 0.9)
+        .has_mean("x", lambda v: 2.9 < v < 3.1)
+        .has_min("x", lambda v: v < 0)
+        .has_max("x", lambda v: v > 6)
+        .has_sum("x", lambda v: v > 0)
+        .has_standard_deviation("x", lambda v: 1.9 < v < 2.1)
+        .has_correlation("x", "y", lambda r: r > 0.5)
+        .has_approx_count_distinct("id", lambda v: v > 0.5 * rows)
+        .has_approx_quantile("x", 0.5, lambda m: 2.9 < m < 3.1)
+        .satisfies("x > 0 OR x IS NULL", "x positive or null", lambda r: r > 0.9)
+        .has_pattern("cat", "^(ok|warn)$", lambda r: 0.35 < r < 0.45)
+    )
+
+
+def placement_launches(rows: int, mode: str):
+    """Each kernel's launches in one placement-phase run: as on the main
+    path under "device"; under "host-discrete" ApproxCountDistinct folds
+    on the host, so hll_register_max never launches; under "host-all"
+    nothing does."""
+    launches = flagship_launches(rows)
+    if mode == "host-all":
+        return {name: 0 for name in launches}
+    if mode == "host-discrete":
+        launches["hll_register_max"] = 0
+    return launches
+
+
+def assert_placements_agree(got, want, label: str, exact_quantiles: bool, data=None) -> None:
+    """`got` against `want` as the CPU tests hold them: float sums within
+    PLACEMENT_RTOL, quantiles bit for bit when both runs cut the same
+    batches (else within the sketch's 1% rank error of the column), every
+    other value bit for bit."""
+    import numpy as np
+
+    if list(got) != list(want):
+        raise AssertionError(f"{label}: metrics {list(got)} vs {list(want)}")
+    for key, value in want.items():
+        if key.startswith(PLACEMENT_INEXACT):
+            ok = close(got[key], value, PLACEMENT_RTOL)
+        elif key.startswith("ApproxQuantile") and not exact_quantiles:
+            column, qs = QUANTILES[key]
+            col = np.sort(data[column][~np.isnan(data[column])])
+            values = [got[key]] if not isinstance(got[key], dict) else [got[key][repr(q)] for q in qs]
+            ok = all(abs(float(np.searchsorted(col, v)) - q * len(col)) <= 0.01 * len(col)
+                     for q, v in zip(qs, values))
+        else:
+            ok = same_bits(got[key], value)
+        if not ok:
+            raise AssertionError(f"{label} {key}: {got[key]!r} vs {value!r}")
+
+
+def probe_check(device):
+    """The bandwidth probe on `device` with an empty disk cache: it must
+    place as "device"; a second call, as a new process would make it,
+    must be served from the disk cache with no copy. Returns the link's
+    bandwidth and both calls' times."""
+    import tempfile
+
+    from deequ_tpu_torch.ops import runtime
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cache_") as cache, \
+            env(DEEQU_TPU_CACHE_DIR=cache, DEEQU_TPU_PLACEMENT="auto"):
+        runtime._PLACEMENT_CACHE.clear()
+        probes = []
+        with timed_calls(runtime, "measure_device_bandwidth", {}, probes):
+            t0 = time.perf_counter()
+            cold_mode = runtime.placement_mode(device)
+            cold_s = time.perf_counter() - t0
+            bandwidth = runtime._load_bandwidth_from_disk(runtime._platform_key(device))
+            runtime._PLACEMENT_CACHE.clear()  # as a new process starts
+            t0 = time.perf_counter()
+            cached_mode = runtime.placement_mode(device)
+            cached_s = time.perf_counter() - t0
+    runtime._PLACEMENT_CACHE.clear()
+    if cold_mode != "device" or cached_mode != "device":
+        raise AssertionError(f"probe: placement {cold_mode!r}, cached {cached_mode!r} "
+                             f"at {bandwidth} B/s; the H100 must place as 'device'")
+    if len(probes) != 1 or bandwidth is None:
+        raise AssertionError(f"probe: {len(probes)} measurements, cached bandwidth {bandwidth}")
+    return {
+        "bandwidth_gb_per_s": bandwidth / 1e9,
+        "placement": cold_mode,
+        "cold_s": cold_s,
+        "measure_s": probes[0],
+        "cached_s": cached_s,
+    }
+
+
+def placement_phase(torch, ck, rows: int, seed: int, card: str, power_limit: str):
+    """The bandwidth probe on the card, cold and then served from its disk
+    cache with no copy (it must choose "device"); then placement_check()
+    over the main path's --rows table under "device", "host-discrete" and
+    "host-all", each twice in mirrored order (device, host-discrete,
+    host-all, host-all, host-discrete, device): equal metrics
+    (`assert_placements_agree`) and verdicts, each placement's two runs
+    bit for bit alike, K1-K4 launched as `placement_launches` predicts,
+    each run's wall time split into the fused pass, its host fold and its
+    device program. Returns each kernel's launches per placement."""
+    from deequ_tpu_torch import VerificationSuite
+    from deequ_tpu_torch.analyzers import ApproxQuantiles
+    from deequ_tpu_torch.data.expr import Predicate
+    from deequ_tpu_torch.ops import fused, runtime
+
+    probe = probe_check(runtime.resolve_device("cuda"))
+    data, table = flagship_table(rows, seed)
+    check = placement_check(rows)
+    quantiles_y = ApproxQuantiles("y", [0.1, 0.5, 0.9])
+    runs, launches = {}, {}
+    # each placement twice, in mirrored order, so none runs only first
+    for mode in ("device", "host-discrete", "host-all", "host-all", "host-discrete", "device"):
+        split = {}
+        with env(DEEQU_TPU_PLACEMENT=mode), runtime.monitored() as stats, \
+                contextlib.ExitStack() as stack:
+            stack.enter_context(timed_calls(fused.FusedScanPass, "run", split))
+            stack.enter_context(timed_calls(fused, "fold_host_batch", split))
+            stack.enter_context(timed_calls(fused.FusedProgram, "__call__", split))
+            stack.enter_context(timed_calls(fused.PipelinedAggFold, "_fold", split))
+            stack.enter_context(timed_calls(Predicate, "eval_mask", split))
+            stack.enter_context(timed_calls(Predicate, "eval", split))
+            ck.reset_launch_counts()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            result = (VerificationSuite.on_data(table, device="cuda").add_check(check)
+                      .add_required_analyzer(quantiles_y).run())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+        counts = ck.launch_counts()
+        if counts != placement_launches(rows, mode):
+            raise AssertionError(f"placement {mode}: launches {counts}, "
+                                 f"expected {placement_launches(rows, mode)}")
+        if stats.placements != [mode] or (mode == "host-all") != (stats.device_launches == 0):
+            raise AssertionError(f"placement {mode}: passes placed {stats.placements}, "
+                                 f"{stats.device_launches} device programs")
+        launches[mode] = counts
+        run = runs.setdefault(mode, {
+            "metrics": metric_values(result),
+            "verdicts": verdicts(result),
+            "wall_s": [],
+            "split_s": [],
+            "members_device_host": [stats.device_members, stats.host_members],
+            "family_kernels": stats.family_kernels,
+            "family_shortcuts": stats.family_shortcuts,
+        })
+        if not all(same_bits(v, run["metrics"][k]) for k, v in metric_values(result).items()):
+            raise AssertionError(f"placement {mode}: its two runs differ")
+        run["wall_s"].append(wall)
+        run["split_s"].append({
+            "fused_pass": split.get("run", 0.0),
+            "host_fold": split.get("fold_host_batch", 0.0),
+            "device_program": split.get("__call__", 0.0) + split.get("_fold", 0.0),
+            "predicates": split.get("eval_mask", 0.0) + split.get("eval", 0.0),
+        })
+    base = runs["device"]
+    for mode in ("host-discrete", "host-all"):
+        # host-all folds the in-memory table as one batch (no device copy
+        # to bound), so its sketches cut other batches than the device's
+        assert_placements_agree(runs[mode]["metrics"], base["metrics"], f"placement {mode}",
+                                exact_quantiles=mode != "host-all", data=data)
+        if runs[mode]["verdicts"] != base["verdicts"]:
+            raise AssertionError(f"placement {mode}: verdicts {runs[mode]['verdicts']} "
+                                 f"vs {base['verdicts']}")
+    emit({
+        "phase": "placement",
+        "rows": rows,
+        "card": card,
+        "power_limit": power_limit,
+        "probe": probe,
+        "runs": {mode: {k: v for k, v in run.items() if k not in ("metrics", "verdicts")}
+                 for mode, run in runs.items()},
+        "launches": launches,
+    })
+    return launches
+
+
 def basic_example_phase(torch, ck):
     """The README's example on the card, with BASELINE.md's outcome: the
     ERROR check fails on Completeness(name) = 0.8, the WARNING check on
@@ -1535,6 +1743,7 @@ def stream_phase(torch, ck, lineitem, memory_profiles, memory_launches, stream_r
         del arrow
         with env(DEEQU_TPU_PIPELINE="0"):
             runs.append(profile(serial_split, path=plain_path, read=plain_read))
+        fusion_line = stream_fusion_runs(torch, ck, plain_path, lineitem.num_rows)
         os.unlink(plain_path)
         numeric = {name for name, ctype in lineitem.schema if ctype.name in ("LONG", "DOUBLE")}
         if plain_read != numeric:
@@ -1642,6 +1851,7 @@ def stream_phase(torch, ck, lineitem, memory_profiles, memory_launches, stream_r
         "power_limit": power_limit,
         "pipeline_depth": fused.pipeline.DEPTH,
         "profile": profile_line,
+        "fusion": fusion_line,
         "verify": {
             "rows": stream_rows,
             "row_group_size": 1 << 18,
@@ -1657,6 +1867,135 @@ def stream_phase(torch, ck, lineitem, memory_profiles, memory_launches, stream_r
         },
     })
     return {name: profile_launches[name] + streamed_counts[name] for name in profile_launches}
+
+
+WIRE_COLUMNS = ("l_quantity", "l_extendedprice", "l_discount", "l_tax")
+ENCFOLD_COLUMNS = ("l_linenumber", "l_quantity", "l_discount", "l_tax")
+
+
+def stream_fusion_runs(torch, ck, path: str, rows: int):
+    """Two streamed runs over the UNCOMPRESSED lineitem copy, each with its
+    switch on and off. (a) Decode-to-wire: a verification whose numeric
+    columns only merge members read (Completeness, Mean, Sum, Minimum,
+    Maximum, StandardDeviation and two Correlations on WIRE_COLUMNS): the
+    planner fuses all four, and the runs with DEEQU_TPU_WIRE_FUSED on and
+    off are bit for bit alike with equal launches. (b) The encoded fold
+    under "host-all": an AnalysisRunner with Completeness, Mean, Sum,
+    Minimum, Maximum, StandardDeviation, ApproxCountDistinct and
+    ApproxQuantile on ENCFOLD_COLUMNS, DEEQU_TPU_ENCODED_FOLD on and off
+    bit for bit alike (no launch), and equal to the device-placed run as
+    the CPU tests hold them (sums within PLACEMENT_RTOL, the rest bit for
+    bit; a quantile that differs must stay within its 1% rank error of
+    the device's)."""
+    from deequ_tpu_torch import Check, CheckLevel, Table, VerificationSuite
+    from deequ_tpu_torch.analyzers import (
+        ApproxCountDistinct, ApproxQuantile, Completeness, Maximum, Mean, Minimum,
+        StandardDeviation, Sum,
+    )
+    from deequ_tpu_torch.ops import runtime
+    from deequ_tpu_torch.runners import AnalysisRunner
+
+    check = Check(CheckLevel.ERROR, "wire")
+    for c in WIRE_COLUMNS:
+        check = (check.is_complete(c).has_mean(c, lambda v: v > 0).has_sum(c, lambda v: v > 0)
+                 .has_min(c, lambda v: v >= 0).has_max(c, lambda v: v > 0)
+                 .has_standard_deviation(c, lambda v: v > 0))
+    check = (check.has_correlation("l_quantity", "l_extendedprice", lambda r: r > 0.5)
+             .has_correlation("l_discount", "l_tax", lambda r: abs(r) < 0.1))
+
+    def run(fn):
+        with runtime.monitored() as stats:
+            ck.reset_launch_counts()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+        return result, wall, ck.launch_counts(), stats
+
+    wire = {}
+    for switch in ("1", "0"):
+        with env(DEEQU_TPU_WIRE_FUSED=switch):
+            wire[switch] = run(lambda: VerificationSuite.on_data(
+                Table.scan_parquet(path), device="cuda").add_check(check).run())
+    fused_cols = sorted(wire["1"][3].wire_fused)
+    if fused_cols != sorted(WIRE_COLUMNS) or wire["0"][3].wire_fused:
+        raise AssertionError(f"wire fusion: fused {fused_cols} with the switch on, "
+                             f"{wire['0'][3].wire_fused} off")
+    if wire["1"][2] != wire["0"][2] or not wire["1"][2]["masked_moments"]:
+        raise AssertionError(f"wire fusion: launches {wire['1'][2]} on, {wire['0'][2]} off")
+    got, want = metric_values(wire["1"][0]), metric_values(wire["0"][0])
+    for key, value in want.items():
+        if not same_bits(got[key], value):
+            raise AssertionError(f"wire fusion {key}: {got[key]!r} on vs {value!r} off")
+
+    analyzers = []
+    for c in ENCFOLD_COLUMNS:
+        analyzers += [Completeness(c), Mean(c), Sum(c), Minimum(c), Maximum(c),
+                      StandardDeviation(c), ApproxCountDistinct(c), ApproxQuantile(c, 0.5)]
+
+    def analyze():
+        context = AnalysisRunner.on_data(Table.scan_parquet(path), device="cuda") \
+            .add_analyzers(analyzers).run()
+        return types.SimpleNamespace(metrics=context.metric_map)
+
+    enc = {}
+    for switch in ("1", "0"):
+        with env(DEEQU_TPU_PLACEMENT="host-all", DEEQU_TPU_ENCODED_FOLD=switch):
+            enc[switch] = run(analyze)
+    with env(DEEQU_TPU_PLACEMENT="device"):
+        on_card = run(analyze)
+    stats_on = enc["1"][3]
+    if sorted(stats_on.encfold_planned) != sorted(ENCFOLD_COLUMNS) or not stats_on.encfold_chunks:
+        raise AssertionError(f"encoded fold: planned {stats_on.encfold_planned}, "
+                             f"{stats_on.encfold_chunks} chunks, falloffs "
+                             f"{stats_on.encfold_falloffs}")
+    if any(any(counts.values()) for _r, _w, counts, _s in enc.values()):
+        raise AssertionError("encoded fold: a host-all run launched a kernel")
+    got, want = metric_values(enc["1"][0]), metric_values(enc["0"][0])
+    for key, value in want.items():
+        if not same_bits(got[key], value):
+            raise AssertionError(f"encoded fold {key}: {got[key]!r} on vs {value!r} off")
+    card = metric_values(on_card[0])
+    quantile_bits = True
+    for key, value in card.items():
+        if key.startswith(PLACEMENT_INEXACT):
+            ok = close(got[key], value, PLACEMENT_RTOL)
+        elif key.startswith("ApproxQuantile") and not same_bits(got[key], value):
+            # the host sample is the device's: a difference would be a
+            # fault of the order of zeros, held to the declared rank error
+            quantile_bits = False
+            ok = abs(got[key] - value) <= 0.01 * max(abs(value), 1.0)
+        else:
+            ok = same_bits(got[key], value)
+        if not ok:
+            raise AssertionError(f"encoded fold {key}: host-all {got[key]!r} vs device {value!r}")
+    return {
+        "rows": rows,
+        "wire": {
+            "columns_fused": fused_cols,
+            "falloffs": wire["1"][3].wire_falloffs,
+            "on_s": wire["1"][1],
+            "off_s": wire["0"][1],
+            "launches": wire["1"][2],
+        },
+        "encoded_fold": {
+            "placement": "host-all",
+            "columns_folded": sorted(stats_on.encfold_planned),
+            "falloffs": stats_on.encfold_falloffs,
+            "chunks": stats_on.encfold_chunks,
+            "chunks_fallback": stats_on.encfold_chunks_fallback,
+            "runs": stats_on.encfold_runs,
+            "values": stats_on.encfold_values,
+            "codes_folded": stats_on.encfold_codes_folded,
+            "family_kernels_on_off": [stats_on.family_kernels, enc["0"][3].family_kernels],
+            "on_s": enc["1"][1],
+            "off_s": enc["0"][1],
+            "device_placed_s": on_card[1],
+            "device_placed_launches": on_card[2],
+            "quantiles_bit_equal_to_device": quantile_bits,
+        },
+    }
 
 
 def compare_stream_profile(streamed, memory):
@@ -2164,6 +2503,7 @@ def main() -> int:
     refused_launch_phase(torch, ck, cuda_build, device)
     del timer, profile  # frees the 256 MB L2 flush buffer before the main path
     launches, main_run = main_path_phase(torch, ck, args.rows, args.seed, card, power_limit)
+    placement_launches_by_mode = placement_phase(torch, ck, args.rows, args.seed, card, power_limit)
     basic_example_phase(torch, ck)
     warm_profile_s, profile_launches, lineitem, profiles = profile_phase(
         torch, ck, args.profile_rows, args.seed, card, power_limit)
@@ -2178,6 +2518,8 @@ def main() -> int:
         row["launches_profile"] = profile_launches[row["name"]]
         row["launches_stream"] = stream_launches[row["name"]]
         row["launches_incremental"] = append_launches[row["name"]]
+        row["launches_placement"] = {
+            mode: counts[row["name"]] for mode, counts in placement_launches_by_mode.items()}
         if not (row["launches"] and row["launches_profile"] and row["launches_stream"]
                 and row["launches_incremental"]):
             raise AssertionError(f"{row['name']} never launched on the main path, the profile, "

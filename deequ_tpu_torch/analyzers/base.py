@@ -2,10 +2,12 @@
 
 reference: analyzers/Analyzer.scala:56-272. A scan-shareable analyzer
 declares which named host arrays it needs (`input_specs`), a per-batch
-reduction over those arrays as device tensors (`device_reduce`), and a
-host merge of two per-batch partials (`merge_agg`). The fused pass runs
-every analyzer's reduction over one shared set of device inputs per
-batch (ops/fused.py).
+reduction over those arrays as device tensors (`device_reduce`), the
+same reduction over the host arrays for a host-fold placement
+(`host_reduce`), and a host merge of two per-batch partials
+(`merge_agg`). The fused pass runs every device-placed analyzer's
+reduction over one shared set of device inputs per batch and every
+host-placed one's over the batch's host arrays (ops/fused.py).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from dataclasses import dataclass
 from typing import TYPE_CHECKING, Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from deequ_tpu_torch.analyzers.states import State
 from deequ_tpu_torch.core.exceptions import (
@@ -293,12 +296,64 @@ def where_spec(where: Optional[str]) -> InputSpec:
     )
 
 
+class TorchInputs(dict):
+    """CPU tensor views of a batch's host inputs, each made on its first
+    read: `device_reduce` run over them is the host fold of an analyzer
+    with no host route of its own (on CPU tensors the kernel wrappers run
+    their plain versions). Memo keys (``__``) are the reduction's own and
+    never read through; a host input's build error is raised again."""
+
+    def __init__(self, host: Dict[str, Any]):
+        super().__init__()
+        self._host = host
+
+    def __missing__(self, key):
+        if key.startswith("__"):
+            raise KeyError(key)
+        arr = np.asarray(self._host[key])
+        # torch shares the numpy buffer; a read-only one is copied first
+        value = torch.from_numpy(arr if arr.flags.writeable else arr.copy())
+        self[key] = value
+        return value
+
+    def get(self, key, default=None):
+        try:
+            return self[key]
+        except KeyError:
+            return default
+
+
+def to_f64(partial: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """A partial as float64 numpy arrays, the layout the device route's
+    packed copy gives (registers, counts and flags are exact in float64)."""
+    return {
+        key: (
+            value.detach().to(torch.float64).numpy()
+            if isinstance(value, torch.Tensor)
+            else np.asarray(value, dtype=np.float64)
+        )
+        for key, value in partial.items()
+    }
+
+
 class ScanShareableAnalyzer(Analyzer):
     """An analyzer whose per-batch work is a masked reduction fused with
-    the others into one device pass (reference: Analyzer.scala:159-216)."""
+    the others into one device pass (reference: Analyzer.scala:159-216).
+
+    `discrete_inputs` marks an analyzer whose inputs are masks or codes
+    only: under the ``host-discrete`` placement it folds on the host."""
+
+    discrete_inputs = False
 
     def input_specs(self) -> List[InputSpec]:
         raise NotImplementedError
+
+    def host_reduce(self, inputs: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        """This batch's partial from its host arrays (ops/fused.py's
+        HostInputs), in `device_reduce`'s layout as float64 arrays, so it
+        merges through the same `merge_agg`. By default `device_reduce`
+        over CPU tensor views; an analyzer with a C host route overrides."""
+        return to_f64(self.device_reduce(TorchInputs(inputs)))
 
     def device_reduce(self, inputs: Dict[str, Any]) -> Dict[str, Any]:
         """Named device tensors -> this batch's partial aggregate, a dict

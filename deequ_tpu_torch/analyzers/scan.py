@@ -18,6 +18,15 @@ dictionary), summed on the device: they need no kernel of their own.
 DataType likewise: the host classifies each dictionary entry once and
 ships int8 class codes; the device counts the five classes.
 
+Under a host-fold placement (ops/runtime.py:placement_mode) an analyzer
+folds the batch's host arrays instead (`host_reduce`), in its device
+partial's layout: popcounts for the masks, one C `masked_moments` pass per
+(column, where) family shared by Mean, Sum, Minimum, Maximum and
+StandardDeviation through a `__moments:` memo (which a host-folded
+quantile sketch's family kernel may already have filled), one C bincount
+for DataType. Size, the ratio analyzers and DataType are
+`discrete_inputs`: the ``host-discrete`` placement folds them on the host.
+
 reference: analyzers/Size.scala, Completeness.scala, Compliance.scala,
 PatternMatch.scala, Mean.scala, Sum.scala, Minimum.scala, Maximum.scala,
 StandardDeviation.scala, Correlation.scala, DataType.scala.
@@ -39,6 +48,7 @@ from deequ_tpu_torch.analyzers.base import (
     col_valid_spec,
     col_values_spec,
     render_where,
+    to_f64,
     where_key,
     where_spec,
 )
@@ -72,7 +82,7 @@ from deequ_tpu_torch.data.table import (
     cached_dictionary_encode,
     gather_with_null,
 )
-from deequ_tpu_torch.ops import cuda_kernels
+from deequ_tpu_torch.ops import counts_family, cuda_kernels, native
 from deequ_tpu_torch.ops import strings
 from deequ_tpu_torch.ops.strings import match_pattern
 
@@ -85,6 +95,11 @@ def _double_metric(analyzer: ScanShareableAnalyzer, state: Optional[State]) -> M
     )
 
 
+def _count(mask) -> np.ndarray:
+    """A host mask's popcount as a float64 partial."""
+    return np.float64(np.count_nonzero(np.asarray(mask, dtype=bool)))
+
+
 # ---------------------------------------------------------------------------
 # Size
 # ---------------------------------------------------------------------------
@@ -94,6 +109,7 @@ def _double_metric(analyzer: ScanShareableAnalyzer, state: Optional[State]) -> M
 class Size(ScanShareableAnalyzer):
     """# rows, optionally filtered (reference: analyzers/Size.scala:36)."""
 
+    discrete_inputs = True  # mask-only: host-foldable under placement
     where: Optional[str] = None
 
     @property
@@ -113,6 +129,9 @@ class Size(ScanShareableAnalyzer):
 
     def device_reduce(self, inputs: Dict[str, Any]) -> Dict[str, Any]:
         return {"n": inputs[where_key(self.where)].sum()}
+
+    def host_reduce(self, inputs: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        return {"n": _count(inputs[where_key(self.where)])}
 
     def merge_agg(self, a, b):
         return {"n": a["n"] + b["n"]}
@@ -144,6 +163,8 @@ class _RatioAnalyzer(ScanShareableAnalyzer):
     input" (reference: analyzers/Completeness.scala:36-41,
     Compliance.scala:50, PatternMatch.scala:42-50)."""
 
+    discrete_inputs = True  # mask-only: host-foldable under placement
+
     def _match_mask_key(self) -> str:
         raise NotImplementedError
 
@@ -151,7 +172,8 @@ class _RatioAnalyzer(ScanShareableAnalyzer):
         raise NotImplementedError
 
     def _guard(self, inputs: Dict[str, Any]) -> torch.Tensor:
-        """Mask of rows whose criterion is non-NULL."""
+        """Mask of rows whose criterion is non-NULL (the same expression
+        over host numpy masks as over device tensors)."""
         raise NotImplementedError
 
     def input_specs(self) -> List[InputSpec]:
@@ -163,6 +185,14 @@ class _RatioAnalyzer(ScanShareableAnalyzer):
             "matches": (inputs[self._match_mask_key()] & w).sum(),
             "count": w.sum(),
             "guard": self._guard(inputs).sum(),
+        }
+
+    def host_reduce(self, inputs: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        w = np.asarray(inputs[where_key(self.where)], dtype=bool)
+        return {
+            "matches": _count(np.asarray(inputs[self._match_mask_key()], dtype=bool) & w),
+            "count": _count(w),
+            "guard": _count(self._guard(inputs)),
         }
 
     def merge_agg(self, a, b):
@@ -204,6 +234,17 @@ class Completeness(_RatioAnalyzer):
     def _guard(self, inputs: Dict[str, Any]) -> torch.Tensor:
         # isNotNull(...) is never NULL: empty only when nothing was scanned
         return inputs[where_key(None)]
+
+    def host_reduce(self, inputs: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        # the (column, where) family's moments carry exactly these counts
+        # (matches = valid & where, count = where, guard = rows) when a
+        # family kernel or a C moments pass filled the memo this batch
+        mom = inputs.get(f"__moments:{self.column}:{where_key(self.where)}")
+        if mom is not None and "n_rows" in mom:
+            return to_f64(
+                {"matches": mom["count"], "count": mom["n_where"], "guard": mom["n_rows"]}
+            )
+        return super().host_reduce(inputs)
 
     def __repr__(self) -> str:
         return f"Completeness({self.column},{render_where(self.where)})"
@@ -395,6 +436,50 @@ class _NumericScanAnalyzer(ScanShareableAnalyzer):
     def _moments(self, inputs: Dict[str, Any]) -> torch.Tensor:
         return _family_moments(inputs, self.column, self.where)
 
+    def _host_moments(self, inputs: Dict[str, Any]) -> Dict[str, float]:
+        """The (column, where) family's count, sum, min, max and m2 from
+        one C `masked_moments` pass over the host arrays (numpy over the
+        compacted rows when the library is off), memoized in the batch's
+        inputs: Mean, Sum, Minimum, Maximum and StandardDeviation share
+        it, and a host-folded sketch's family kernel may have filled it."""
+        memo_key = f"__moments:{self.column}:{where_key(self.where)}"
+        cached = inputs.get(memo_key)
+        if cached is not None:
+            return cached
+        x = np.asarray(inputs[f"num:{self.column}"])
+        valid = np.asarray(inputs[f"valid:{self.column}"])
+        where = None if self.where is None else np.asarray(inputs[where_key(self.where)])
+        out = None
+        if x.dtype == np.float64 and valid.dtype == np.bool_ and (
+            where is None or where.dtype == np.bool_
+        ):
+            out = native.masked_moments(x, valid, where)
+        if out is not None:
+            cached = {
+                "count": float(out[0]),
+                "sum": float(out[1]),
+                "min": float(out[2]),
+                "max": float(out[3]),
+                "m2": float(out[4]),
+                "n_where": float(out[5]),
+                "n_rows": float(len(x)),
+            }
+        else:
+            mask = valid.astype(bool) if where is None else (valid.astype(bool) & where.astype(bool))
+            xm = np.asarray(x, dtype=np.float64)[mask]
+            count = float(xm.size)
+            total = float(xm.sum()) if xm.size else 0.0
+            avg = total / max(count, 1.0)
+            cached = {
+                "count": count,
+                "sum": total,
+                "min": float(xm.min()) if xm.size else float("inf"),
+                "max": float(xm.max()) if xm.size else float("-inf"),
+                "m2": float(((xm - avg) ** 2).sum()) if xm.size else 0.0,
+            }
+        inputs[memo_key] = cached
+        return cached
+
     def compute_metric_from(self, state: Optional[State], device=None) -> Metric:
         return _double_metric(self, state)
 
@@ -421,6 +506,10 @@ class Mean(_NumericScanAnalyzer):
         if int(agg["count"]) == 0:
             return None
         return MeanState(float(agg["total"]), int(agg["count"]))
+
+    def host_reduce(self, inputs: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        mom = self._host_moments(inputs)
+        return to_f64({"total": mom["sum"], "count": mom["count"]})
 
     def __repr__(self) -> str:
         return f"Mean({self.column},{render_where(self.where)})"
@@ -449,6 +538,10 @@ class Sum(_NumericScanAnalyzer):
             return None
         return SumState(float(agg["sum"]))
 
+    def host_reduce(self, inputs: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        mom = self._host_moments(inputs)
+        return to_f64({"sum": mom["sum"], "count": mom["count"]})
+
     def __repr__(self) -> str:
         return f"Sum({self.column},{render_where(self.where)})"
 
@@ -476,6 +569,10 @@ class Minimum(_NumericScanAnalyzer):
             return None
         return MinState(float(agg["min"]))
 
+    def host_reduce(self, inputs: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        mom = self._host_moments(inputs)
+        return to_f64({"min": mom["min"], "count": mom["count"]})
+
     def __repr__(self) -> str:
         return f"Minimum({self.column},{render_where(self.where)})"
 
@@ -502,6 +599,10 @@ class Maximum(_NumericScanAnalyzer):
         if int(agg["count"]) == 0:
             return None
         return MaxState(float(agg["max"]))
+
+    def host_reduce(self, inputs: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        mom = self._host_moments(inputs)
+        return to_f64({"max": mom["max"], "count": mom["count"]})
 
     def __repr__(self) -> str:
         return f"Maximum({self.column},{render_where(self.where)})"
@@ -543,6 +644,11 @@ class StandardDeviation(_NumericScanAnalyzer):
         if float(agg["n"]) == 0:
             return None
         return StandardDeviationState(float(agg["n"]), float(agg["avg"]), float(agg["m2"]))
+
+    def host_reduce(self, inputs: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        mom = self._host_moments(inputs)
+        n = mom["count"]
+        return to_f64({"n": n, "avg": mom["sum"] / n if n > 0 else 0.0, "m2": mom["m2"]})
 
     def __repr__(self) -> str:
         return f"StandardDeviation({self.column},{render_where(self.where)})"
@@ -713,6 +819,7 @@ class DataType(ScanShareableAnalyzer):
     conditionalSelection feeds the reference's UDAF, so they count as
     Unknown."""
 
+    discrete_inputs = True  # code-only: host-foldable under placement
     column: str
     where: Optional[str] = None
 
@@ -741,6 +848,55 @@ class DataType(ScanShareableAnalyzer):
             label: ((codes == code) & rows).sum()
             for code, label in enumerate(_CLASS_LABELS)
         }
+
+    def host_reduce(self, inputs: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        """One C bincount over the class codes (rows outside `where`
+        count as NULL, padded rows drop out); with no filter and a
+        `_LowCardCounts` member that counted this column's dictionary this
+        batch, the dictionary's classes weighed by its counts instead."""
+        rows = np.asarray(inputs[where_key(None)], dtype=bool)
+        if self.where is None and counts_family.enabled():
+            lcc = inputs.get(f"__lcccounts:{self.column}")
+            if lcc is not None:
+                counts, uniques, n_batch = lcc
+                if n_batch == len(rows) and bool(rows.all()):
+                    cls = self._classified_dictionary(inputs, uniques)
+                    counts_vec = np.zeros(len(_CLASS_LABELS), dtype=np.int64)
+                    np.add.at(counts_vec, cls, np.asarray(counts[1:]))
+                    counts_vec[strings.CODE_NULL] += int(counts[0])
+                    return to_f64(dict(zip(_CLASS_LABELS, counts_vec)))
+        codes = np.asarray(inputs[f"dtclass:{self.column}"])
+        w = np.asarray(inputs[where_key(self.where)], dtype=bool)
+        w_all, rows_all = bool(w.all()), bool(rows.all())
+        if w_all and rows_all:
+            mask = None
+        elif w_all:
+            mask = rows
+        elif rows_all:
+            mask = w
+        else:
+            mask = w & rows
+        counts_vec = native.bincount(codes, len(_CLASS_LABELS), where=mask)
+        if counts_vec is None:
+            counts_vec = np.bincount(
+                codes if mask is None else codes[mask], minlength=len(_CLASS_LABELS)
+            )
+        if not w_all:
+            # rows present but outside `where` classify as NULL
+            n_rows = len(rows) if rows_all else int(np.count_nonzero(rows))
+            counts_vec = counts_vec.copy()
+            counts_vec[strings.CODE_NULL] += n_rows - int(counts_vec.sum())
+        return to_f64(dict(zip(_CLASS_LABELS, counts_vec)))
+
+    def _classified_dictionary(self, inputs, uniques) -> np.ndarray:
+        """int8 class per dictionary entry: the table's memo when the
+        batch is reachable, a direct classify otherwise."""
+        batch = getattr(inputs, "batch", None)
+        if batch is not None:
+            cls = classified_dictionary(batch.column(self.column))
+            if len(cls) == len(uniques):
+                return cls
+        return strings.classify(np.asarray(uniques)).astype(np.int8)
 
     def merge_agg(self, a, b):
         return {k: a[k] + b[k] for k in a}

@@ -9,6 +9,14 @@ ApproxQuantile(s): per-batch KLL partial sketches. The device counts a
 batch's sortable-key histogram (`cuda_kernels.hist16`); the host selects
 the decimated sample from it and folds the sketches (reference:
 analyzers/ApproxQuantile.scala:49, ApproxQuantiles.scala:39).
+
+Under a host-fold placement (ops/runtime.py:placement_mode) both fold on
+the host: ApproxCountDistinct (`discrete_inputs`, so already under
+``host-discrete``) scatters the codes into its registers with the C
+`hll_update_registers`, and a quantile sketch (under ``host-all``) takes
+its sample by the C `masked_select_decimate`, the same values a full
+sort decimates. Either first reads the memo a family kernel of the pass
+filled for its (column, where) this batch (ops/fused.py).
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from deequ_tpu_torch.analyzers.base import (
     col_valid_spec,
     col_values_spec,
     render_where,
+    to_f64,
     where_key,
     where_spec,
 )
@@ -45,7 +54,7 @@ from deequ_tpu_torch.data.table import (
     gather_with_null,
     hashed_dictionary,
 )
-from deequ_tpu_torch.ops import cuda_kernels
+from deequ_tpu_torch.ops import cuda_kernels, native
 from deequ_tpu_torch.ops.sketches import hll
 from deequ_tpu_torch.ops.sketches.kll import KLLSketch, k_for_error
 
@@ -98,6 +107,7 @@ def _hll_spec(column: str) -> InputSpec:
 class ApproxCountDistinct(ScanShareableAnalyzer):
     """HLL++ distinct estimate (reference: analyzers/ApproxCountDistinct.scala:47)."""
 
+    discrete_inputs = True  # packed idx|rank codes: host-foldable
     column: str
     where: Optional[str] = None
 
@@ -121,6 +131,18 @@ class ApproxCountDistinct(ScanShareableAnalyzer):
                 inputs[f"hll:{self.column}"], inputs[where_key(self.where)]
             )
         }
+
+    def host_reduce(self, inputs: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        # a family kernel's registers for this (column, where), if one ran
+        # this batch: then the packed codes are never built
+        regs = inputs.get(f"__hllregs:{self.column}:{where_key(self.where)}")
+        if regs is None:
+            packed = np.asarray(inputs[f"hll:{self.column}"])
+            where = np.asarray(inputs[where_key(self.where)], dtype=bool)
+            regs = np.zeros(hll.M, dtype=np.int32)
+            if not native.hll_update_registers(packed, None if where.all() else where, regs):
+                np.maximum.at(regs, packed >> 6, np.where(where, packed & 0x3F, 0).astype(np.int32))
+        return to_f64({"registers": regs})
 
     def merge_agg(self, a, b):
         return {"registers": np.maximum(a["registers"], b["registers"])}
@@ -274,6 +296,34 @@ class _QuantileAnalyzerBase(ScanShareableAnalyzer):
         unwanted_cum = np.cumsum(counts * ~wanted)
         below = np.where(bins_of_rank > 0, unwanted_cum[bins_of_rank - 1], 0)
         return {"sample": gathered[ranks - below], "n": n, "level": level}
+
+    def host_batch(self, inputs: Dict[str, Any]) -> Dict[str, Any]:
+        """This batch's decimated sample from its host arrays (the
+        ``host-all`` placement): a family kernel's memo when one ran for
+        this (column, where) and sample size, else the C
+        `masked_select_decimate`, else a sort of the live rows. All three
+        give the sample the device route gives."""
+        cap = self._sample_size()
+        memo = inputs.get(f"__qsample:{self.column}:{where_key(self._where)}:{cap}")
+        if memo is not None:
+            return memo
+        x = np.asarray(inputs[f"num:{self.column}"])
+        valid = np.asarray(inputs[f"valid:{self.column}"], dtype=bool)
+        where = None
+        if self._where is not None:
+            where = np.asarray(inputs[where_key(self._where)], dtype=bool)
+        res = native.masked_select_decimate(x, valid, where, cap)
+        if res is not None:
+            sample, n, level = res
+            return {"sample": sample, "n": n, "level": level}
+        live = valid if where is None else valid & where
+        xm = np.sort(np.asarray(x, dtype=np.float64)[live])
+        n = len(xm)
+        if n == 0:
+            return {"sample": np.zeros(0, dtype=np.float64), "n": 0, "level": 0}
+        level = max(0, int(np.ceil(np.log2(n / cap))))
+        stride = 1 << level
+        return {"sample": xm[stride // 2 :: stride][:cap], "n": n, "level": level}
 
     def host_consume(self, state: Optional[State], out: Dict[str, Any]) -> Optional[State]:
         n = int(out["n"])

@@ -11,12 +11,21 @@ the Column backing then goes through the same decode kernels the Arrow
 fast route uses (data/arrow_decode.py), so a column read here equals the
 pyarrow route's bit for bit.
 
+Two further routes start from the same chunk bytes:
+- `assemble_wire_column` writes a decode-to-wire column's batch rows
+  straight into its wire rows through the wire kernels
+  (arrow_decode.decode_wire_column's contract), with a lazy stub Column;
+- `decode_chunk_runs` decodes a dictionary-coded chunk into encoded-run
+  streams (`RunChunk`: (run length, dictionary code) value runs and
+  definition-level runs) for the encoded fold (data/encfold.py), and
+  `expand_runs` expands one back to rows through `read_chunk`.
+
 A function returns None where the C route cannot take the input (a short
 read, a page that does not decode); data/source.py then reads that column
-through pyarrow.
+through pyarrow, or decodes it at row width.
 
-The JAX counterpart is deequ_tpu/data/native_reader.py (its encoded-run
-decode, its wire assembly and its fault points are not ported).
+The JAX counterpart is deequ_tpu/data/native_reader.py (its fault points
+are not ported).
 """
 
 from __future__ import annotations
@@ -27,8 +36,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from deequ_tpu_torch.data.table import Column, ColumnType, pool_empty, shared_all_true
-from deequ_tpu_torch.ops import native
+from deequ_tpu_torch.data.table import Column, ColumnType, LazyColumn, pool_empty, shared_all_true
+from deequ_tpu_torch.ops import native, runtime
 
 
 @dataclass(frozen=True)
@@ -98,6 +107,96 @@ def decode_chunk(raw: np.ndarray, meta: ChunkMeta) -> Optional[DecodedChunk]:
         pages=pages,
         uncompressed_bytes=uncompressed,
     )
+
+
+#: tokens the runs mode takes: numeric columns whose dictionary rolls up
+#: to the engine's int64 or float64 (boolean pages are not
+#: dictionary-coded, and uint64 has no exact engine widening)
+ENCFOLD_TOKENS = frozenset(
+    {"double", "float", "int8", "int16", "int32", "int64", "uint8", "uint16", "uint32"}
+)
+
+
+@dataclass
+class RunChunk:
+    """One column chunk as encoded-run streams instead of rows: coalesced
+    (run length, dictionary code) value runs, coalesced (run length,
+    present) definition-level runs, and the dictionary rolled up to the
+    engine's representation. `raw` keeps the chunk's bytes, so a reader
+    the plan did not foresee can still expand it to rows (`expand_runs`)
+    through the row route's own decode."""
+
+    meta: ChunkMeta
+    raw: np.ndarray  # the chunk's bytes, for a lazy expansion
+    kind: str  # "i64" | "f64": the engine representation of dict_values
+    dict_values: np.ndarray  # the dictionary as int64 or float64
+    run_len: np.ndarray  # int64 coalesced non-null value runs
+    run_code: np.ndarray  # uint32 dictionary codes, each < dict_count
+    def_len: np.ndarray  # int64 coalesced definition-level runs
+    def_val: np.ndarray  # uint8: 0 = null rows, 1 = present rows
+    null_count: int
+    num_values: int
+    pages: int
+    uncompressed_bytes: int
+
+    @property
+    def dict_count(self) -> int:
+        return len(self.dict_values)
+
+
+def _dict_to_engine(draw: np.ndarray, phys: int, token: str):
+    """Dictionary page values (physical layout) in the engine's
+    representation, with the widening chain the row route applies to each
+    value (a C-cast narrowing to the backing dtype, then the decode's
+    widening), so a wrapped entry rolls up to the value its rows would
+    have: (values, "i64" | "f64")."""
+    phys_np = {1: "<i4", 2: "<i8", 4: "<f4", 5: "<f8"}[int(phys)]
+    entries = draw.view(np.dtype(phys_np))
+    if token in ("double", "float"):
+        return entries.astype(np.float64), "f64"
+    backing = native.READER_TOKENS[token][1]
+    return entries.astype(np.dtype(backing)).astype(np.int64), "i64"
+
+
+def decode_chunk_runs(raw: np.ndarray, meta: ChunkMeta) -> Optional[RunChunk]:
+    """One raw chunk as encoded-run streams through the C reader's runs
+    mode. None on any refusal (a PLAIN data page, an oversized dictionary,
+    a corrupt stream): the caller decodes the chunk at row width, so a
+    corrupt run fails closed and never folds into wrong values."""
+    if meta.token not in ENCFOLD_TOKENS:
+        return None
+    res = native.read_chunk_runs(raw, meta.phys, meta.codec, meta.max_def, meta.num_values)
+    if res is None:
+        return None
+    draw, run_len, run_code, def_len, def_val, nulls, pages, unc, _dcount = res
+    # the definition runs must fold to the page loop's null count and the
+    # value runs to the non-null count: anything else is a corrupt stream
+    def_nulls = native.encfold_def_nulls(def_len, def_val, meta.num_values)
+    if def_nulls is None or def_nulls != nulls:
+        return None
+    if int(run_len.sum()) != meta.num_values - nulls:
+        return None
+    dict_values, kind = _dict_to_engine(draw, meta.phys, meta.token)
+    return RunChunk(
+        meta=meta,
+        raw=raw,
+        kind=kind,
+        dict_values=dict_values,
+        run_len=run_len,
+        run_code=run_code,
+        def_len=def_len,
+        def_val=def_val,
+        null_count=nulls,
+        num_values=meta.num_values,
+        pages=pages,
+        uncompressed_bytes=unc,
+    )
+
+
+def expand_runs(rc: RunChunk) -> Optional[DecodedChunk]:
+    """A RunChunk at row width, decoded again from its kept bytes (the
+    row route's `decode_chunk`); None when those bytes do not decode."""
+    return decode_chunk(rc.raw, rc.meta)
 
 
 def _segment_overlaps(
@@ -211,3 +310,83 @@ def _assemble_column_numpy_fallback(
         pos += m
     ctype = ColumnType.BOOLEAN if is_bool else (ColumnType.DOUBLE if is_float else ColumnType.LONG)
     return Column(name, ctype, out_vals, out_valid)
+
+
+class NativeWireStub(LazyColumn):
+    """The Column of a column the C reader decoded straight to the wire:
+    `.valid` unpacks the wire bits, `.values` assembles the rows from the
+    retained decoded chunks (`assemble_column`)."""
+
+    def __init__(self, name, ctype, token, segments, start, stop, wire_bits):
+        self._wire_bits = wire_bits  # None when only values were fused
+        self._wire_token = token
+        self._wire_segments = segments
+        self._wire_start = int(start)
+        super().__init__(name, ctype, stop - start)
+
+    def _rebuild(self) -> Column:
+        return assemble_column(
+            self.name, self._wire_token, self._wire_segments, self._wire_start,
+            self._wire_start + len(self), {},
+        )
+
+    def _quick_valid(self):
+        if self._wire_bits is None:
+            return None
+        from deequ_tpu_torch.data.arrow_decode import wire_bits_to_mask
+
+        return wire_bits_to_mask(self._wire_bits, len(self))
+
+
+def assemble_wire_column(
+    name: str,
+    token: str,
+    segments: List[DecodedChunk],
+    start: int,
+    stop: int,
+    spec: "runtime.ColumnWireSpec",
+) -> Optional[Tuple[Column, Dict[str, "runtime.WireRow"]]]:
+    """Rows [start, stop) of the decoded segments straight to the wire
+    rows, through the wire kernels at the running row offset (as
+    arrow_decode.decode_wire_column): (stub Column, {input key: WireRow}),
+    or None to assemble the Column instead this batch (a value past the
+    pinned int width)."""
+    if not native.available():
+        return None
+    n = stop - start
+    if n == 0:
+        return None
+    padded = runtime.wire_pad_size(n)
+    # zeroed: a zero pad tail, and the mask row is written by OR
+    bits = np.zeros(padded // 8, dtype=np.uint8) if spec.want_valid else None
+    vals = np.zeros(padded, dtype=np.dtype(spec.value_dtype)) if spec.want_value else None
+    is_float = token in ("double", "float")
+    invalid = 0
+    pos = 0
+    for seg, lo, hi in _segment_overlaps(segments, start, stop):
+        m = hi - lo
+        if spec.want_value or is_float:
+            itemsize = native.DECODE_PRIMITIVES[token][1]
+            rc = native.wire_primitive(
+                token, seg.values.ctypes.data + lo * itemsize, _validity_addr(seg), lo, m, 0.0,
+                vals[pos:] if vals is not None else None, bits, pos,
+            )
+        else:
+            # an int or bool column read for its mask only
+            rc = native.wire_valid_bits(_validity_addr(seg), lo, m, bits, pos)
+        if rc is None:
+            return None
+        invalid += rc
+        pos += m
+    rows: Dict[str, runtime.WireRow] = {}
+    if spec.want_value:
+        rows[f"num:{name}"] = runtime.WireRow(kind=spec.value_kind, arr=vals)
+    if spec.want_valid:
+        rows[f"valid:{name}"] = runtime.WireRow(kind="bits", arr=bits, all_valid=invalid == 0)
+    if token == "bool":
+        ctype = ColumnType.BOOLEAN
+    elif is_float:
+        ctype = ColumnType.DOUBLE
+    else:
+        ctype = ColumnType.LONG
+    return NativeWireStub(name, ctype, token, segments, start, stop, bits), rows

@@ -13,7 +13,12 @@ prefetch thread; with `DEEQU_TPU_PIPELINE=0` on the caller's thread,
 which gives the same batches. Numeric and boolean columns the planner
 approves skip pyarrow's read (the C reader, data/native_reader.py) or
 its conversion to numpy (the C Arrow-buffer decode,
-data/arrow_decode.py); every route gives the same batches bit for bit.
+data/arrow_decode.py); of those, a column the device program alone
+reads may decode straight to its wire rows (the batch's `wire_rows`),
+and a dictionary-coded one whose readers the memos serve may decode to
+run streams, folded per batch into a value multiset (the batch's
+`encfold`, data/encfold.py). Every route gives the same batches bit for
+bit.
 
 The JAX counterpart is deequ_tpu/data/source.py.
 """
@@ -147,7 +152,13 @@ class DataSource:
                     continue
             return False
 
+        sinks = runtime.current_sinks()
+
         def producer() -> None:
+            with runtime.attached_sinks(sinks):
+                _produce()
+
+        def _produce() -> None:
             it = self._iter_tables(batch_size)
             try:
                 for table in it:
@@ -208,10 +219,12 @@ class ParquetSource(DataSource):
     `decode_fastpath` names the columns the planner sends through the C
     library's Arrow-buffer decode (data/arrow_decode.py) and
     `native_reader` those whose chunks the C reader reads from the file's
-    bytes (data/native_reader.py); both are normally attached by the
-    fused pass (ops/fused.py:apply_decode_plan). Every route gives the
-    same batches bit for bit. The footer is read once, here; every view
-    shares it."""
+    bytes (data/native_reader.py); `wire_fusion` (runtime.WireFusionPlan)
+    the columns decoded straight to the wire, and `encoded_fold`
+    (column -> data/encfold.py's EncFoldColSpec) those decoded to run
+    streams. All are normally attached by the fused pass
+    (ops/fused.py:apply_decode_plan). Every route gives the same batches
+    bit for bit. The footer is read once, here; every view shares it."""
 
     def __init__(
         self,
@@ -228,6 +241,8 @@ class ParquetSource(DataSource):
         self.batch_rows = batch_rows
         self.decode_fastpath = frozenset(decode_fastpath) if decode_fastpath else None
         self.native_reader = frozenset(native_reader) if native_reader else None
+        self.wire_fusion = None
+        self.encoded_fold = None
         self._reader_chunks: Optional[Dict[Tuple[int, str], "ChunkMeta"]] = None
         with pq.ParquetFile(path) as pf:
             self._meta = pf.metadata
@@ -279,6 +294,75 @@ class ParquetSource(DataSource):
         if chunks is not None:
             chunks = {key: meta for key, meta in chunks.items() if key[1] in names}
         return self._view(native_reader=names, _reader_chunks=chunks)
+
+    def with_wire_fusion(self, plan) -> "ParquetSource":
+        """A view whose plan columns decode straight to the wire."""
+        if plan is None or not plan.columns:
+            return self
+        return self._view(wire_fusion=plan)
+
+    def with_encoded_fold(self, specs) -> "ParquetSource":
+        """A view whose `specs` columns (a subset of the reader's) decode
+        to run streams and fold per batch from them."""
+        specs = dict(specs) if specs else None
+        if not specs or specs == self.encoded_fold:
+            return self
+        return self._view(encoded_fold=specs)
+
+    def row_group_stats(self):
+        """Per row group, each scanned column chunk's footer statistics as
+        lint/pushdown.py records: min, max and null count, and the chunk
+        layout (physical type, codec, page encodings, byte range, nesting,
+        page placement). A field the footer cannot give is None."""
+        from deequ_tpu_torch.lint.pushdown import ColumnStats, RowGroupStats
+
+        names = {name for name, _ in self._schema_cache}
+        meta, schema = self._meta, self._meta.schema
+        out = []
+        for g in range(meta.num_row_groups):
+            rg = meta.row_group(g)
+            cols = {}
+            for j in range(rg.num_columns):
+                chunk = rg.column(j)
+                name = chunk.path_in_schema
+                if name not in names:
+                    continue
+                try:
+                    se = schema.column(j)
+                    dpo = int(chunk.data_page_offset)
+                    dictpo = (
+                        int(chunk.dictionary_page_offset)
+                        if chunk.has_dictionary_page and chunk.dictionary_page_offset is not None
+                        else None
+                    )
+                    layout = dict(
+                        physical_type=str(chunk.physical_type),
+                        codec=str(chunk.compression),
+                        encodings=tuple(str(e) for e in chunk.encodings),
+                        chunk_offset=dpo if dictpo is None else min(dpo, dictpo),
+                        chunk_bytes=int(chunk.total_compressed_size),
+                        num_values=int(chunk.num_values),
+                        max_def_level=int(se.max_definition_level),
+                        max_rep_level=int(se.max_repetition_level),
+                        data_page_offset=dpo,
+                        dictionary_page_offset=dictpo,
+                    )
+                except (AttributeError, TypeError, ValueError):
+                    layout = {}  # a layout the footer cannot give
+                st = chunk.statistics
+                if st is None:
+                    cols[name] = ColumnStats(**layout)
+                    continue
+                has_mm = bool(getattr(st, "has_min_max", False))
+                nc = st.null_count if bool(getattr(st, "has_null_count", True)) else None
+                cols[name] = ColumnStats(
+                    min_value=st.min if has_mm else None,
+                    max_value=st.max if has_mm else None,
+                    null_count=int(nc) if nc is not None else None,
+                    **layout,
+                )
+            out.append(RowGroupStats(index=g, num_rows=int(rg.num_rows), columns=cols))
+        return out
 
     def decode_column_types(self) -> Dict[str, str]:
         """Arrow type tokens per scanned column as the scan decodes them
@@ -396,6 +480,26 @@ class ParquetSource(DataSource):
             return self.native_reader
         return None
 
+    def _wire_fusion_active(self):
+        """The attached wire plan when `DEEQU_TPU_WIRE_FUSED` and the
+        decode fast path it rides on are both on."""
+        if (
+            self.wire_fusion is not None
+            and self.wire_fusion.columns
+            and runtime.wire_fused_enabled()
+            and runtime.decode_fastpath_enabled()
+        ):
+            return self.wire_fusion
+        return None
+
+    def _encoded_fold_active(self, native_cols) -> Optional[Dict[str, object]]:
+        """The encoded-fold specs of the active reader columns, or None
+        when `DEEQU_TPU_ENCODED_FOLD` (or a reader gate) is off."""
+        if self.encoded_fold and native_cols and runtime.encoded_fold_enabled():
+            specs = {n: spec for n, spec in self.encoded_fold.items() if n in native_cols}
+            return specs or None
+        return None
+
     def _string_columns(self) -> Optional[List[str]]:
         return [n for n, t in self._schema_cache if t == ColumnType.STRING] or None
 
@@ -443,12 +547,14 @@ class ParquetSource(DataSource):
 
         size = min(batch_size, self.batch_rows)
         fastpath = self._decode_fastpath_set()
+        wire = self._wire_fusion_active()
         native_cols = self._native_reader_active()
         metas = {}
         if native_cols:
             metas = self._reader_chunks
             if metas is None:
                 metas = self._reader_chunk_meta(native_cols)
+        enc_specs = self._encoded_fold_active(native_cols) or {}
         with contextlib.ExitStack() as stack:
             pf = stack.enter_context(
                 pq.ParquetFile(self.path, read_dictionary=self._string_columns())
@@ -458,30 +564,46 @@ class ParquetSource(DataSource):
                 fd = os.open(self.path, os.O_RDONLY)
                 stack.callback(os.close, fd)
             for unit in self._plan_decode_units(size):
-                yield from self._decode_unit(pf, fd, unit, size, metas, fastpath)
+                yield from self._decode_unit(pf, fd, unit, size, metas, fastpath, wire, enc_specs)
 
-    def _read_native(self, fd: int, meta: "ChunkMeta"):
-        """One chunk through the C reader; None when its bytes come back
-        short or do not decode."""
+    def _read_native(self, fd: int, meta: "ChunkMeta", runs: bool = False):
+        """One chunk through the C reader: as run streams (a RunChunk)
+        when `runs` and they decode, else at row width; None when its
+        bytes come back short or do not decode."""
         from deequ_tpu_torch.data import native_reader
 
         raw = native_reader.fetch_chunk(fd, meta)
-        return None if raw is None else native_reader.decode_chunk(raw, meta)
+        if raw is None:
+            return None
+        if runs:
+            decoded = native_reader.decode_chunk_runs(raw, meta)
+            if decoded is not None:
+                return decoded
+        return native_reader.decode_chunk(raw, meta)
 
-    def _decode_unit(self, pf, fd, unit, size, metas, fastpath) -> Iterator[Table]:
+    def _decode_unit(self, pf, fd, unit, size, metas, fastpath, wire, enc_specs) -> Iterator[Table]:
         import pyarrow as pa
 
-        from deequ_tpu_torch.data import native_reader
+        from deequ_tpu_torch.data import encfold, native_reader
 
         scanned = [n for n, _ in self._schema_cache]
+        ctypes = dict(self._schema_cache)
         segments: Dict[str, list] = {}
         failed = set()
+        enc_off = set()  # columns a chunk of which refused the runs mode
+        enc_fallback = 0
         for g in unit:
             for name in scanned:
                 meta = metas.get((g, name))
                 if meta is None:
                     continue
-                decoded = self._read_native(fd, meta)
+                runs = name in enc_specs and name not in enc_off
+                decoded = self._read_native(fd, meta, runs)
+                if runs and decoded is not None and not isinstance(decoded, native_reader.RunChunk):
+                    # a chunk the runs mode refused decodes at row width:
+                    # it fails closed, never to wrong values
+                    enc_off.add(name)
+                    enc_fallback += 1
                 if decoded is None:
                     failed.add(name)
                 else:
@@ -489,6 +611,33 @@ class ParquetSource(DataSource):
         # a column is the reader's in this unit only when every group's
         # chunk decoded; the rest of the unit reads through pyarrow
         covered = {n for n, segs in segments.items() if n not in failed and len(segs) == len(unit)}
+        # a column folds over runs only when every chunk decoded to runs;
+        # a mixed column expands its run chunks to rows
+        run_cols = set()
+        for name in sorted(covered):
+            segs = segments[name]
+            is_run = [isinstance(seg, native_reader.RunChunk) for seg in segs]
+            if all(is_run):
+                run_cols.add(name)
+            elif any(is_run):
+                expanded = [
+                    native_reader.expand_runs(seg) if isinstance(seg, native_reader.RunChunk) else seg
+                    for seg in segs
+                ]
+                if all(seg is not None for seg in expanded):
+                    segments[name] = expanded
+                else:
+                    covered.discard(name)
+        enc_runs = enc_values = enc_saved = enc_codes = 0
+        for name in run_cols:
+            for rc in segments[name]:
+                enc_runs += len(rc.run_len)
+                enc_values += rc.num_values
+                # the row route builds an 8-byte value and a mask byte per
+                # row; the runs keep 12 bytes per run and the dictionary
+                enc_saved += max(
+                    0, 9 * rc.num_values - 12 * len(rc.run_len) - rc.dict_values.nbytes
+                )
         merged = None
         if len(covered) < len(scanned):
             columns = self.columns if not covered else [n for n in scanned if n not in covered]
@@ -499,19 +648,61 @@ class ParquetSource(DataSource):
         else:
             total = sum(seg.num_values for seg in segments[scanned[0]])
         tokens = {name: metas[(unit[0], name)].token for name in covered}
+        wire_cols = wire.columns if wire is not None else {}
         for start in range(0, total, size):
-            rest = Table.from_arrow(merged.slice(start, size), fastpath) if merged is not None else None
+            rest = (
+                Table.from_arrow(merged.slice(start, size), fastpath, wire)
+                if merged is not None
+                else None
+            )
             if not covered:
                 yield rest
                 continue
             stop = min(start + size, total)
             shared: Dict[str, np.ndarray] = {}
-            yield Table([
-                native_reader.assemble_column(name, tokens[name], segments[name], start, stop, shared)
-                if name in covered
-                else rest.column(name)
-                for name in scanned
-            ])
+            wire_rows = dict((rest.wire_rows if rest is not None else None) or {})
+            payloads = {}
+            cols = []
+            for name in scanned:
+                if name not in covered:
+                    cols.append(rest.column(name))
+                elif name in run_cols:
+                    cols.append(encfold.EncFoldStub(
+                        name, ctypes[name], tokens[name], segments[name], start, stop
+                    ))
+                    payload = encfold.build_payload(enc_specs[name], segments[name], start, stop)
+                    if payload is not None:
+                        payloads[name] = payload
+                        enc_codes += payload.codes_folded
+                else:
+                    fused = None
+                    if name in wire_cols:
+                        fused = native_reader.assemble_wire_column(
+                            name, tokens[name], segments[name], start, stop, wire_cols[name]
+                        )
+                    if fused is not None:
+                        col, rows = fused
+                        wire_rows.update(rows)
+                    else:
+                        col = native_reader.assemble_column(
+                            name, tokens[name], segments[name], start, stop, shared
+                        )
+                    cols.append(col)
+            table = Table(cols)
+            if wire_rows:
+                table.wire_rows = wire_rows
+            if payloads:
+                table.encfold = payloads
+            yield table
+        if enc_specs and (run_cols or enc_fallback):
+            runtime.record_encfold(
+                chunks=len(unit) * len(run_cols),
+                fallback=enc_fallback,
+                runs=enc_runs,
+                values=enc_values,
+                codes=enc_codes,
+                bytes_saved=enc_saved,
+            )
 
     def __repr__(self) -> str:
         return f"ParquetSource({self.path!r}, rows={self._num_rows})"

@@ -397,6 +397,45 @@ def _column_from_list(name: str, values: Sequence, ctype: Optional[ColumnType]) 
     return Column(name, ctype, arr, valid)
 
 
+class LazyColumn(Column):
+    """The Column of a column the decode never built at row width (it went
+    straight to the wire, or to run streams): its planned readers do not
+    touch it, and another reader still gets the exact data, lazily.
+    `_rebuild()` builds the Column the ordinary decode would have built;
+    `_quick_valid()` may give the mask without it (None: rebuild)."""
+
+    def __init__(self, name: str, ctype: ColumnType, n: int):
+        self._lazy_n = int(n)
+        self._valid_arr = None
+        super().__init__(name, ctype, self._rebuild_values, None)
+
+    def __len__(self) -> int:
+        return self._lazy_n
+
+    def _rebuild(self) -> Column:
+        raise NotImplementedError
+
+    def _quick_valid(self) -> Optional[np.ndarray]:
+        return None
+
+    def _rebuild_values(self):
+        col = self._rebuild()
+        if self._valid_arr is None:
+            self._valid_arr = np.asarray(col.valid)
+        return col.values
+
+    @property
+    def valid(self):
+        if self._valid_arr is None:
+            mask = self._quick_valid()
+            self._valid_arr = mask if mask is not None else np.asarray(self._rebuild().valid)
+        return self._valid_arr
+
+    @valid.setter
+    def valid(self, value):
+        self._valid_arr = value
+
+
 def shared_all_true(shared: Dict[str, np.ndarray], n: int) -> np.ndarray:
     """One read-only all-true mask shared by every null-free column of a
     decoded batch. `shared` is the scratch dict of one `from_arrow`."""
@@ -514,7 +553,16 @@ def _column_from_arrow_fallback(name, arr, arrow_table, shared) -> Column:
 
 
 class Table:
-    """Immutable columnar table."""
+    """Immutable columnar table.
+
+    A batch decoded from Parquet may carry two attachments the fused pass
+    reads: `wire_rows` (input key -> runtime.WireRow, the rows the decode
+    wrote straight to the wire) and `encfold` (column ->
+    data/encfold.py's EncFoldPayload, a column's value multiset folded
+    from run streams)."""
+
+    wire_rows = None
+    encfold = None
 
     def __init__(self, columns: Sequence[Column]):
         self._columns: Dict[str, Column] = {c.name: c for c in columns}
@@ -634,7 +682,7 @@ class Table:
         return Table(cols)
 
     @staticmethod
-    def from_arrow(arrow_table, fastpath_columns=None) -> "Table":
+    def from_arrow(arrow_table, fastpath_columns=None, wire=None) -> "Table":
         """An Arrow table as engine Columns. String dictionary columns keep
         their codes; per-row strings stay lazy.
 
@@ -644,18 +692,34 @@ class Table:
         the C library's buffer-level decode (data/arrow_decode.py): one
         pass from the Arrow buffers to the Column backing. A column that
         route cannot take decodes on the host; the two give the same
-        Columns bit for bit."""
+        Columns bit for bit.
+
+        `wire` (a runtime.WireFusionPlan) decodes its columns straight to
+        the wire instead: each gets a lazy stub Column and its wire rows
+        go on the table's `wire_rows`; a column the wire route cannot take
+        this batch (a layout it does not expect, a value past its pinned
+        int width) decodes as above."""
         import pyarrow as pa
 
         cols = []
+        wire_rows: Dict[str, object] = {}
         shared: Dict[str, np.ndarray] = {}  # one mask for null-free columns
-        fast = None
-        if fastpath_columns:
-            from deequ_tpu_torch.data.arrow_decode import decode_fast_column as fast
+        fast = wire_fast = None
+        if fastpath_columns or (wire is not None and wire.columns):
+            from deequ_tpu_torch.data import arrow_decode
+
+            fast, wire_fast = arrow_decode.decode_fast_column, arrow_decode.decode_wire_column
         for name in arrow_table.column_names:
             chunked = arrow_table.column(name)
             chunks = list(chunked.chunks) if isinstance(chunked, pa.ChunkedArray) else [chunked]
-            if fast is not None and name in fastpath_columns:
+            if wire is not None and name in wire.columns:
+                fused = wire_fast(name, chunks, arrow_table, wire.columns[name])
+                if fused is not None:
+                    stub, rows = fused
+                    cols.append(stub)
+                    wire_rows.update(rows)
+                    continue
+            if fastpath_columns and name in fastpath_columns:
                 col = fast(name, chunks, arrow_table, shared)
                 if col is not None:
                     cols.append(col)
@@ -670,7 +734,10 @@ class Table:
                 if isinstance(arr, pa.ChunkedArray):
                     arr = arr.chunk(0)
             cols.append(_column_from_arrow_fallback(name, arr, arrow_table, shared))
-        return Table(cols)
+        table = Table(cols)
+        if wire_rows:
+            table.wire_rows = wire_rows
+        return table
 
     def to_arrow(self, dictionary_encode_strings: bool = False):
         """An Arrow table with real nulls (null slots become Arrow nulls,

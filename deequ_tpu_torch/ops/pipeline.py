@@ -26,6 +26,8 @@ import queue
 import threading
 from typing import Any, Callable, Iterable, Iterator, List
 
+from deequ_tpu_torch.ops import runtime
+
 _SENTINEL = object()
 
 #: prepped batches that may wait between the prep stage and the fold
@@ -62,7 +64,13 @@ def staged(iterable: Iterable[Any], fn: Callable[[Any], Any], *, name: str = "pr
                 continue
         return False
 
+    sinks = runtime.current_sinks()
+
     def worker() -> None:
+        with runtime.attached_sinks(sinks):
+            _work()
+
+    def _work() -> None:
         it = iter(iterable)
         try:
             while not stop.is_set():

@@ -328,7 +328,7 @@ class _OptimisticNumericStats(ScanShareableAnalyzer):
             return {"dead": True}
         res = native.masked_moments_select(values, cast_valid, None, self._cap())
         if res is not None:
-            mom, sample, n_valid, level = res
+            mom, sample, n_valid, level, _regs = res
             return {
                 "dead": False, "count": float(mom[0]), "sum": float(mom[1]),
                 "min": float(mom[2]), "max": float(mom[3]), "m2": float(mom[4]),

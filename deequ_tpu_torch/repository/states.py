@@ -105,12 +105,13 @@ def plan_signature(
     bit-identical to the default (here "cuda-folds", the moment folds of
     the CUDA kernels) — the empty default leaves signatures unchanged.
 
-    The CPU fold's empty variant gives the same signature as the JAX
-    package's device placement, so the two packages share a repository.
-    Bit-identity holds within one package only: the torch CPU fold and
-    the XLA fold add in other orders, so a cache filled by both matches
-    a rescan within the parity tolerance (1e-12 relative on float sums),
-    not bit for bit."""
+    A CPU run's variant (runtime.fold_signature_variant: "" or, with
+    the encoded fold possible, "encfold") is the JAX package's, so under
+    the same knobs the two packages sign a pass alike and share a
+    repository. Bit-identity holds within one package only: the torch
+    CPU fold and the XLA fold add in other orders, so a cache filled by
+    both matches a rescan within the parity tolerance (1e-12 relative on
+    float sums), not bit for bit."""
     h = _DIGEST()
     h.update(STATE_MAGIC)
     h.update(struct.pack(">I", STATE_FORMAT_VERSION))
@@ -138,14 +139,15 @@ def plan_signature_for(
     `source` on that device."""
     from deequ_tpu_torch.ops import runtime
 
+    device = runtime.resolve_device(device)
     batch_rows = getattr(source, "batch_rows", None) if source is not None else None
     return plan_signature(
         analyzers,
-        placement=runtime.placement_mode(),
+        placement=runtime.placement_mode(device),
         compute_dtype=dtype_name(runtime.compute_dtype()),
         batch_size=batch_size,
         batch_rows=int(batch_rows) if batch_rows else None,
-        variant=runtime.fold_variant(runtime.resolve_device(device)),
+        variant=runtime.fold_signature_variant(device),
     )
 
 
@@ -330,15 +332,22 @@ class StateRepository:
         fingerprints: Sequence[str],
         analyzers: Sequence[Any],
         signature: str,
+        device: Any = None,
     ):
         """Metrics over a set of partitions as a PURE state merge — zero
         rows scanned ("metrics over the last N days"). States merge in
         the given fingerprint order through the same semigroup surface
         the fused pass uses, so the result is bit-identical to scanning
-        those partitions together. Raises KeyError when any partition
-        has no cached entry, and StateDecodeError when an entry is
-        unusable — a range query must never silently drop data."""
+        those partitions together. A metric that reduces on a device (the
+        frequency analyzers') does so on `device`, resolved as the
+        runners resolve it: CUDA unless the caller asks for ``"cpu"``.
+        Raises KeyError when any partition has no cached entry, and
+        StateDecodeError when an entry is unusable — a range query must
+        never silently drop data."""
+        from deequ_tpu_torch.ops import runtime
         from deequ_tpu_torch.runners.context import AnalyzerContext
+
+        device = runtime.resolve_device(device)
 
         merged: List[Any] = [None] * len(analyzers)
         for fingerprint in fingerprints:
@@ -352,7 +361,7 @@ class StateRepository:
             states = decode_states(blob, analyzers)
             merged = [merge_states(m, s) for m, s in zip(merged, states)]
         metrics = {
-            analyzer: analyzer.compute_metric_from(state)
+            analyzer: analyzer.compute_metric_from(state, device)
             for analyzer, state in zip(analyzers, merged)
         }
         return AnalyzerContext(metrics)

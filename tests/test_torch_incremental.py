@@ -201,7 +201,7 @@ def test_merge_range_equals_the_full_run(days, tmp_path):
     ]
     signature = plan_signature_for(analyzers, source, device="cpu")
     ranged = repo.merge_range(
-        "daily", [p.fingerprint for p in source.partitions()], analyzers, signature
+        "daily", [p.fingerprint for p in source.partitions()], analyzers, signature, device="cpu"
     )
     assert {repr(a): bits(m.value.get()) for a, m in ranged.metric_map.items()} == metric_bits(full)
 

@@ -84,6 +84,8 @@ SLICE_MODULES = [
     "deequ_tpu_torch.ops.native",
     "deequ_tpu_torch.data.arrow_decode",
     "deequ_tpu_torch.data.native_reader",
+    "deequ_tpu_torch.data.encfold",
+    "deequ_tpu_torch.lint.pushdown",
 ]
 
 

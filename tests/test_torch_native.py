@@ -134,7 +134,8 @@ def test_masked_moments_select_equals_jax_and_numpy(n, cap, rng):
     x = rng.normal(3.0, 2.0, n)
     x[: n // 10] = np.round(x[: n // 10])  # ties
     valid = rng.random(n) > 0.1
-    mom, sample, n_valid, level = native.masked_moments_select(x, valid, None, cap)
+    mom, sample, n_valid, level, regs = native.masked_moments_select(x, valid, None, cap)
+    assert regs is None  # no HLL mode asked for
     j_mom, j_sample, j_n, j_level, _ = jax_native.masked_moments_select(x, valid, None, cap)
     assert mom.tobytes() == j_mom.tobytes() and sample.tobytes() == j_sample.tobytes()
     assert (n_valid, level) == (j_n, j_level)

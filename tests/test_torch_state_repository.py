@@ -485,7 +485,7 @@ class TestMergeRange:
 
         signature = plan_signature_for(analyzers, source, device="cpu")
         fingerprints = [p.fingerprint for p in source.partitions()]
-        ranged = repo.merge_range("range", fingerprints, analyzers, signature)
+        ranged = repo.merge_range("range", fingerprints, analyzers, signature, device="cpu")
         for a in analyzers:
             assert _bits(full.metric_map[a].value.get()) == _bits(
                 ranged.metric_map[a].value.get()
@@ -496,7 +496,7 @@ class TestMergeRange:
         sub_source = Table.scan_parquet_dataset([p.path for p in subset])
         direct = AnalysisRunner.do_analysis_run(sub_source, analyzers, device="cpu")
         ranged_subset = repo.merge_range(
-            "range", [p.fingerprint for p in subset], analyzers, signature
+            "range", [p.fingerprint for p in subset], analyzers, signature, device="cpu"
         )
         for a in analyzers:
             assert _bits(direct.metric_map[a].value.get()) == _bits(
@@ -506,7 +506,7 @@ class TestMergeRange:
     def test_merge_range_missing_partition_raises(self):
         repo = InMemoryStateRepository()
         with pytest.raises(KeyError):
-            repo.merge_range("ds", ["nope"], [Size()], "sig")
+            repo.merge_range("ds", ["nope"], [Size()], "sig", device="cpu")
 
 
 # ---------------------------------------------------------------------------
