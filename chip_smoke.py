@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke run of deequ_tpu_torch's main paths: verification under each
 placement, column profiling, constraint suggestion, streamed Parquet
-with its host fast paths, incremental runs and anomaly detection.
+with its host fast paths, incremental runs, anomaly detection, the
+mesh-sharded scan and the sharded scan across processes.
 
 Run from the repository root on a machine with one CUDA GPU:
 
@@ -141,11 +142,44 @@ Phases, one JSON line each:
               parameters within 1e-6, day 102 flagged on Mean("x") by
               both strategies; the fit's time, objective evaluations and
               launches (torch.profiler over one more fit).
+ 11. mesh     BASELINE.json config 4 ("ApproxCountDistinct(HLL) +
+              ApproxQuantile(KLL) on 1B-row clickstream, v5e-8 psum State
+              merge"), its 1B rows cut to --mesh-rows (33,554,432) for the
+              time limit and host memory: user_id Zipf(1.2) over 10^8
+              ids, latency_ms lognormal(3, 1) with every 13th row null,
+              page_id uniform over 10,000 values; Size, Completeness,
+              Mean, StandardDeviation, Minimum and Maximum of latency_ms,
+              ApproxCountDistinct(user_id), ApproxQuantiles(latency_ms,
+              0.5/0.9/0.99), CountDistinct and Histogram of page_id,
+              through VerificationSuite on the single-device pass (first
+              and last) and twice over data_mesh([cuda:0] * 8), config
+              4's v5e-8 as 8 shards on the card, 2,097,152 rows per shard
+              and batch (and over every card where there are more): the
+              mesh runs bit for bit alike, K1-K4 launched once per shard,
+              batch and kernel use, and against the single runs counts,
+              extremes, HLL registers, distinct counts and verdicts
+              exact, sums within 1e-12 and quantiles within 1% of rank;
+              the first 4,194,304 rows over data_mesh(["cpu"] * 8) with
+              device="cpu" equal to the card's mesh (quantiles, registers,
+              counts and verdicts exactly);
+ 12. sharded  the clickstream as 16 zstd Parquet partitions of 1,048,576
+              rows (the card's host reads them through the C reader): a
+              solo partitioned do_analysis_run with a
+              FileSystemStateRepository, then 2 worker processes on
+              cuda:0 (parallel/procspawn.py) joined over gloo, each
+              running run_sharded_analysis twice with a repository of its
+              own: every worker's metrics equal the solo run's bit for
+              bit, the workers' first runs launch what the solo run did,
+              and their second runs load all 16 partitions from the
+              repositories; times of the solo run, each worker's scan and
+              gather, and the spawn.
 Then the kernels' summary line (launches on the main path, on the
 profile as `launches_profile`, on the streamed profile and verification
 as `launches_stream`, on the incremental append run as
-`launches_incremental`, and per placement of phase `placement` as
-`launches_placement`) and, last, the device line. Any failed
+`launches_incremental`, per placement of phase `placement` as
+`launches_placement`, on one mesh run as `launches_mesh` and on the
+workers' first sharded runs as `launches_sharded`) and, last, the
+device line. Any failed
 check raises: the script exits non-zero and prints no result. Without
 CUDA it exits non-zero at once.
 """
@@ -2449,6 +2483,423 @@ def incremental_example_flows(device: str):
     return out
 
 
+# -- BASELINE.json config 4: the clickstream, on a mesh and across processes ----
+
+CLICK_USERS = 10 ** 8  # user ids drawn Zipf(1.2) over 10^8 ids
+CLICK_PAGES = 10_000  # page ids uniform over 10,000 values
+CLICK_QUANTILES = (0.5, 0.9, 0.99)
+MESH_ROWS = 1 << 25  # 33,554,432 of config 4's 1B rows (time limit, host memory)
+MESH_SHARDS = 8  # config 4's v5e-8, as 8 shards on one card
+MESH_PER_DEVICE = 1 << 21  # rows per shard and batch: 2 batches of 8 shards
+MESH_CPU_ROWS = 1 << 22  # the device="cpu" mesh's rows
+SHARDED_PARTS = 16  # Parquet partitions of the sharded phase
+SHARDED_PART_ROWS = 1 << 20  # rows per partition: 16,777,216 in all
+SHARDED_PROCS = 2  # worker processes, both on cuda:0
+CLICK_INEXACT = ("Mean", "StandardDeviation")  # float sums: 1e-12 against another order
+SUM_PARITY_RTOL = 1e-12
+
+
+def clickstream_data(rows: int, seed: int):
+    """Config 4's clickstream: user_id int64 Zipf(1.2) over 10^8 ids,
+    latency_ms float64 lognormal(3, 1) with every 13th row null, page_id
+    int64 uniform over 10,000 values."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    user = rng.zipf(1.2, rows)
+    over = np.nonzero(user > CLICK_USERS)[0]
+    while over.size:  # a bounded Zipf: draw the tail again
+        user[over] = rng.zipf(1.2, over.size)
+        over = over[user[over] > CLICK_USERS]
+    latency = rng.lognormal(3.0, 1.0, rows)
+    latency[::13] = np.nan
+    return {"user_id": user - 1, "latency_ms": latency,
+            "page_id": rng.integers(0, CLICK_PAGES, rows)}
+
+
+def clickstream_analyzers():
+    """Config 4's analyzers, for the sharded phase and its workers."""
+    from deequ_tpu_torch.analyzers import (
+        ApproxCountDistinct, ApproxQuantiles, Completeness, CountDistinct, Histogram, Maximum,
+        Mean, Minimum, Size, StandardDeviation,
+    )
+
+    return [
+        Size(), Completeness("latency_ms"), Mean("latency_ms"), StandardDeviation("latency_ms"),
+        Minimum("latency_ms"), Maximum("latency_ms"), ApproxCountDistinct("user_id"),
+        ApproxQuantiles("latency_ms", CLICK_QUANTILES), CountDistinct(["page_id"]),
+        Histogram("page_id"),
+    ]
+
+
+def clickstream_check(rows: int):
+    """Config 4's analyzers as a check; ApproxQuantiles and CountDistinct
+    join as required analyzers (`clickstream_extra`)."""
+    from deequ_tpu_torch import Check, CheckLevel
+
+    return (
+        Check(CheckLevel.ERROR, "clickstream")
+        .has_size(lambda n: n == rows)
+        .is_complete("latency_ms")  # fails: every 13th row is null
+        .has_completeness("latency_ms", lambda c: c > 0.9)
+        .has_mean("latency_ms", lambda v: 30 < v < 37)  # e^3.5 = 33.1
+        .has_standard_deviation("latency_ms", lambda v: 30 < v < 60)  # 43.4
+        .has_min("latency_ms", lambda v: v > 0)
+        .has_max("latency_ms", lambda v: v > 1000)
+        .has_approx_count_distinct("user_id", lambda v: v > 1e5)
+        .has_number_of_distinct_values("page_id", lambda b: b == CLICK_PAGES)
+    )
+
+
+def clickstream_extra():
+    from deequ_tpu_torch.analyzers import ApproxQuantiles, CountDistinct
+
+    return [ApproxQuantiles("latency_ms", CLICK_QUANTILES), CountDistinct(["page_id"])]
+
+
+def value_key(value):
+    """A metric value as exact JSON: floats as hex, a keyed metric by key,
+    a Distribution as its bins and absolute counts."""
+    if isinstance(value, float):
+        return value.hex()
+    if isinstance(value, dict):
+        return {k: value_key(v) for k, v in value.items()}
+    if hasattr(value, "number_of_bins"):
+        return {"bins": value.number_of_bins,
+                "values": {k: v.absolute for k, v in value.values.items()}}
+    return value
+
+
+def assert_click_metrics(got, want, label: str, exact_quantiles: bool) -> None:
+    """`metric_values` of two runs: counts, extremes, registers'
+    estimates, distinct counts and histogram bins exactly; sums within
+    SUM_PARITY_RTOL; quantiles exactly or (over other shards) left to
+    `assert_click_quantiles`."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{label}: metrics {sorted(got)} vs {sorted(want)}")
+    for key, value in want.items():
+        if key.startswith(CLICK_INEXACT):
+            ok = close(got[key], value, SUM_PARITY_RTOL)
+        elif key.startswith("ApproxQuantile") and not exact_quantiles:
+            continue
+        elif isinstance(value, float):
+            ok = same_bits(got[key], value)
+        else:
+            ok = got[key] == value
+        if not ok:
+            raise AssertionError(f"{label} {key}: {got[key]!r} vs {value!r}")
+
+
+def assert_click_quantiles(values, latency, label: str) -> None:
+    """Each quantile's rank in the sorted non-null column within 1% of q·n."""
+    import numpy as np
+
+    col = np.sort(latency[~np.isnan(latency)])
+    for q in CLICK_QUANTILES:
+        rank = float(np.searchsorted(col, values[repr(q)]))
+        if abs(rank - q * len(col)) > 0.01 * len(col):
+            raise AssertionError(f"{label} q={q}: rank {rank} off {q * len(col)} by more than 1%")
+
+
+def mesh_phase(torch, ck, rows: int, seed: int, card: str, power_limit: str):
+    """BASELINE.json config 4 on a mesh: `rows` clickstream rows in memory
+    through VerificationSuite over 8 shards of cuda:0 (and over every card
+    when there are more), against the single-device pass and a
+    device="cpu" mesh. -> the launches of one mesh run."""
+    import numpy as np
+
+    from deequ_tpu_torch import VerificationSuite
+    from deequ_tpu_torch.analyzers import ApproxCountDistinct
+    from deequ_tpu_torch.analyzers.frequency import compute_frequencies
+    from deequ_tpu_torch.data.table import Table
+    from deequ_tpu_torch.ops import runtime
+    from deequ_tpu_torch.ops.fused import FusedScanPass
+    from deequ_tpu_torch.parallel import DistributedScanPass, data_mesh
+
+    t0 = time.perf_counter()
+    data = clickstream_data(rows, seed)
+    table = Table.from_numpy(data)
+    setup_s = time.perf_counter() - t0
+    card_mesh = data_mesh([torch.device("cuda", 0)] * MESH_SHARDS)
+
+    def run(tbl, n_rows, engine, mesh=None, device=None):
+        ck.reset_launch_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        with runtime.monitored() as stats:
+            result = (
+                VerificationSuite.on_data(tbl, device=device)
+                .add_check(clickstream_check(n_rows))
+                .add_required_analyzers(clickstream_extra())
+                .with_engine(engine, mesh)
+                .run()
+            )
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        if mesh is not None and stats.mesh_passes != 1:
+            raise AssertionError(f"{engine} run made {stats.mesh_passes} mesh passes")
+        return {"result": result, "wall_s": wall, "launches": ck.launch_counts(),
+                "metrics": metric_values(result)}
+
+    # mirrored: the first single run also pays the table's one-time
+    # column caches (HLL codes, dictionary encodes); the last is warm
+    single = run(table, rows, "single")
+    meshes = [run(table, rows, "distributed", card_mesh) for _ in range(2)]
+    warm_single = run(table, rows, "single")
+    if warm_single["launches"] != single["launches"]:
+        raise AssertionError(f"single runs launched {single['launches']}, {warm_single['launches']}")
+    assert_click_metrics(warm_single["metrics"], single["metrics"], "single runs", True)
+    single_batches = -(-rows // BATCH)
+    mesh_programs = MESH_SHARDS * -(-rows // (MESH_SHARDS * MESH_PER_DEVICE))
+    for name, count in single["launches"].items():
+        per_program = count / single_batches
+        if not count or per_program != int(per_program):
+            raise AssertionError(f"single run: {name} launched {count} times in {single_batches} batches")
+        for m in meshes:
+            if m["launches"][name] != per_program * mesh_programs:
+                raise AssertionError(f"mesh run: {name} launched {m['launches'][name]} times, "
+                                     f"expected {per_program * mesh_programs}")
+    for key, value in meshes[0]["metrics"].items():
+        if value_key(value) != value_key(meshes[1]["metrics"][key]):
+            raise AssertionError(f"{key}: mesh runs differ, {value!r} vs {meshes[1]['metrics'][key]!r}")
+    assert_click_metrics(meshes[0]["metrics"], single["metrics"], "mesh vs single", False)
+    quantile_key = repr(clickstream_extra()[0])
+    for label, r in (("single", single), ("mesh", meshes[0])):
+        assert_click_quantiles(r["metrics"][quantile_key], data["latency_ms"], label)
+    if verdicts(meshes[0]["result"]) != verdicts(single["result"]):
+        raise AssertionError(f"verdicts differ: {verdicts(meshes[0]['result'])} vs {verdicts(single['result'])}")
+    failed = [msg for status, msg in verdicts(single["result"]) if status == "Failure"]
+    if len(failed) != 1:  # is_complete("latency_ms") only
+        raise AssertionError(f"expected one failed constraint, got {failed}")
+    acd = [ApproxCountDistinct("user_id")]
+    registers = {
+        "single": FusedScanPass(acd).run(table)[0].state_or_raise().registers,
+        "mesh": DistributedScanPass(acd, mesh=card_mesh).run(table)[0].state_or_raise().registers,
+    }
+    if not np.array_equal(registers["single"], registers["mesh"]):
+        raise AssertionError("HLL registers differ between the mesh and the single pass")
+    # the grouping's counts, row-sharded on the card (sharded_bincount),
+    # against numpy's
+    with runtime.monitored() as stats:
+        freqs = compute_frequencies(table, ["page_id"], mesh=card_mesh)
+    if stats.device_launches != MESH_SHARDS:
+        raise AssertionError(f"the mesh grouping ran {stats.device_launches} bincounts, "
+                             f"expected one per shard ({MESH_SHARDS})")
+    page_counts = np.zeros(CLICK_PAGES, dtype=np.int64)
+    page_counts[freqs.key_columns[0].astype(np.int64)] = freqs.counts
+    if not np.array_equal(page_counts, np.bincount(data["page_id"], minlength=CLICK_PAGES)):
+        raise AssertionError("the mesh grouping's page_id counts differ from np.bincount")
+
+    # the first MESH_CPU_ROWS rows on the card's mesh and on a CPU mesh
+    cut = {k: v[:MESH_CPU_ROWS] for k, v in data.items()}
+    cut_table = Table.from_numpy(cut)
+    cpu_mesh = data_mesh(["cpu"] * MESH_SHARDS)
+    small_card = run(cut_table, MESH_CPU_ROWS, "distributed", card_mesh)
+    small_cpu = run(cut_table, MESH_CPU_ROWS, "distributed", cpu_mesh, device="cpu")
+    if any(small_cpu["launches"].values()):
+        raise AssertionError(f"the CPU mesh launched kernels: {small_cpu['launches']}")
+    assert_click_metrics(small_cpu["metrics"], small_card["metrics"], "cpu mesh vs card mesh", True)
+    if verdicts(small_cpu["result"]) != verdicts(small_card["result"]):
+        raise AssertionError("verdicts differ between the CPU mesh and the card's")
+    cpu_regs = DistributedScanPass(acd, mesh=cpu_mesh).run(cut_table)[0].state_or_raise().registers
+    card_regs = DistributedScanPass(acd, mesh=card_mesh).run(cut_table)[0].state_or_raise().registers
+    if not np.array_equal(cpu_regs, card_regs):
+        raise AssertionError("HLL registers differ between the CPU mesh and the card's")
+
+    all_cards = None
+    if torch.cuda.device_count() > 1:
+        every = data_mesh([torch.device("cuda", i) for i in range(torch.cuda.device_count())])
+        r = run(table, rows, "distributed", every)
+        assert_click_metrics(r["metrics"], single["metrics"], "all-card mesh vs single", False)
+        assert_click_quantiles(r["metrics"][quantile_key], data["latency_ms"], "all-card mesh")
+        all_cards = {"cards": every.size, "wall_s": r["wall_s"], "launches": r["launches"]}
+
+    emit({
+        "phase": "mesh",
+        "rows": rows,
+        "shards": MESH_SHARDS,
+        "rows_per_shard_and_batch": MESH_PER_DEVICE,
+        "batches": mesh_programs // MESH_SHARDS,
+        "card": card,
+        "power_limit": power_limit,
+        "table_setup_s": setup_s,
+        "single_runs_s": [single["wall_s"], warm_single["wall_s"]],
+        "mesh_runs_s": [m["wall_s"] for m in meshes],
+        "mesh_over_warm_single": statistics.mean(m["wall_s"] for m in meshes) / warm_single["wall_s"],
+        "launches_single": single["launches"],
+        "launches_mesh": meshes[0]["launches"],
+        "cpu_mesh_rows": MESH_CPU_ROWS,
+        "cpu_mesh_run_s": small_cpu["wall_s"],
+        "card_mesh_run_s_same_rows": small_card["wall_s"],
+        "all_cards": all_cards,
+        "metrics": {k: value_key(v) for k, v in meshes[0]["metrics"].items()},
+        "status": meshes[0]["result"].status.value,
+    })
+    return meshes[0]["launches"]
+
+
+SHARDED_WORKER = """
+import json, os, sys, time
+
+rank, port, _tmp, data_dir, cache_root = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4], sys.argv[5]
+import torch
+
+import chip_smoke
+from deequ_tpu_torch.data.source import PartitionedParquetSource
+from deequ_tpu_torch.ops import cuda_kernels as ck
+from deequ_tpu_torch.ops import runtime
+from deequ_tpu_torch.parallel import multihost
+from deequ_tpu_torch.repository.states import FileSystemStateRepository
+
+multihost.initialize(f"127.0.0.1:{port}", chip_smoke.SHARDED_PROCS, rank, backend="gloo",
+                     timeout_s=300)
+try:
+    source = PartitionedParquetSource(data_dir)
+    analyzers = chip_smoke.clickstream_analyzers()
+    repository = FileSystemStateRepository(os.path.join(cache_root, f"rank{rank}"))
+    gather_s = []
+
+    def gather(payload):
+        start = time.perf_counter()
+        out = multihost.allgather_bytes(payload)
+        gather_s.append(time.perf_counter() - start)
+        return out
+
+    runs = []
+    for _ in range(2):  # the second run loads every partition from the repository
+        del gather_s[:]
+        ck.reset_launch_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        with runtime.monitored() as stats:
+            context = multihost.run_sharded_analysis(
+                source, analyzers, state_repository=repository, dataset_name="clicks",
+                gather=gather)
+        torch.cuda.synchronize()
+        runs.append({
+            "wall_s": time.perf_counter() - start,
+            "gather_s": sum(gather_s),
+            "gathers": len(gather_s),
+            "launches": ck.launch_counts(),
+            "partitions_cached": stats.partitions_cached,
+            "partitions_scanned": stats.partitions_scanned,
+            "partitions_local": stats.shard_partitions_local,
+            "merge_bytes": stats.shard_merge_bytes,
+            "rows_local": stats.shard_rows_local,
+            "metrics": {repr(a): chip_smoke.value_key(m.value.get())
+                        for a, m in context.metric_map.items()},
+        })
+finally:
+    multihost.shutdown()
+print("RESULT:" + json.dumps({"rank": rank, "runs": runs}), flush=True)
+"""
+
+
+def sharded_phase(torch, ck, seed: int, card: str, power_limit: str):
+    """BASELINE.json config 4 across processes: the clickstream as
+    SHARDED_PARTS zstd Parquet partitions, a solo partitioned run in this
+    process, then SHARDED_PROCS worker processes on cuda:0 running
+    `run_sharded_analysis` over gloo, each twice (the second served by
+    its state repository). -> the workers' launches, summed."""
+    import tempfile
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from deequ_tpu_torch.data.source import PartitionedParquetSource
+    from deequ_tpu_torch.ops import runtime
+    from deequ_tpu_torch.parallel import procspawn
+    from deequ_tpu_torch.repository.states import FileSystemStateRepository
+    from deequ_tpu_torch.runners.analysis_runner import AnalysisRunner
+
+    with tempfile.TemporaryDirectory() as tmp, env(DEEQU_TPU_PLACEMENT="device"):
+        data_dir = os.path.join(tmp, "clicks")
+        os.makedirs(data_dir)
+        t0 = time.perf_counter()
+        data = clickstream_data(SHARDED_PARTS * SHARDED_PART_ROWS, seed + 1)
+        for i in range(SHARDED_PARTS):
+            part = slice(i * SHARDED_PART_ROWS, (i + 1) * SHARDED_PART_ROWS)
+            latency = data["latency_ms"][part]
+            pq.write_table(
+                pa.table({
+                    "user_id": data["user_id"][part],
+                    "latency_ms": pa.array(latency, mask=latency != latency),
+                    "page_id": data["page_id"][part],
+                }),
+                os.path.join(data_dir, f"part-{i:03d}.parquet"),
+                compression="zstd", row_group_size=SHARDED_PART_ROWS,
+            )
+        write_s = time.perf_counter() - t0
+        source = PartitionedParquetSource(data_dir)
+        analyzers = clickstream_analyzers()
+
+        ck.reset_launch_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        with runtime.monitored() as stats:
+            solo = AnalysisRunner.do_analysis_run(
+                source, analyzers, state_repository=FileSystemStateRepository(
+                    os.path.join(tmp, "solo")), dataset_name="clicks")
+        torch.cuda.synchronize()
+        solo_s = time.perf_counter() - start
+        solo_launches = ck.launch_counts()
+        if stats.partitions_scanned != SHARDED_PARTS:
+            raise AssertionError(f"the solo run scanned {stats.partitions_scanned} partitions")
+        want = {repr(a): value_key(m.value.get()) for a, m in solo.metric_map.items()}
+        quantiles = solo.metric_map[analyzers[7]].value.get()
+        assert_click_quantiles(quantiles, data["latency_ms"], "solo partitioned run")
+
+        start = time.perf_counter()
+        results = procspawn.run_worker_processes(
+            SHARDED_WORKER, SHARDED_PROCS, [data_dir, os.path.join(tmp, "workers")],
+            timeout=600, env={"DEEQU_TPU_PLACEMENT": "device"})
+        spawn_s = time.perf_counter() - start
+
+    workers_launches = {name: 0 for name in solo_launches}
+    for result in results:
+        first, second = result["runs"]
+        for run in (first, second):
+            if run["metrics"] != want:
+                bad = [k for k in want if run["metrics"].get(k) != want[k]]
+                raise AssertionError(f"rank {result['rank']} differs from the solo run on {bad}")
+        if first["partitions_scanned"] != first["partitions_local"] or first["partitions_cached"]:
+            raise AssertionError(f"rank {result['rank']} first run: {first}")
+        for name, count in first["launches"].items():
+            workers_launches[name] += count
+    if sum(r["runs"][1]["partitions_cached"] for r in results) != SHARDED_PARTS:
+        raise AssertionError("the second sharded run was not served wholly by the repositories")
+    if any(r["runs"][1]["partitions_scanned"] for r in results):
+        raise AssertionError("the second sharded run scanned a partition")
+    if workers_launches != solo_launches:
+        raise AssertionError(f"workers launched {workers_launches}, the solo run {solo_launches}")
+    emit({
+        "phase": "sharded",
+        "partitions": SHARDED_PARTS,
+        "rows_per_partition": SHARDED_PART_ROWS,
+        "processes": SHARDED_PROCS,
+        "card": card,
+        "power_limit": power_limit,
+        "write_s": write_s,
+        "solo_run_s": solo_s,
+        "spawn_wall_s": spawn_s,
+        "workers": [{
+            "rank": r["rank"],
+            "partitions": r["runs"][0]["partitions_local"],
+            "rows": r["runs"][0]["rows_local"],
+            "scan_run_s": r["runs"][0]["wall_s"],
+            "gather_s": r["runs"][0]["gather_s"],
+            "gathers": r["runs"][0]["gathers"],
+            "envelope_bytes_gathered": r["runs"][0]["merge_bytes"],
+            "cached_run_s": r["runs"][1]["wall_s"],
+            "cached_run_gather_s": r["runs"][1]["gather_s"],
+            "launches": r["runs"][0]["launches"],
+        } for r in results],
+        "launches_solo": solo_launches,
+        "launches_sharded": workers_launches,
+    })
+    return workers_launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--rows", type=int, default=2 * BATCH)
@@ -2513,6 +2964,8 @@ def main() -> int:
                                    args.stream_rows, args.seed, card, power_limit, main_run)
     append_launches = incremental_phase(
         torch, ck, INCREMENTAL_DAYS, INCREMENTAL_ROWS, args.seed, card, power_limit)
+    mesh_launches = mesh_phase(torch, ck, MESH_ROWS, args.seed, card, power_limit)
+    sharded_launches = sharded_phase(torch, ck, args.seed, card, power_limit)
     for row in summary:
         row["launches"] = launches[row["name"]]
         row["launches_profile"] = profile_launches[row["name"]]
@@ -2520,10 +2973,14 @@ def main() -> int:
         row["launches_incremental"] = append_launches[row["name"]]
         row["launches_placement"] = {
             mode: counts[row["name"]] for mode, counts in placement_launches_by_mode.items()}
+        row["launches_mesh"] = mesh_launches[row["name"]]
+        row["launches_sharded"] = sharded_launches[row["name"]]
         if not (row["launches"] and row["launches_profile"] and row["launches_stream"]
-                and row["launches_incremental"]):
+                and row["launches_incremental"] and row["launches_mesh"]
+                and row["launches_sharded"]):
             raise AssertionError(f"{row['name']} never launched on the main path, the profile, "
-                                 "the streamed path or the incremental path")
+                                 "the streamed path, the incremental path, the mesh or the "
+                                 "sharded scan")
     emit({"kernels": summary})
     emit({
         "ok": True,

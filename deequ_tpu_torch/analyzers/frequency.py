@@ -155,13 +155,15 @@ def _column_key_values(col) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def compute_frequencies(
-    data: Table, grouping_columns: Sequence[str], num_rows: Optional[int] = None
+    data: Table, grouping_columns: Sequence[str], num_rows: Optional[int] = None, mesh=None
 ) -> FrequenciesAndNumRows:
     """reference: GroupingAnalyzers.scala:53-80. Rows where ANY grouping
     column is NULL are excluded from groups; num_rows counts all rows.
     An in-memory table is one host pass; a streamed source folds batch by
     batch through `GroupCountAccumulator`, so host memory is O(groups)
-    below the cap and bounded above it (the disk spill)."""
+    below the cap and bounded above it (the disk spill). With a `mesh`
+    (parallel/distributed.py) a code space of at most _MAX_DEVICE_BINS
+    groups is counted row-sharded on its devices (`sharded_bincount`)."""
     runtime.record_group_pass()
     if hasattr(data, "with_columns"):
         data = data.with_columns(list(grouping_columns))
@@ -170,16 +172,23 @@ def compute_frequencies(
 
         acc = GroupCountAccumulator(grouping_columns)
         for batch in data.batches(data.batch_rows):
-            acc.add(_frequencies_of_batch(batch, grouping_columns))
+            acc.add(_frequencies_of_batch(batch, grouping_columns, mesh))
         state = acc.finalize()
     else:
-        state = _frequencies_of_batch(data, grouping_columns)
+        state = _frequencies_of_batch(data, grouping_columns, mesh)
     if num_rows is not None:
         state.num_rows = num_rows
     return state
 
 
-def _frequencies_of_batch(data: Table, grouping_columns: Sequence[str]) -> FrequenciesAndNumRows:
+# a raveled group-code space larger than this counts on the host
+# (np.unique), as in the JAX package
+_MAX_DEVICE_BINS = 1 << 20
+
+
+def _frequencies_of_batch(
+    data: Table, grouping_columns: Sequence[str], mesh=None
+) -> FrequenciesAndNumRows:
     cols = [data.column(name) for name in grouping_columns]
     valid = np.ones(data.num_rows, dtype=np.bool_)
     for col in cols:
@@ -196,8 +205,16 @@ def _frequencies_of_batch(data: Table, grouping_columns: Sequence[str]) -> Frequ
     encoded = [_column_key_values(col) for col in cols]
     dims = [max(len(u), 1) for _, u in encoded]
     code_arrays = [np.where(valid, c, 0) for c, _ in encoded]
-    combined = np.ravel_multi_index(code_arrays, dims)[valid]
-    unique_codes, counts = np.unique(combined, return_counts=True)
+    combined_all = np.ravel_multi_index(code_arrays, dims)
+    total_bins = int(np.prod(dims))
+    if mesh is not None and total_bins <= _MAX_DEVICE_BINS:
+        from deequ_tpu_torch.parallel.distributed import sharded_bincount
+
+        bin_counts = sharded_bincount(np.where(valid, combined_all, -1), total_bins, mesh)
+        unique_codes = np.nonzero(bin_counts)[0]
+        counts = bin_counts[unique_codes]
+    else:
+        unique_codes, counts = np.unique(combined_all[valid], return_counts=True)
     unraveled = np.unravel_index(unique_codes, dims)
     # per-column gather of group-key values: one fancy-index per column
     key_columns = [encoded[j][1][unraveled[j]] for j in range(len(cols))]

@@ -916,6 +916,21 @@ class PartitionedParquetSource(DataSource):
             return self
         return PartitionedParquetSource(self.paths, columns=keep, batch_rows=self.batch_rows)
 
+    def subset(self, paths) -> "PartitionedParquetSource":
+        """The dataset restricted to `paths` (a shard's slice,
+        parallel/shard.py), with the same columns, batch rows and name
+        order, so a shard folds its partitions in the order a solo run
+        visits them. A path not in the dataset raises: it is a fault of
+        the plan, and scanning less would hide it."""
+        keep = {str(p) for p in paths}
+        unknown = keep - set(self.paths)
+        if unknown:
+            raise ValueError(f"subset paths not in this dataset: {sorted(unknown)}")
+        picked = [p for p in self.paths if p in keep]
+        if not picked:
+            raise ValueError("subset would leave no partitions")
+        return PartitionedParquetSource(picked, columns=self.columns, batch_rows=self.batch_rows)
+
     def _iter_tables(self, batch_size: int) -> Iterator[Table]:
         # the whole dataset as one stream (the group-by and profiler
         # passes), partitions chained in the order the merge uses

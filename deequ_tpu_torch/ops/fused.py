@@ -1269,6 +1269,17 @@ def unpack_outputs(flat: np.ndarray, meta, n_analyzers: int) -> List[Dict[str, n
     return outs
 
 
+class _ShardInputs:
+    """One shard's rows [`lo`, `hi`) of a batch's host inputs: what an
+    assisted member's host finish reads for that shard's output."""
+
+    def __init__(self, built, lo: int, hi: int):
+        self._built, self._lo, self._hi = built, lo, hi
+
+    def __getitem__(self, key):
+        return np.asarray(self._built[key])[self._lo : self._hi]
+
+
 class PipelinedAggFold:
     """Cross-batch host fold that overlaps device work with host work:
     `submit` starts the batch's device-to-host copy into pinned memory
@@ -1276,23 +1287,35 @@ class PipelinedAggFold:
     a batch of device time to land. Partials merge in float64 through
     each analyzer's `merge_agg`, in batch order. Each assisted member's
     output is finished against the batch's host inputs (`host_ctx`, kept
-    alive until the batch folds) and consumed into its host state."""
+    alive until the batch folds) and consumed into its host state.
+
+    Under a mesh (parallel/distributed.py) a batch's output holds its
+    `n_dev` shards' packed partials, one row each: the merge partials
+    fold in shard order 0..n_dev-1 into the batch's, and each assisted
+    member finishes and consumes each shard's output against that
+    shard's rows of the batch (`shard_bounds`), in shard order."""
 
     def __init__(
         self,
         analyzers: Sequence[ScanShareableAnalyzer],
         device: torch.device,
         assisted: Sequence[ScanShareableAnalyzer] = (),
+        n_dev: int = 1,
     ):
         self.analyzers = list(analyzers)
         self.assisted = list(assisted)
         self.device = device
+        self.n_dev = n_dev
         self._total: Optional[List[Dict[str, np.ndarray]]] = None
         self._assisted_states: List[Optional[State]] = [None] * len(self.assisted)
         self._pending = None
 
     def submit(
-        self, flat: torch.Tensor, meta, host_ctx: Optional[Dict[str, np.ndarray]] = None
+        self,
+        flat: torch.Tensor,
+        meta,
+        host_ctx: Optional[Dict[str, np.ndarray]] = None,
+        shard_bounds: Optional[Sequence[Tuple[int, int]]] = None,
     ) -> None:
         if self.device.type == "cuda":
             host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
@@ -1303,18 +1326,29 @@ class PipelinedAggFold:
             host, landed = flat, None
         if self._pending is not None:
             self._fold(self._pending)
-        self._pending = (host, landed, meta, host_ctx)
+        self._pending = (host, landed, meta, host_ctx, shard_bounds)
 
     def _fold(self, pending) -> None:
-        host, landed, meta, host_ctx = pending
+        host, landed, meta, host_ctx, shard_bounds = pending
         if landed is not None:
             landed.synchronize()
         n_merge = len(self.analyzers)
-        outs = unpack_outputs(host.numpy(), meta, n_merge + len(self.assisted))
-        batch_aggs = outs[:n_merge]
-        for i, (analyzer, out) in enumerate(zip(self.assisted, outs[n_merge:])):
-            self._assisted_states[i] = analyzer.host_consume(
-                self._assisted_states[i], analyzer.host_finish_batch(out, host_ctx)
+        rows = host.numpy().reshape(self.n_dev, -1)
+        batch_aggs = None
+        for d in range(self.n_dev):
+            outs = unpack_outputs(rows[d], meta, n_merge + len(self.assisted))
+            ctx = host_ctx
+            if shard_bounds is not None and host_ctx is not None:
+                ctx = _ShardInputs(host_ctx, *shard_bounds[d])
+            for i, (analyzer, out) in enumerate(zip(self.assisted, outs[n_merge:])):
+                self._assisted_states[i] = analyzer.host_consume(
+                    self._assisted_states[i], analyzer.host_finish_batch(out, ctx)
+                )
+            shard_aggs = outs[:n_merge]
+            batch_aggs = (
+                shard_aggs
+                if batch_aggs is None
+                else [a.merge_agg(t, b) for a, t, b in zip(self.analyzers, batch_aggs, shard_aggs)]
             )
         if self._total is None:
             self._total = batch_aggs
@@ -1335,6 +1369,27 @@ class PipelinedAggFold:
 # ---------------------------------------------------------------------------
 # The pass
 # ---------------------------------------------------------------------------
+
+
+def scan_partition(analyzers, partition, *, batch_size=None, device=None, controller=None):
+    """Fold ONE partition to per-analyzer results through the
+    single-source pass: the one sub-scan of a solo partitioned run
+    (`FusedScanPass._run_partitioned`) and of a shard of the sharded scan
+    (parallel/multihost.py), so a shard's per-partition states are a solo
+    run's, bit for bit."""
+    return FusedScanPass(
+        analyzers, batch_size, device=device, controller=controller
+    ).run(partition.source())
+
+
+def _pad_size(n: int, batch_size: int) -> int:
+    """A mesh shard's padded rows for `n` rows: a power of two (at least
+    8), capped at `batch_size` rounded up to a multiple of 8, as the JAX
+    package pads, so the port's shards hold the JAX mesh's rows."""
+    size = 8
+    while size < n:
+        size *= 2
+    return min(size, max(-(-batch_size // 8) * 8, 8))
 
 
 class FusedScanPass:
@@ -1398,6 +1453,8 @@ class FusedScanPass:
         ctl = self._controller
         for part in parts:
             if ctl is not None:
+                # a partition boundary is a resume point: every partition
+                # before it has saved its states, so a soft cancel trips here
                 ctl.check(
                     where=f"partition {part.name}",
                     progress={
@@ -1405,6 +1462,7 @@ class FusedScanPass:
                         "partitions_total": len(parts),
                         "partitions_cached": cached_n,
                     },
+                    boundary=True,
                 )
             results: Optional[List[AnalyzerRunResult]] = None
             if cache is not None:
@@ -1415,9 +1473,13 @@ class FusedScanPass:
                     results = [AnalyzerRunResult(a, state=s) for a, s in zip(self.analyzers, states)]
                     cached_n += 1
             if results is None:
-                results = FusedScanPass(
-                    self.analyzers, self.batch_size, self.device, controller=ctl
-                ).run(part.source())
+                results = scan_partition(
+                    self.analyzers,
+                    part,
+                    batch_size=self.batch_size if self._batch_size_explicit else None,
+                    device=self.device,
+                    controller=ctl,
+                )
                 scanned_n += 1
                 if cache is not None and all(r.error is None for r in results):
                     cache.repository.save_states(
@@ -1448,9 +1510,7 @@ class FusedScanPass:
         table = prune_table_columns(table, plan.specs)
         # decode routing comes last: it classifies the columns that
         # survived pruning, and attaches to the final view
-        decode_plan = plan_decode_fastpath(
-            table, plan.specs, member_plan=plan, analyzers=[self.analyzers[i] for i in live_idx]
-        )
+        decode_plan = self._plan_decode(table, plan, [self.analyzers[i] for i in live_idx])
         if decode_plan is not None:
             table = apply_decode_plan(table, decode_plan)
         scan = self._run_pass(table, plan)
@@ -1489,12 +1549,20 @@ class FusedScanPass:
                 results[i] = AnalyzerRunResult(self.analyzers[i], state=state)
         return [results[i] for i in range(len(self.analyzers))]
 
+    def _plan_decode(self, table, plan: ScanMemberPlan, live) -> Optional[DecodePlan]:
+        """The scan's decode routing, with the decode-to-wire and
+        encoded-fold verdicts of its members."""
+        return plan_decode_fastpath(table, plan.specs, member_plan=plan, analyzers=live)
+
+    def _new_scan(self, plan: ScanMemberPlan) -> "_BatchScan":
+        return _BatchScan(self.device, self._controller, self.analyzers, plan)
+
     def _run_pass(self, table: Table, plan: ScanMemberPlan) -> "_BatchScan":
         """One scan over the table's batches: the device program for the
         device-placed members (none runs when no member is), the host fold
         for the rest."""
         runtime.record_pass()
-        scan = _BatchScan(self.device, self._controller, self.analyzers, plan)
+        scan = self._new_scan(plan)
         streaming = bool(getattr(table, "is_streaming", False))
         batch_size = self.batch_size
         if not scan.use_device and not streaming and not self._batch_size_explicit:
@@ -1587,21 +1655,54 @@ class _BatchScan:
             item.error = e
             self.device_down.set()
             return item
+        self._ship(item, items, wire_rows)
+        return item
+
+    def _copy_to(self, host: Dict[str, torch.Tensor], device: torch.device, stream):
+        """-> (the wire copied to `device`, the copy's event): the copy
+        runs on `stream` behind an event, or on the current stream with
+        no event when `stream` is None."""
+        if stream is None:
+            return {k: v.to(device, non_blocking=True) for k, v in host.items()}, None
+        # the pinned buffers go back to the host allocator only once the
+        # copy recorded on this stream has landed
+        with torch.cuda.stream(stream):
+            wire = {k: v.to(device, non_blocking=True) for k, v in host.items()}
+            copied = torch.cuda.Event()
+            copied.record(stream)
+        return wire, copied
+
+    def _ship(self, item: _Prepped, items, wire_rows) -> None:
+        """Pack the batch's device inputs into its wire and copy it to the
+        device (on the copy stream, when the pipeline made one)."""
+        batch = item.batch
         host, item.layout = pack_batch_inputs(
             items, runtime.wire_pad_size(batch.num_rows), self.sticky, batch.num_rows,
             pin=self.device.type == "cuda", prepacked=wire_rows,
         )
-        if self.copy_stream is None:
-            item.wire = {k: v.to(self.device, non_blocking=True) for k, v in host.items()}
-            return item
-        # the copy on the copy stream, behind an event the consumer's
-        # stream waits on; the pinned buffers go back to the host
-        # allocator only once the copy recorded on this stream has landed
-        with torch.cuda.stream(self.copy_stream):
-            item.wire = {k: v.to(self.device, non_blocking=True) for k, v in host.items()}
-            item.copied = torch.cuda.Event()
-            item.copied.record(self.copy_stream)
-        return item
+        item.wire, item.copied = self._copy_to(host, self.device, self.copy_stream)
+
+    def _await_copy(self, wire: Dict[str, torch.Tensor], copied, device: torch.device) -> None:
+        """Make `device`'s current stream wait for the wire's copy."""
+        if copied is None:
+            return
+        stream = torch.cuda.current_stream(device)
+        stream.wait_event(copied)
+        for tensor in wire.values():
+            # the copy stream's allocator must not hand these blocks out
+            # again while this stream still reads them
+            tensor.record_stream(stream)
+
+    def _launch(self, item: _Prepped) -> None:
+        """Run the device program on the batch's wire and submit its
+        partials to the fold."""
+        self._await_copy(item.wire, item.copied, self.device)
+        program = get_fused_fn(self.analyzers, item.layout, self.device, self.assisted)
+        runtime.record_launch()
+        # assisted members finish against the batch's host inputs
+        self.fold.submit(
+            *program(item.wire, item.batch.num_rows), item.built if self.assisted else None
+        )
 
     def fold_item(self, item: _Prepped) -> bool:
         """Fold one prepped batch; False once every member has failed."""
@@ -1618,20 +1719,7 @@ class _BatchScan:
                 self.device_error = item.error
                 self.device_down.set()
             elif item.wire is not None:
-                wire = item.wire
-                if item.copied is not None:
-                    stream = torch.cuda.current_stream(self.device)
-                    stream.wait_event(item.copied)
-                    for tensor in wire.values():
-                        # the copy stream's allocator must not hand these
-                        # blocks out again while this stream still reads them
-                        tensor.record_stream(stream)
-                program = get_fused_fn(self.analyzers, item.layout, self.device, self.assisted)
-                runtime.record_launch()
-                # assisted members finish against the batch's host inputs
-                self.fold.submit(
-                    *program(wire, item.batch.num_rows), item.built if self.assisted else None
-                )
+                self._launch(item)
         if host_live:
             fold_host_batch(
                 item.built, self.host_members, self.host_assisted, self.plan.host_keys,
@@ -1649,11 +1737,14 @@ class _BatchScan:
                 if not self.fold_item(self.prep(batch)):
                     break  # every member has failed: stop scanning
 
+    def _make_copy_streams(self) -> None:
+        self.copy_stream = torch.cuda.Stream(device=self.device)
+
     def run_pipelined(self, batches) -> None:
         """A streamed source's loop with the staged prep (the serial loop
         with `DEEQU_TPU_PIPELINE=0` gives the same bits)."""
         if self.device.type == "cuda" and self.use_device:
-            self.copy_stream = torch.cuda.Stream(device=self.device)
+            self._make_copy_streams()
         items = pipeline.staged(
             batches, lambda batch: self.prep(batch, precompute=True), name="prep"
         )

@@ -92,7 +92,10 @@ def staged(iterable: Iterable[Any], fn: Callable[[Any], Any], *, name: str = "pr
                         error.append(e)
             _put(_SENTINEL)
 
-    thread = threading.Thread(target=worker, daemon=True, name=f"deequ-pipe-{name}")
+    tag = runtime.shard_tag()
+    thread = threading.Thread(
+        target=worker, daemon=True, name=f"deequ-pipe-{name}" + (f"-shard{tag}" if tag else "")
+    )
     thread.start()
     try:
         while True:

@@ -327,6 +327,16 @@ class ExecutionStats:
     encfold_values: int = 0
     encfold_codes_folded: int = 0
     encfold_bytes_saved: int = 0
+    # mesh-sharded passes (parallel/distributed.py) and their shards in
+    # all: each shard of each batch is one device program run
+    mesh_passes: int = 0
+    mesh_shards: int = 0
+    # sharded streaming scan (parallel/multihost.py), this process's
+    # shard: its partitions, the gathered envelope bytes that crossed
+    # the process boundary, and the rows of its partitions
+    shard_partitions_local: int = 0
+    shard_merge_bytes: int = 0
+    shard_rows_local: int = 0
 
     @property
     def jobs(self) -> int:
@@ -451,6 +461,29 @@ def record_encfold(
         sink.encfold_values += int(values)
         sink.encfold_codes_folded += int(codes)
         sink.encfold_bytes_saved += int(bytes_saved)
+
+
+def record_mesh_pass(shards: int) -> None:
+    """One mesh-sharded pass over `shards` shards."""
+    for sink in _sinks():
+        sink.mesh_passes += 1
+        sink.mesh_shards += int(shards)
+
+
+def record_shard_scan(partitions_local: int, merge_bytes: int, rows_local: int) -> None:
+    """This process's part of one sharded streaming scan."""
+    for sink in _sinks():
+        sink.shard_partitions_local += int(partitions_local)
+        sink.shard_merge_bytes += int(merge_bytes)
+        sink.shard_rows_local += int(rows_local)
+
+
+def shard_tag() -> str:
+    """This process's shard in a sharded scan (``DEEQU_TPU_SHARD``, set
+    by the launcher for each worker), which the pipeline's thread names
+    carry so that a stack dump says whose stage thread it is. Empty
+    outside sharded runs."""
+    return os.environ.get("DEEQU_TPU_SHARD", "")
 
 
 # -- stream knob (data/source.py, ops/pipeline.py) ------------------------------

@@ -95,16 +95,6 @@ class GenericColumnStatistics:
         return self.known_types[column]
 
 
-def check_engine(engine: str, mesh) -> None:
-    """The port runs the single-device pass only: "auto" and "single"
-    take it; a mesh or "distributed" raises until multi-GPU runs are
-    ported."""
-    if engine not in ("auto", "single", "distributed"):
-        raise ValueError(f"engine must be one of auto, single, distributed; got {engine!r}")
-    if engine == "distributed" or mesh is not None:
-        raise NotImplementedError("distributed profiling is not ported yet")
-
-
 class ColumnProfiler:
     @staticmethod
     def profile(
@@ -121,8 +111,9 @@ class ColumnProfiler:
         device: runtime.DeviceLike = None,
     ) -> ColumnProfiles:
         """reference: ColumnProfiler.scala:81-188. Every pass takes the
-        metrics repository options (reference: :128-153)."""
-        check_engine(engine, mesh)
+        metrics repository options (reference: :128-153) and the engine
+        (runners/engine.py: "auto", "single", or "distributed" over
+        `mesh`)."""
         device = runtime.resolve_device(device)
         relevant = (
             list(restrict_to_columns) if restrict_to_columns is not None else data.column_names
@@ -156,7 +147,11 @@ class ColumnProfiler:
                 analyzers_pass1.extend(_numeric_stat_analyzers(name))
 
         def run_pass(table, analyzers) -> AnalyzerContext:
-            builder = AnalysisRunner.on_data(table, device).add_analyzers(analyzers)
+            builder = (
+                AnalysisRunner.on_data(table, device)
+                .add_analyzers(analyzers)
+                .with_engine(engine, mesh)
+            )
             if metrics_repository is not None:
                 builder = builder.use_repository(metrics_repository)
                 if reuse_existing_results_for_key is not None:

@@ -1,8 +1,7 @@
 """Fluent entry for column profiling.
 
 reference: profiles/ColumnProfilerRunner.scala:36-108 and
-ColumnProfilerRunBuilder.scala:70-217. A distributed engine raises
-NotImplementedError until multi-GPU runs are ported.
+ColumnProfilerRunBuilder.scala:70-217.
 """
 
 from __future__ import annotations
@@ -44,8 +43,9 @@ class ColumnProfilerRunBuilder:
         self._mesh = None
 
     def with_engine(self, engine: str, mesh=None) -> "ColumnProfilerRunBuilder":
-        """"auto" or "single": the single-device pass; "distributed" or a
-        mesh raises until multi-GPU runs are ported."""
+        """"auto" (a mesh over every CUDA device when there are two or
+        more and the table is large), "single", or "distributed" (over
+        `mesh`, parallel/distributed.data_mesh), runners/engine.py."""
         self._engine = engine
         self._mesh = mesh
         return self

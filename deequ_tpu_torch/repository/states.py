@@ -249,6 +249,125 @@ def decode_states(blob: bytes, analyzers: Sequence[Any]) -> List[Any]:
     return out
 
 
+# -- shard envelope (the sharded scan, parallel/multihost.py) ------------------
+
+#: magic of one shard's gathered contribution: its per-partition DQST
+#: envelopes and its cancel status, versioned apart from DQST
+SHARD_MAGIC = b"DQSH"
+SHARD_FORMAT_VERSION = 1
+
+
+@dataclass
+class ShardEnvelope:
+    """One shard's decoded contribution to the cross-process merge: which
+    shard, under which plan signature, whether it was cancelled (and
+    why), and its (partition fingerprint, DQST envelope) entries in the
+    shard's partition order."""
+
+    shard: int
+    signature: str
+    cancelled: bool
+    reason: str
+    entries: List[Tuple[str, bytes]]
+
+
+def encode_shard_states(
+    shard: int,
+    signature: str,
+    entries: Sequence[Tuple[str, bytes]],
+    *,
+    cancelled: bool = False,
+    reason: str = "",
+) -> bytes:
+    """One shard's per-partition state envelopes, for the all-gather:
+
+        DQSH | version u32 | shard u32 | flags u8 (bit0 = cancelled) |
+          reason_len u32 | reason utf8 | sig_len u32 | signature utf8 |
+          count u32 | ( fp_len u32 | fingerprint utf8 |
+                        blob_len u32 | DQST blob )*
+        | sha256(previous bytes)
+
+    Each blob is the `encode_states` envelope the shard saved to its
+    state repository, so the merge decodes a partition exactly as a
+    resumed solo run loads it. A cancelled shard still gathers (with its
+    flag set), and every shard raises after the exchange. The bytes are
+    the JAX package's for the same entries."""
+    body = bytearray()
+    body += SHARD_MAGIC
+    body += struct.pack(">I", SHARD_FORMAT_VERSION)
+    body += struct.pack(">I", int(shard))
+    body += struct.pack(">B", 1 if cancelled else 0)
+    reason_b = reason.encode("utf-8")
+    body += struct.pack(">I", len(reason_b)) + reason_b
+    sig_b = signature.encode("utf-8")
+    body += struct.pack(">I", len(sig_b)) + sig_b
+    body += struct.pack(">I", len(entries))
+    for fingerprint, blob in entries:
+        fp_b = fingerprint.encode("utf-8")
+        body += struct.pack(">I", len(fp_b)) + fp_b
+        body += struct.pack(">I", len(blob)) + blob
+    return bytes(body) + _DIGEST(bytes(body)).digest()
+
+
+def decode_shard_states(blob: bytes) -> ShardEnvelope:
+    """Inverse of `encode_shard_states`, validated end to end as
+    `decode_states` is. Any defect raises `StateDecodeError`: the caller
+    treats the envelope as a lost shard and recovers its partitions from
+    the state repository or by a rescan."""
+    header = len(SHARD_MAGIC)
+    if len(blob) < header + 8 + _DIGEST_LEN:
+        raise StateDecodeError("truncated shard envelope")
+    body, digest = blob[:-_DIGEST_LEN], blob[-_DIGEST_LEN:]
+    if _DIGEST(body).digest() != digest:
+        raise StateDecodeError("shard envelope digest mismatch")
+    if body[:header] != SHARD_MAGIC:
+        raise StateDecodeError("bad shard magic")
+    off = header
+    try:
+        version, shard = struct.unpack_from(">II", body, off)
+        off += 8
+        if version != SHARD_FORMAT_VERSION:
+            raise StateDecodeError(f"shard format version {version} != {SHARD_FORMAT_VERSION}")
+        (flags,) = struct.unpack_from(">B", body, off)
+        off += 1
+        (reason_len,) = struct.unpack_from(">I", body, off)
+        off += 4
+        reason = body[off : off + reason_len].decode("utf-8")
+        off += reason_len
+        (sig_len,) = struct.unpack_from(">I", body, off)
+        off += 4
+        signature = body[off : off + sig_len].decode("utf-8")
+        off += sig_len
+        (count,) = struct.unpack_from(">I", body, off)
+        off += 4
+        entries: List[Tuple[str, bytes]] = []
+        for _ in range(count):
+            (fp_len,) = struct.unpack_from(">I", body, off)
+            off += 4
+            fingerprint = body[off : off + fp_len].decode("utf-8")
+            if len(fingerprint.encode("utf-8")) != fp_len:
+                raise StateDecodeError("truncated shard entry fingerprint")
+            off += fp_len
+            (blob_len,) = struct.unpack_from(">I", body, off)
+            off += 4
+            entry = body[off : off + blob_len]
+            if len(entry) != blob_len:
+                raise StateDecodeError("truncated shard entry payload")
+            off += blob_len
+            entries.append((fingerprint, bytes(entry)))
+    except struct.error as e:
+        raise StateDecodeError(f"truncated shard envelope: {e}") from e
+    if off != len(body):
+        raise StateDecodeError("trailing bytes after last shard entry")
+    return ShardEnvelope(
+        shard=int(shard),
+        signature=signature,
+        cancelled=bool(flags & 1),
+        reason=reason,
+        entries=entries,
+    )
+
+
 def merge_states(a: Any, b: Any) -> Any:
     """Semigroup merge with None as the identity (an empty partition
     contributes no state)."""

@@ -32,6 +32,16 @@ class AnalysisRunBuilder:
         self._save_key = None
         self._state_repository = None
         self._dataset_name = "default"
+        self._engine = "auto"
+        self._mesh = None
+
+    def with_engine(self, engine: str, mesh=None) -> "AnalysisRunBuilder":
+        """"auto" (a mesh over every CUDA device when there are two or
+        more and the table is large), "single", or "distributed" (over
+        `mesh`, parallel/distributed.data_mesh), runners/engine.py."""
+        self._engine = engine
+        self._mesh = mesh
+        return self
 
     def with_controller(self, controller) -> "AnalysisRunBuilder":
         """Attach a `RunController` (core/controller.py) whose `cancel()`
@@ -110,4 +120,6 @@ class AnalysisRunBuilder:
             state_repository=self._state_repository,
             dataset_name=self._dataset_name,
             controller=controller,
+            engine=self._engine,
+            mesh=self._mesh,
         )

@@ -57,14 +57,21 @@ class AnalysisRunner:
         state_repository=None,
         dataset_name: str = "default",
         controller=None,
+        engine: str = "auto",
+        mesh=None,
     ) -> AnalyzerContext:
         """`controller` (core/controller.RunController) is checked at every
         batch and partition boundary of the fused pass. `state_repository`
         (repository/states.StateRepository) caches the states of each
-        partition of a partitioned source under `dataset_name`."""
+        partition of a partitioned source under `dataset_name`. `engine`
+        and `mesh` pick the single-device pass or the mesh-sharded one
+        (runners/engine.py); the mesh pass never uses a state cache."""
         if not analyzers:
             return AnalyzerContext.empty()
         device = runtime.resolve_device(device)
+        from deequ_tpu_torch.runners.engine import resolve_engine
+
+        mesh = resolve_engine(engine, mesh, num_rows=data.num_rows, device=device)
 
         seen = set()
         unique: List[Analyzer] = []
@@ -115,14 +122,20 @@ class AnalysisRunner:
 
         # the fused scan pass (reference: AnalysisRunner.scala:279-326)
         if shareable:
-            state_cache = None
-            if state_repository is not None and getattr(data, "partitions", None) is not None:
-                from deequ_tpu_torch.repository.states import StateCacheContext
+            if mesh is not None:
+                from deequ_tpu_torch.parallel.distributed import DistributedScanPass
 
-                state_cache = StateCacheContext(state_repository, dataset_name)
-            results = FusedScanPass(
-                shareable, device=device, controller=controller, state_cache=state_cache
-            ).run(data)
+                scan = DistributedScanPass(shareable, mesh=mesh, controller=controller)
+            else:
+                state_cache = None
+                if state_repository is not None and getattr(data, "partitions", None) is not None:
+                    from deequ_tpu_torch.repository.states import StateCacheContext
+
+                    state_cache = StateCacheContext(state_repository, dataset_name)
+                scan = FusedScanPass(
+                    shareable, device=device, controller=controller, state_cache=state_cache
+                )
+            results = scan.run(data)
             for result in results:
                 analyzer = result.analyzer
                 if result.error is not None:
@@ -142,7 +155,7 @@ class AnalysisRunner:
         context = reused + AnalyzerContext(metrics)
         if grouping:
             context = context + run_grouping_analyzers(
-                data, grouping, device, aggregate_with, save_states_with
+                data, grouping, device, aggregate_with, save_states_with, mesh=mesh
             )
 
         # save (reference: AnalysisRunner.scala:182-230)

@@ -35,7 +35,10 @@ def run_grouping_analyzers(
     device: torch.device,
     aggregate_with: Optional["StateLoader"] = None,
     save_states_with: Optional["StatePersister"] = None,
+    mesh=None,
 ) -> AnalyzerContext:
+    """`mesh` (parallel/distributed.py) counts the groups row-sharded over
+    its devices (`sharded_bincount`) where the code space is small enough."""
     metrics: Dict[object, Metric] = {}
     # group by sorted grouping-column set (reference: AnalysisRunner.scala:164-180)
     groups: Dict[Tuple[str, ...], List[FrequencyBasedAnalyzer]] = {}
@@ -47,19 +50,19 @@ def run_grouping_analyzers(
             continue
         groups.setdefault(tuple(sorted(analyzer.grouping_columns())), []).append(analyzer)
     for cols, group in groups.items():
-        _run_column_set(data, cols, group, metrics, device, aggregate_with, save_states_with)
+        _run_column_set(data, cols, group, metrics, device, aggregate_with, save_states_with, mesh)
     return AnalyzerContext(metrics)
 
 
 def _run_column_set(
-    data, cols, group, metrics, device, aggregate_with=None, save_states_with=None
+    data, cols, group, metrics, device, aggregate_with=None, save_states_with=None, mesh=None
 ) -> None:
     """One grouping-column set: a shared frequency pass, then the shared
     aggregation, then the analyzers that are not shareable. With a state
     loader or persister each analyzer merges and saves its own state and
     aggregates it alone, still on the run's device."""
     try:
-        shared_state = compute_frequencies(data, list(cols))
+        shared_state = compute_frequencies(data, list(cols), mesh=mesh)
     except Exception as e:  # noqa: BLE001
         for analyzer in group:
             metrics[analyzer] = analyzer.to_failure_metric(e)

@@ -51,6 +51,16 @@ class VerificationRunBuilder:
         self._save_check_results_json_path: Optional[str] = None
         self._save_success_metrics_json_path: Optional[str] = None
         self._overwrite_output_files = False
+        self._engine = "auto"
+        self._mesh = None
+
+    def with_engine(self, engine: str, mesh=None) -> "VerificationRunBuilder":
+        """"auto" (a mesh over every CUDA device when there are two or
+        more and the table is large), "single", or "distributed" (over
+        `mesh`, parallel/distributed.data_mesh), runners/engine.py."""
+        self._engine = engine
+        self._mesh = mesh
+        return self
 
     def with_controller(self, controller) -> "VerificationRunBuilder":
         """Attach a `RunController` (core/controller.py) whose `cancel()`
@@ -179,6 +189,8 @@ class VerificationRunBuilder:
             dataset_name=self._dataset_name,
             controller=self._controller,
             deadline_s=self._deadline_s,
+            engine=self._engine,
+            mesh=self._mesh,
         )
         # JSON file outputs (reference: VerificationSuite.scala:146-172)
         from deequ_tpu_torch.core.fileio import write_text_output

@@ -58,12 +58,16 @@ class VerificationSuite:
         dataset_name: str = "default",
         controller=None,
         deadline_s: Optional[float] = None,
+        engine: str = "auto",
+        mesh=None,
     ) -> VerificationResult:
         """reference: VerificationSuite.scala:107-144. A `controller`
         (core/controller.RunController) is checked at every batch and
         partition boundary; `deadline_s` without one makes one. With a
         `state_repository` and a partitioned source, unchanged partitions
-        load their states instead of being scanned."""
+        load their states instead of being scanned. `engine` and `mesh`
+        pick the single-device or the mesh-sharded pass
+        (runners/engine.py)."""
         if controller is None and deadline_s is not None:
             from deequ_tpu_torch.core.controller import RunController
 
@@ -87,6 +91,8 @@ class VerificationSuite:
             state_repository=state_repository,
             dataset_name=dataset_name,
             controller=controller,
+            engine=engine,
+            mesh=mesh,
         )
         result = VerificationSuite.evaluate(checks, analysis_results)
         if metrics_repository is not None and save_or_append_results_with_key is not None:

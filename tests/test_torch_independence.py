@@ -86,6 +86,12 @@ SLICE_MODULES = [
     "deequ_tpu_torch.data.native_reader",
     "deequ_tpu_torch.data.encfold",
     "deequ_tpu_torch.lint.pushdown",
+    "deequ_tpu_torch.runners.engine",
+    "deequ_tpu_torch.parallel",
+    "deequ_tpu_torch.parallel.distributed",
+    "deequ_tpu_torch.parallel.multihost",
+    "deequ_tpu_torch.parallel.procspawn",
+    "deequ_tpu_torch.parallel.shard",
 ]
 
 

@@ -365,10 +365,27 @@ def test_the_profiler_needs_cuda_unless_asked_for_the_cpu():
 
 @pytest.mark.parametrize("option", ["distributed"])
 def test_unported_options_raise(option):
-    builder = PRunner.on_data(PTable.from_pydict(example_table()), device="cpu")
-    builder = builder.with_engine(option)
-    with pytest.raises(NotImplementedError):
-        builder.run()
+    """The distributed engine, once unported, now runs: over an 8-shard
+    CPU mesh the profile equals the single-device one (counts, types and
+    histograms exactly, float sums within 1e-12), and an unknown engine
+    still raises."""
+    from deequ_tpu_torch.parallel import data_mesh
+
+    table = PTable.from_pydict(example_table())
+    single = PRunner.on_data(table, device="cpu").with_engine("single").run()
+    sharded = (
+        PRunner.on_data(table, device="cpu").with_engine(option, data_mesh(["cpu"] * 8)).run()
+    )
+    got, want = json.loads(sharded.to_json()), json.loads(single.to_json())
+    assert [c["column"] for c in got["columns"]] == [c["column"] for c in want["columns"]]
+    for g, w in zip(got["columns"], want["columns"]):
+        for key, value in w.items():
+            if key in ("mean", "sum", "stdDev"):
+                assert g[key] == pytest.approx(value, rel=1e-12), (w["column"], key)
+            else:
+                assert g[key] == value, (w["column"], key)
+    with pytest.raises(ValueError):
+        PRunner.on_data(table, device="cpu").with_engine("warp").run()
 
 
 def _saved(repository, key):
