@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """GPU smoke run of deequ_tpu_torch's main paths: verification under each
 placement, column profiling, constraint suggestion, streamed Parquet
-with its host fast paths, incremental runs, anomaly detection, the
-mesh-sharded scan and the sharded scan across processes.
+with its host fast paths, row-group pruning and EXPLAIN, incremental
+runs, anomaly detection, the mesh-sharded scan and the sharded scan
+across processes.
 
 Run from the repository root on a machine with one CUDA GPU:
 
@@ -50,8 +51,12 @@ Phases, one JSON line each:
               metrics, check statuses and messages equal a device="cpu"
               run. The second run's wall time is split into the fused
               pass and, inside it, the host's predicate evaluation, wire
-              packing and quantile selection (host_finish_batch), and the
-              grouping pass;
+              packing and quantile selection (host_finish_batch), the
+              grouping pass and the static pass (lint/: validate_run_plan).
+              explain_plan of the same check on the same table predicts
+              the warm run's passes, group passes, launches and batches
+              exactly, and its first-batch wire bytes up to the masks the
+              run found all-true and sent as constants (listed);
      placement  the bandwidth probe on the card with an empty disk
               cache (it must place as "device"; a second call is served
               from the cache with no copy), then phase 4's check less its
@@ -108,6 +113,24 @@ Phases, one JSON line each:
               and bit for bit, with the grouping analyzers folded through
               GroupCountAccumulator. Files go to a temporary directory;
               their writing is timed apart from the runs.
+ 9b. prune    the lineitem table stably sorted by l_orderkey (dbgen's
+              order) in one zstd file of 10 row groups of 1,048,576 rows.
+              Run A filters every member (Size, Completeness, Mean, Sum,
+              Minimum, Maximum, StandardDeviation, ApproxCountDistinct,
+              ApproxQuantile) on l_orderkey >= K, K the smallest key of
+              group 7, plus a Size whose where adds a DOUBLE atom (never
+              elided); run B filters the same members on l_quantity >= 1
+              (proven all-true), the quantile on l_extendedprice. Each
+              with DEEQU_TPU_PUSHDOWN on and off, placement "device": the
+              metrics bit for bit alike; A skips exactly the groups whose
+              pyarrow statistics put their largest key below K, as
+              explain_plan predicts, and launches K1-K4 once per
+              predicted batch, fewer than off; B skips nothing, elides
+              the where (never evaluated, one column fewer decoded) and
+              packs the same first-batch wire bytes on and off. EXPLAIN's
+              passes, launches, batches and first-batch wire bytes equal
+              every run's exactly (B off: up to its all-true mask). Wall
+              times and the static pass's time per run, on and off;
  10. incremental  BASELINE.json config 5's incremental state merge:
               INCREMENTAL_DAYS (100) daily Parquet partitions of the
               main path's schema, INCREMENTAL_ROWS (131,072) rows each,
@@ -177,9 +200,9 @@ Then the kernels' summary line (launches on the main path, on the
 profile as `launches_profile`, on the streamed profile and verification
 as `launches_stream`, on the incremental append run as
 `launches_incremental`, per placement of phase `placement` as
-`launches_placement`, on one mesh run as `launches_mesh` and on the
-workers' first sharded runs as `launches_sharded`) and, last, the
-device line. Any failed
+`launches_placement`, on one mesh run as `launches_mesh`, on the
+workers' first sharded runs as `launches_sharded` and on the pruned run A
+as `launches_prune`) and, last, the device line. Any failed
 check raises: the script exits non-zero and prints no result. Without
 CUDA it exits non-zero at once.
 """
@@ -876,7 +899,9 @@ def main_path_phase(torch, ck, rows: int, seed: int, card: str, power_limit: str
     from deequ_tpu_torch.data.expr import Predicate
     from deequ_tpu_torch.ops import fused, runtime
     from deequ_tpu_torch.ops.fused import FusedScanPass
+    from deequ_tpu_torch.lint import explain_plan
     from deequ_tpu_torch.runners import analysis_runner
+    from deequ_tpu_torch.verification import suite
 
     t0 = time.perf_counter()
     data, table = flagship_table(rows, seed)
@@ -901,9 +926,13 @@ def main_path_phase(torch, ck, rows: int, seed: int, card: str, power_limit: str
 
     runs = []
     split = {}
+    seen = []
     for i in range(2):
         with contextlib.ExitStack() as stack:
             if i == 1:  # the warm run: where its wall time goes
+                stack.enter_context(packed_bytes(seen))
+                stack.enter_context(timed_calls(suite, "validate_run_plan", split))
+                warm_stats = stack.enter_context(runtime.monitored())
                 stack.enter_context(timed_calls(FusedScanPass, "run", split))
                 stack.enter_context(timed_calls(Predicate, "eval_mask", split))
                 stack.enter_context(timed_calls(Predicate, "eval", split))
@@ -914,6 +943,12 @@ def main_path_phase(torch, ck, rows: int, seed: int, card: str, power_limit: str
         if counts != expected_launches:
             raise AssertionError(f"launches {counts}, expected {expected_launches}")
         runs.append((result, wall, counts))
+    # EXPLAIN of the same check on the same table against the warm run
+    t0 = time.perf_counter()
+    explained = explain_plan(table, [quantiles_y], [check], device="cuda")
+    explain_s = time.perf_counter() - t0
+    explain_line = explained_against_run("main path", explained, warm_stats, seen,
+                                         exact_wire=False)
     metrics = [metric_values(r) for r, _w, _c in runs]
     for key, value in metrics[0].items():
         if not same_bits(value, metrics[1][key]):
@@ -989,7 +1024,10 @@ def main_path_phase(torch, ck, rows: int, seed: int, card: str, power_limit: str
             "pack_batch_inputs": split.get("pack_batch_inputs", 0.0),
             "host_finish_batch": split.get("host_finish_batch", 0.0),
             "grouping_pass": split.get("run_grouping_analyzers", 0.0),
+            "static_pass": split.get("validate_run_plan", 0.0),
         },
+        "explain_s": explain_s,
+        "explain": explain_line,
         "host_finish_batch_share": split.get("host_finish_batch", 0.0) / second,
         "cpu_run_s": cpu_wall,
         "launches_per_run": runs[0][2],
@@ -1702,6 +1740,256 @@ def env(**values):
                 os.environ.pop(key, None)
             else:
                 os.environ[key] = value
+
+
+PRUNE_GROUP_ROWS = 1 << 20  # row groups of the clustered lineitem file: 10 groups
+
+
+@contextlib.contextmanager
+def packed_bytes(seen):
+    """Append to `seen` each `fused.pack_batch_inputs` call's (sum of the
+    `nbytes` of the buffers it returns, its layout), as timed_calls wraps
+    a function."""
+    from deequ_tpu_torch.ops import fused
+
+    original = fused.pack_batch_inputs
+
+    def wrapper(*args, **kwargs):
+        buffers, layout = original(*args, **kwargs)
+        seen.append((sum(b.numel() * b.element_size() for b in buffers.values()), layout))
+        return buffers, layout
+
+    fused.pack_batch_inputs = wrapper
+    try:
+        yield seen
+    finally:
+        fused.pack_batch_inputs = original
+
+
+def explained_against_run(label: str, explained, stats, seen, exact_wire: bool):
+    """EXPLAIN's prediction against the run it predicts: passes, group
+    passes, device launches, batches and skipped row groups must be
+    equal; the first batch's wire bytes equal the sum of `nbytes` of the
+    buffers pack_batch_inputs returned, less one bit row (padded / 8
+    bytes) for each mask the prediction ships that the run found all-true
+    on that batch and sent as a constant. `exact_wire` requires no such
+    mask. -> the comparison, for the phase's line."""
+    cost = explained.cost
+    scan = cost.scan_pass
+    observed = {
+        "device_passes": stats.device_passes,
+        "device_launches": stats.device_launches,
+        "group_passes": stats.group_passes,
+    }
+    if cost.counters != observed:
+        raise AssertionError(f"{label}: EXPLAIN predicted {cost.counters}, the run {observed}")
+    if scan.n_batches != len(seen):
+        raise AssertionError(f"{label}: EXPLAIN predicted {scan.n_batches} batches, "
+                             f"the run packed {len(seen)}")
+    if (scan.rg_skipped or 0) != stats.rg_skipped:
+        raise AssertionError(f"{label}: EXPLAIN predicted {scan.rg_skipped} row groups "
+                             f"skipped, the run skipped {stats.rg_skipped}")
+    nbytes, layout = seen[0]
+    constant = [key for key in scan.wire_bit_keys if key in set(layout[1])]
+    if exact_wire and constant:
+        raise AssertionError(f"{label}: masks {constant} went as constants")
+    predicted = scan.wire_bytes_per_batch
+    if predicted is None or predicted - len(constant) * (layout[2] // 8) != nbytes:
+        raise AssertionError(f"{label}: EXPLAIN predicted {predicted} first-batch wire bytes "
+                             f"({len(constant)} masks sent as constants), the run packed {nbytes}")
+    return {
+        "counters": observed,
+        "batches": len(seen),
+        "rg_skipped": stats.rg_skipped,
+        "first_batch_wire_bytes_predicted": predicted,
+        "first_batch_wire_bytes_packed": nbytes,
+        "masks_sent_as_constants": constant,
+    }
+
+
+def prune_members(where: str, double_where=None, quantile_column: str = "l_quantity"):
+    """The "new orders" check's members: each carries `where`; with
+    `double_where` one more member whose where has a DOUBLE atom."""
+    from deequ_tpu_torch.analyzers import (
+        ApproxCountDistinct, ApproxQuantile, Completeness, Maximum, Mean, Minimum, Size,
+        StandardDeviation, Sum,
+    )
+
+    members = [
+        Size(where=where),
+        Completeness("l_comment", where=where),
+        Mean("l_extendedprice", where=where),
+        Sum("l_extendedprice", where=where),
+        Minimum("l_extendedprice", where=where),
+        Maximum("l_extendedprice", where=where),
+        StandardDeviation("l_extendedprice", where=where),
+        ApproxCountDistinct("l_partkey", where=where),
+        ApproxQuantile(quantile_column, 0.5, where=where),
+    ]
+    if double_where is not None:
+        members.append(Size(where=double_where))
+    return members
+
+
+def prune_phase(torch, ck, lineitem, card: str, power_limit: str):
+    """Row-group pruning on the card: the lineitem table stably sorted by
+    l_orderkey (dbgen's order) in one zstd file of 10 row groups of
+    PRUNE_GROUP_ROWS rows. Run A: every member filtered on l_orderkey >= K
+    (K the smallest key of group 7), one more with a DOUBLE atom; run B:
+    the members on l_quantity >= 1 (int64, no nulls: proven all-true), the
+    quantile on l_extendedprice. Each with DEEQU_TPU_PUSHDOWN on and off:
+    the metrics bit for bit alike; A skips exactly the groups whose
+    pyarrow statistics put their largest key below K, as EXPLAIN predicts,
+    and launches K1-K4 once per predicted batch, fewer than off; B skips
+    nothing, elides one where (never evaluated, l_quantity never decoded)
+    and ships the same wire bytes on and off. EXPLAIN's passes, batches,
+    launches and first-batch wire bytes equal both runs' exactly. ->
+    run A's kernel launches."""
+    import tempfile
+
+    import numpy as np
+    import pyarrow.parquet as pq
+
+    from deequ_tpu_torch.data.expr import Predicate
+    from deequ_tpu_torch.data.table import Table
+    from deequ_tpu_torch.lint import explain_plan
+    from deequ_tpu_torch.ops import runtime
+    from deequ_tpu_torch.runners import analysis_runner
+    from deequ_tpu_torch.runners.analysis_runner import AnalysisRunner
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_prune_") as tmp:
+        path = os.path.join(tmp, "lineitem_by_orderkey.parquet")
+        t0 = time.perf_counter()
+        arrow = lineitem.to_arrow()
+        order = np.argsort(arrow.column("l_orderkey").to_numpy(), kind="stable")
+        arrow = arrow.take(order)
+        keys = arrow.column("l_orderkey").to_numpy()
+        k7 = int(keys[7 * PRUNE_GROUP_ROWS])
+        pq.write_table(arrow, path, row_group_size=PRUNE_GROUP_ROWS, compression="zstd")
+        del arrow, order, keys
+        write_s = time.perf_counter() - t0
+        meta = pq.ParquetFile(path).metadata
+        key_col = meta.schema.to_arrow_schema().get_field_index("l_orderkey")
+        below = sum(
+            1 for g in range(meta.num_row_groups)
+            if meta.row_group(g).column(key_col).statistics.max < k7
+        )
+
+        def run(members, pushdown: str, evaluated=None):
+            seen, validate = [], {}
+            with contextlib.ExitStack() as stack, env(DEEQU_TPU_PUSHDOWN=pushdown):
+                stack.enter_context(packed_bytes(seen))
+                stack.enter_context(timed_calls(analysis_runner, "validate_run_plan", validate))
+                if evaluated is not None:
+                    original = Predicate.eval_mask
+
+                    def counting(self, table):
+                        evaluated.append(self.expression)
+                        return original(self, table)
+
+                    stack.callback(setattr, Predicate, "eval_mask", original)
+                    Predicate.eval_mask = counting
+                stats = stack.enter_context(runtime.monitored())
+                ck.reset_launch_counts()
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                ctx = (
+                    AnalysisRunner.on_data(Table.scan_parquet(path), device="cuda")
+                    .add_analyzers(members)
+                    .run()
+                )
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - start
+                launches = ck.launch_counts()
+                explained = explain_plan(Table.scan_parquet(path), members, device="cuda")
+            values = {repr(a): m.value.get() for a, m in ctx.metric_map.items()}
+            return {
+                "values": values, "stats": stats, "seen": seen, "wall": wall,
+                "launches": launches, "explained": explained,
+                "validate_s": validate.get("validate_run_plan", 0.0),
+            }
+
+        with env(DEEQU_TPU_PLACEMENT="device"):
+            where_a = f"l_orderkey >= {k7}"
+            members_a = prune_members(where_a, double_where=f"{where_a} and l_discount >= 0.0")
+            a_on, a_off = run(members_a, "1"), run(members_a, "0")
+            where_b = "l_quantity >= 1"
+            members_b = prune_members(where_b, quantile_column="l_extendedprice")
+            evaluated_on, evaluated_off = [], []
+            b_on = run(members_b, "1", evaluated_on)
+            b_off = run(members_b, "0", evaluated_off)
+
+    lines = {}
+    for label, on, off in (("A", a_on, a_off), ("B", b_on, b_off)):
+        for key, value in on["values"].items():
+            if not same_bits(value, off["values"][key]):
+                raise AssertionError(f"run {label}: {key} differs with pushdown on and off: "
+                                     f"{value!r} vs {off['values'][key]!r}")
+        # with pushdown off nothing proves run B's where all-true: the run
+        # alone finds its mask all-true and ships it as a constant
+        lines[label] = {
+            side: explained_against_run(f"run {label} pushdown {side}", r["explained"],
+                                        r["stats"], r["seen"], exact_wire=(label, side) != ("B", "off"))
+            for side, r in (("on", on), ("off", off))
+        }
+    # run A: the skip
+    stats = a_on["stats"]
+    predicted = a_on["explained"].cost.scan_pass.rg_skipped
+    if not (stats.rg_skipped == below == predicted) or stats.rg_total != meta.num_row_groups:
+        raise AssertionError(f"run A skipped {stats.rg_skipped} of {stats.rg_total} groups; the "
+                             f"statistics put {below} below K, EXPLAIN predicted {predicted}")
+    double = f"{where_a} and l_discount >= 0.0"
+    if double in a_on["explained"].cost.prune.elided_wheres():
+        raise AssertionError("run A: the DOUBLE where was elided")
+    batches = a_on["explained"].cost.scan_pass.n_batches
+    for name, count in a_on["launches"].items():
+        if count != batches or not count < a_off["launches"][name]:
+            raise AssertionError(f"run A: {name} launched {count} times with pushdown on "
+                                 f"({a_off['launches'][name]} off), {batches} batches predicted")
+    # run B: the elision
+    stats_on, stats_off = b_on["stats"], b_off["stats"]
+    if stats_on.rg_skipped or stats_on.wheres_elided != 1 or stats_off.wheres_elided:
+        raise AssertionError(f"run B: {stats_on.rg_skipped} groups skipped, "
+                             f"{stats_on.wheres_elided} wheres elided on, "
+                             f"{stats_off.wheres_elided} off")
+    if where_b in evaluated_on or where_b not in evaluated_off:
+        raise AssertionError("run B: the elided where was evaluated, or the unelided one not")
+    if stats_on.wire_cols_total != stats_off.wire_cols_total - 1:
+        raise AssertionError(f"run B decoded {stats_on.wire_cols_total} columns on, "
+                             f"{stats_off.wire_cols_total} off")
+    if b_on["seen"][0][0] != b_off["seen"][0][0]:
+        raise AssertionError("run B: the wire bytes differ on and off")
+    emit({
+        "phase": "prune",
+        "rows": lineitem.num_rows,
+        "row_groups": meta.num_row_groups,
+        "group_rows": PRUNE_GROUP_ROWS,
+        "k": k7,
+        "card": card,
+        "power_limit": power_limit,
+        "write_s": write_s,
+        "run_a": {
+            "groups_skipped": stats.rg_skipped,
+            "groups_below_k_by_pyarrow": below,
+            "rows_skipped": stats.rg_rows_skipped,
+            "wall_s_on": a_on["wall"], "wall_s_off": a_off["wall"],
+            "validate_s_on": a_on["validate_s"], "validate_s_off": a_off["validate_s"],
+            "launches_on": a_on["launches"], "launches_off": a_off["launches"],
+            "explain": lines["A"],
+        },
+        "run_b": {
+            "wheres_elided": stats_on.wheres_elided,
+            "decoded_columns_on": stats_on.wire_cols_total,
+            "decoded_columns_off": stats_off.wire_cols_total,
+            "wall_s_on": b_on["wall"], "wall_s_off": b_off["wall"],
+            "validate_s_on": b_on["validate_s"], "validate_s_off": b_off["validate_s"],
+            "first_batch_wire_bytes_on": b_on["seen"][0][0],
+            "first_batch_wire_bytes_off": b_off["seen"][0][0],
+            "explain": lines["B"],
+        },
+        "explain_run_a": a_on["explained"].render(),
+    })
+    return a_on["launches"]
 
 
 def stream_phase(torch, ck, lineitem, memory_profiles, memory_launches, stream_rows: int,
@@ -2962,6 +3250,8 @@ def main() -> int:
     suggest_phase(torch, ck, lineitem, warm_profile_s)
     stream_launches = stream_phase(torch, ck, lineitem, profiles, profile_launches,
                                    args.stream_rows, args.seed, card, power_limit, main_run)
+    prune_launches = prune_phase(torch, ck, lineitem, card, power_limit)
+    del lineitem
     append_launches = incremental_phase(
         torch, ck, INCREMENTAL_DAYS, INCREMENTAL_ROWS, args.seed, card, power_limit)
     mesh_launches = mesh_phase(torch, ck, MESH_ROWS, args.seed, card, power_limit)
@@ -2975,12 +3265,13 @@ def main() -> int:
             mode: counts[row["name"]] for mode, counts in placement_launches_by_mode.items()}
         row["launches_mesh"] = mesh_launches[row["name"]]
         row["launches_sharded"] = sharded_launches[row["name"]]
+        row["launches_prune"] = prune_launches[row["name"]]
         if not (row["launches"] and row["launches_profile"] and row["launches_stream"]
                 and row["launches_incremental"] and row["launches_mesh"]
-                and row["launches_sharded"]):
+                and row["launches_sharded"] and row["launches_prune"]):
             raise AssertionError(f"{row['name']} never launched on the main path, the profile, "
-                                 "the streamed path, the incremental path, the mesh or the "
-                                 "sharded scan")
+                                 "the streamed path, the incremental path, the mesh, the "
+                                 "sharded scan or the pruned scan")
     emit({"kernels": summary})
     emit({
         "ok": True,

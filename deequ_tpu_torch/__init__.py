@@ -35,15 +35,33 @@ Runs keep what they computed: state providers (`aggregate_with`,
 partitioned dataset, a partition-state repository
 (`with_state_repository`) with which a rerun scans only its new
 partitions (deequ_tpu_torch/repository/).
+
+Before a run scans a row, a static pass (deequ_tpu_torch/lint/) checks
+the plan and predicts its cost; `explain_plan(table, analyzers, checks)`
+renders that prediction. Over a Parquet file it also proves from the
+row-group statistics which groups no where filter can match, and the
+scan skips them unread.
 """
 
 from deequ_tpu_torch.checks.check import Check, CheckLevel, CheckStatus
 from deequ_tpu_torch.constraints.constrainable_data_types import ConstrainableDataTypes
-from deequ_tpu_torch.data.table import ColumnType, Table
+from deequ_tpu_torch.core.maybe import Failure, Success, Try
+from deequ_tpu_torch.core.metrics import (
+    Distribution,
+    DistributionValue,
+    DoubleMetric,
+    Entity,
+    HistogramMetric,
+    KeyedDoubleMetric,
+    Metric,
+)
+from deequ_tpu_torch.data.table import Column, ColumnType, Table
+from deequ_tpu_torch.lint.explain import explain_plan
 from deequ_tpu_torch.profiles.runner import ColumnProfilerRunner
 from deequ_tpu_torch.runners.analysis_runner import AnalysisRunner
 from deequ_tpu_torch.suggestions.rules import Rules
 from deequ_tpu_torch.suggestions.runner import ConstraintSuggestionRunner
+from deequ_tpu_torch.verification.result import VerificationResult
 from deequ_tpu_torch.verification.suite import VerificationSuite
 
 __all__ = [
@@ -51,11 +69,24 @@ __all__ = [
     "Check",
     "CheckLevel",
     "CheckStatus",
+    "Column",
     "ColumnProfilerRunner",
     "ColumnType",
     "ConstrainableDataTypes",
     "ConstraintSuggestionRunner",
+    "Distribution",
+    "DistributionValue",
+    "DoubleMetric",
+    "Entity",
+    "Failure",
+    "HistogramMetric",
+    "KeyedDoubleMetric",
+    "Metric",
     "Rules",
+    "Success",
     "Table",
+    "Try",
+    "VerificationResult",
     "VerificationSuite",
+    "explain_plan",
 ]

@@ -638,6 +638,11 @@ class StandardDeviation(_NumericScanAnalyzer):
         delta = b["avg"] - a["avg"]
         avg = (a["n"] * a["avg"] + b["n"] * b["avg"]) / safe_n
         m2 = a["m2"] + b["m2"] + delta * delta * a["n"] * b["n"] / safe_n
+        # an empty side is the identity bit for bit, as in
+        # StandardDeviationState.merge: a scan that skips the batches no
+        # row of which passes the where (row-group pruning) then folds
+        # the same bits as one that folds them
+        avg = np.where(a["n"] == 0, b["avg"], np.where(b["n"] == 0, a["avg"], avg))
         return {"n": n, "avg": np.where(n > 0, avg, 0.0), "m2": m2}
 
     def state_from_aggregates(self, agg) -> Optional[State]:

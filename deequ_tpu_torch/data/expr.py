@@ -13,14 +13,13 @@ Evaluation is host-side numpy (strings must stay on host); the resulting
 boolean masks are what ships to device for the fused reductions.
 
 The port's own copy of deequ_tpu/data/expr.py, over the port's Table and
-Column; the source positions and text normalisation that only the JAX
-package's lint layer reads are left out.
+Column.
 """
 
 from __future__ import annotations
 
 import re
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -58,6 +57,11 @@ _KEYWORDS = {
 class Token:
     kind: str  # num | str | op | ident | kw
     text: str
+    # source span [pos, end) into the original expression string; -1 on
+    # synthesized tokens. Excluded from equality so token comparisons
+    # stay purely textual.
+    pos: int = field(default=-1, compare=False)
+    end: int = field(default=-1, compare=False)
 
 
 def _tokenize(s: str) -> List[Token]:
@@ -67,17 +71,17 @@ def _tokenize(s: str) -> List[Token]:
         m = _TOKEN_RE.match(s, pos)
         if not m:
             raise ExpressionParseError(f"cannot tokenize at {s[pos:pos+20]!r}")
-        pos = m.end()
+        start, pos = m.start(), m.end()
         if m.lastgroup == "ws":
             continue
         kind = m.lastgroup
         text = m.group()
         if kind == "ident" and text.upper() in _KEYWORDS:
-            tokens.append(Token("kw", text.upper()))
+            tokens.append(Token("kw", text.upper(), start, pos))
         elif kind == "bq":
-            tokens.append(Token("ident", text[1:-1]))
+            tokens.append(Token("ident", text[1:-1], start, pos))
         else:
-            tokens.append(Token(kind, text))
+            tokens.append(Token(kind, text, start, pos))
     return tokens
 
 
@@ -88,7 +92,12 @@ def _tokenize(s: str) -> List[Token]:
 
 @dataclass
 class Node:
-    pass
+    # source span (start, end) into the expression string this node was
+    # parsed from; deliberately unannotated so it stays a plain class
+    # attribute (NOT a dataclass field) and subclass constructors and
+    # equality are unchanged. The lint layer reads it to anchor
+    # diagnostics.
+    span = None
 
 
 @dataclass
@@ -183,6 +192,16 @@ class _Parser:
             return True
         return False
 
+    def _span(self, node: Node, start_i: int) -> Node:
+        # Anchor the node to the [start_i, self.i) token range. Inner nodes
+        # keep the tighter span they were given when first constructed.
+        if node.span is None and 0 <= start_i < self.i <= len(self.tokens):
+            a = self.tokens[start_i].pos
+            b = self.tokens[self.i - 1].end
+            if a >= 0 and b >= 0:
+                node.span = (a, b)
+        return node
+
     # grammar: or_expr
     def parse(self) -> Node:
         node = self.or_expr()
@@ -191,23 +210,27 @@ class _Parser:
         return node
 
     def or_expr(self) -> Node:
+        start = self.i
         node = self.and_expr()
         while self.accept_kw("OR"):
-            node = Bin("or", node, self.and_expr())
+            node = self._span(Bin("or", node, self.and_expr()), start)
         return node
 
     def and_expr(self) -> Node:
+        start = self.i
         node = self.not_expr()
         while self.accept_kw("AND"):
-            node = Bin("and", node, self.not_expr())
+            node = self._span(Bin("and", node, self.not_expr()), start)
         return node
 
     def not_expr(self) -> Node:
+        start = self.i
         if self.accept_kw("NOT"):
-            return Un("not", self.not_expr())
+            return self._span(Un("not", self.not_expr()), start)
         return self.predicate()
 
     def predicate(self) -> Node:
+        start = self.i
         node = self.add_expr()
         t = self.peek()
         if t is None:
@@ -216,14 +239,14 @@ class _Parser:
             self.next()
             op = {"=": "eq", "==": "eq", "!=": "ne", "<>": "ne", "<": "lt",
                   "<=": "le", ">": "gt", ">=": "ge"}[t.text]
-            return Bin(op, node, self.add_expr())
+            return self._span(Bin(op, node, self.add_expr()), start)
         if t.kind == "kw":
             negated = False
             if t.text == "IS":
                 self.next()
                 negated = self.accept_kw("NOT")
                 self.expect("kw", "NULL")
-                return IsNull(node, negated)
+                return self._span(IsNull(node, negated), start)
             if t.text == "NOT":
                 self.next()
                 negated = True
@@ -237,64 +260,74 @@ class _Parser:
                     self.next()
                     items.append(self.add_expr())
                 self.expect("op", ")")
-                return InList(node, items, negated)
+                return self._span(InList(node, items, negated), start)
             if self.accept_kw("BETWEEN"):
                 lo = self.add_expr()
                 self.expect("kw", "AND")
                 hi = self.add_expr()
-                return Between(node, lo, hi, negated)
+                return self._span(Between(node, lo, hi, negated), start)
             if self.accept_kw("LIKE"):
-                return Like(node, self.add_expr(), regex=False, negated=negated)
+                return self._span(
+                    Like(node, self.add_expr(), regex=False, negated=negated), start
+                )
             if self.accept_kw("RLIKE"):
-                return Like(node, self.add_expr(), regex=True, negated=negated)
+                return self._span(
+                    Like(node, self.add_expr(), regex=True, negated=negated), start
+                )
             if negated:
                 raise ExpressionParseError("dangling NOT")
         return node
 
     def add_expr(self) -> Node:
+        start = self.i
         node = self.mul_expr()
         while True:
             t = self.peek()
             if t is not None and t.kind == "op" and t.text in ("+", "-"):
                 self.next()
-                node = Bin("add" if t.text == "+" else "sub", node, self.mul_expr())
+                node = self._span(
+                    Bin("add" if t.text == "+" else "sub", node, self.mul_expr()), start
+                )
             else:
                 return node
 
     def mul_expr(self) -> Node:
+        start = self.i
         node = self.unary()
         while True:
             t = self.peek()
             if t is not None and t.kind == "op" and t.text in ("*", "/", "%"):
                 self.next()
                 op = {"*": "mul", "/": "div", "%": "mod"}[t.text]
-                node = Bin(op, node, self.unary())
+                node = self._span(Bin(op, node, self.unary()), start)
             else:
                 return node
 
     def unary(self) -> Node:
+        start = self.i
         t = self.peek()
         if t is not None and t.kind == "op" and t.text == "-":
             self.next()
-            return Un("neg", self.unary())
+            return self._span(Un("neg", self.unary()), start)
         if t is not None and t.kind == "op" and t.text == "+":
             self.next()
             return self.unary()
         return self.atom()
 
     def atom(self) -> Node:
+        start = self.i
         t = self.next()
         if t.kind == "num":
-            return Lit(float(t.text))
+            return self._span(Lit(float(t.text)), start)
         if t.kind == "str":
-            return Lit(t.text[1:-1].replace("''", "'"))
+            return self._span(Lit(t.text[1:-1].replace("''", "'")), start)
         if t.kind == "kw":
             if t.text == "TRUE":
-                return Lit(True)
+                return self._span(Lit(True), start)
             if t.text == "FALSE":
-                return Lit(False)
+                return self._span(Lit(False), start)
             if t.text == "NULL":
-                return Lit(None)
+                return self._span(Lit(None), start)
             if t.text == "CASE":
                 branches = []
                 otherwise = None
@@ -305,7 +338,7 @@ class _Parser:
                 if self.accept_kw("ELSE"):
                     otherwise = self.or_expr()
                 self.expect("kw", "END")
-                return Case(branches, otherwise)
+                return self._span(Case(branches, otherwise), start)
             raise ExpressionParseError(f"unexpected keyword {t.text}")
         if t.kind == "op" and t.text == "(":
             node = self.or_expr()
@@ -322,8 +355,8 @@ class _Parser:
                         self.next()
                         args.append(self.or_expr())
                 self.expect("op", ")")
-                return Func(t.text.upper(), args)
-            return Col(t.text)
+                return self._span(Func(t.text.upper(), args), start)
+            return self._span(Col(t.text), start)
         raise ExpressionParseError(f"unexpected token {t.text!r}")
 
 
@@ -690,3 +723,34 @@ class Predicate:
 
 def eval_predicate(expression: str, table: Table) -> np.ndarray:
     return Predicate(expression).eval_mask(table)
+
+
+def validate_expression(expression: str) -> None:
+    """Raise ExpressionParseError if the expression does not parse."""
+    parse(expression)
+
+
+def normalize_expression(expression: str) -> str:
+    """Canonical text for an expression: token-normalized, single-spaced.
+
+    Two where-clauses that normalize identically are semantically the same
+    predicate even if they differ in whitespace, backticks, `==` vs `=`,
+    keyword case, or numeric literal spelling (`1` vs `1.0`). The fused-scan
+    batcher groups jobs by where-clause *text*, so the lint layer uses this
+    to flag formatting-only differences that would silently break fusion.
+
+    Raises ExpressionParseError if the expression does not tokenize.
+    """
+    canon_ops = {"==": "=", "<>": "!="}
+    parts: List[str] = []
+    for tok in _tokenize(expression):
+        text = tok.text
+        if tok.kind == "op":
+            text = canon_ops.get(text, text)
+        elif tok.kind == "num":
+            text = repr(float(text))
+        elif tok.kind == "ident":
+            # backticks were stripped by the tokenizer; re-quote uniformly
+            text = f"`{text}`"
+        parts.append(text)
+    return " ".join(parts)

@@ -224,7 +224,9 @@ class ParquetSource(DataSource):
     (column -> data/encfold.py's EncFoldColSpec) those decoded to run
     streams. All are normally attached by the fused pass
     (ops/fused.py:apply_decode_plan). Every route gives the same batches
-    bit for bit. The footer is read once, here; every view shares it."""
+    bit for bit. `prune_groups` holds the row groups the scan skips
+    unread (`with_prune`, attached by ops/fused.py:apply_prune_plan).
+    The footer is read once, here; every view shares it."""
 
     def __init__(
         self,
@@ -243,6 +245,7 @@ class ParquetSource(DataSource):
         self.native_reader = frozenset(native_reader) if native_reader else None
         self.wire_fusion = None
         self.encoded_fold = None
+        self.prune_groups: Optional[frozenset] = None
         self._reader_chunks: Optional[Dict[Tuple[int, str], "ChunkMeta"]] = None
         with pq.ParquetFile(path) as pf:
             self._meta = pf.metadata
@@ -266,6 +269,12 @@ class ParquetSource(DataSource):
         if "columns" in changes:
             keep = set(view.columns)
             view._schema_cache = [(n, t) for n, t in self._schema_cache if n in keep]
+        if "prune_groups" in changes:
+            view._num_rows = sum(
+                self._meta.row_group(g).num_rows
+                for g in range(self._meta.num_row_groups)
+                if g not in view.prune_groups
+            )
         return view
 
     def with_columns(self, names) -> "ParquetSource":
@@ -276,6 +285,16 @@ class ParquetSource(DataSource):
         if keep == [n for n, _ in self._schema_cache] or not keep:
             return self
         return self._view(columns=keep)
+
+    def with_prune(self, skip) -> "ParquetSource":
+        """A view that skips the row groups in `skip` (indices the pushdown
+        interpreter proved all-false for every fused member's where),
+        together with those it skipped already; every other view carries
+        the set forward."""
+        skip = frozenset(int(g) for g in skip)
+        if not skip:
+            return self
+        return self._view(prune_groups=skip | (self.prune_groups or frozenset()))
 
     def with_decode_fastpath(self, names) -> "ParquetSource":
         """A view whose `names` decode through the C Arrow-buffer kernels."""
@@ -386,20 +405,25 @@ class ParquetSource(DataSource):
                 out[name] = str(t)
         return out
 
-    def _reader_chunk_meta(self, names) -> Dict[Tuple[int, str], "ChunkMeta"]:
+    def _reader_chunk_meta(self, names, reasons=None) -> Dict[Tuple[int, str], "ChunkMeta"]:
         """The C reader's (row group, column) decode recipes for those of
         `names` it can read, proved from the footer alone: a numeric or
         boolean Arrow type it decodes (a DECIMAL-annotated float64 keeps
-        its type only through pyarrow), and in every chunk a physical type
-        that backs it, a codec this host can load, page encodings it
-        decodes (no dictionary-encoded booleans), no nesting and one value
-        per row. One chunk that fails leaves the whole column to pyarrow."""
+        its type only through pyarrow), and in every chunk the scan reads
+        (pruned groups are not read) a physical type that backs it, a
+        codec this host can load, page encodings it decodes (no
+        dictionary-encoded booleans), no nesting and one value per row.
+        One chunk that fails leaves the whole column to pyarrow; a dict
+        `reasons` gets each such column's first reason (EXPLAIN's DQ315),
+        in the JAX package's words."""
         from deequ_tpu_torch.data.native_reader import ChunkMeta
         from deequ_tpu_torch.data.table import _arrow_logical_decimal
         from deequ_tpu_torch.ops import native
 
         codec_mask = native.reader_codecs()
         meta, schema = self._meta, self._meta.schema
+        reasons = {} if reasons is None else reasons
+        skip = self.prune_groups or frozenset()
         tokens = {}
         for name in names:
             try:
@@ -408,8 +432,18 @@ class ParquetSource(DataSource):
                 continue
             if tok in native.READER_TOKENS and not _arrow_logical_decimal(self._arrow_schema, name):
                 tokens[name] = tok
+            else:
+                # named by its decode token, as the JAX package names it
+                decode_tok = self.decode_column_types().get(name, tok)
+                reasons[name] = f"no native page decoder for {decode_tok}"
         recipes: Dict[str, List[Tuple[int, ChunkMeta]]] = {name: [] for name in tokens}
+        if len(skip) == meta.num_row_groups:
+            for name in tokens:
+                reasons[name] = "every row group is pruned"
+            return {}
         for g in range(meta.num_row_groups):
+            if g in skip:
+                continue
             rg = meta.row_group(g)
             for j in range(rg.num_columns):
                 chunk = rg.column(j)
@@ -423,16 +457,11 @@ class ParquetSource(DataSource):
                     phys = str(chunk.physical_type)
                     codec = str(chunk.compression)
                     encodings = {str(e) for e in chunk.encodings}
-                    eligible = (
-                        phys in allowed_phys
-                        and codec in native.READER_CODEC_ENUM
-                        and bool(codec_mask & native.READER_CODEC_MASK[codec])
-                        and encodings <= native.READER_ENCODINGS
-                        and not (tok == "bool" and encodings & {"PLAIN_DICTIONARY", "RLE_DICTIONARY"})
-                        and se.max_repetition_level == 0
-                        and se.max_definition_level <= 1
-                        and int(chunk.num_values) == int(rg.num_rows)
+                    reason = _reader_chunk_reason(
+                        tok, allowed_phys, phys, codec, encodings, codec_mask, se,
+                        int(chunk.num_values), int(rg.num_rows),
                     )
+                    eligible = reason is None
                     if eligible:
                         recipe = ChunkMeta(
                             column=name,
@@ -447,10 +476,12 @@ class ParquetSource(DataSource):
                         )
                 except (AttributeError, TypeError, ValueError):
                     eligible = False  # a layout the footer cannot give
+                    reason = f"row group {g} carries no chunk layout metadata"
                 if eligible:
                     recipes[name].append((g, recipe))
                 else:
                     recipes[name] = None
+                    reasons[name] = reason
         return {
             (g, name): recipe
             for name, chunks in recipes.items()
@@ -513,11 +544,14 @@ class ParquetSource(DataSource):
         so large groups never coalesce."""
         meta = self._meta
         rows = [meta.row_group(g).num_rows for g in range(meta.num_row_groups)]
+        skip = self.prune_groups or frozenset()
         tiny = max(1, size // 4)
         units: List[Tuple[int, ...]] = []
         pending: List[int] = []
         pending_rows = 0
         for g, num in enumerate(rows):
+            if g in skip:
+                continue  # proven to hold no row any member reads
             if num < tiny:
                 pending.append(g)
                 pending_rows += num
@@ -706,6 +740,31 @@ class ParquetSource(DataSource):
 
     def __repr__(self) -> str:
         return f"ParquetSource({self.path!r}, rows={self._num_rows})"
+
+
+def _reader_chunk_reason(
+    tok, allowed_phys, phys, codec, encodings, codec_mask, se, num_values, num_rows
+) -> Optional[str]:
+    """Why the C reader cannot read one column chunk, or None when it can."""
+    from deequ_tpu_torch.ops import native
+
+    if phys not in allowed_phys:
+        return f"physical type {phys} cannot back {tok}"
+    bit = native.READER_CODEC_MASK.get(codec)
+    if bit is None or codec not in native.READER_CODEC_ENUM:
+        return f"codec {codec} has no native decompressor"
+    if not codec_mask & bit:
+        return f"codec {codec} library is not loadable here"
+    extra = sorted(encodings - native.READER_ENCODINGS)
+    if extra:
+        return f"page encoding {extra[0]} has no native decoder"
+    if tok == "bool" and encodings & {"PLAIN_DICTIONARY", "RLE_DICTIONARY"}:
+        return "dictionary-encoded boolean pages decode via arrow"
+    if se.max_repetition_level != 0 or se.max_definition_level > 1:
+        return "nested or repeated values need the arrow reader"
+    if num_values != num_rows:
+        return "chunk value count disagrees with the row group"
+    return None
 
 
 def _chunk_offset(chunk) -> int:
@@ -930,6 +989,13 @@ class PartitionedParquetSource(DataSource):
         if not picked:
             raise ValueError("subset would leave no partitions")
         return PartitionedParquetSource(picked, columns=self.columns, batch_rows=self.batch_rows)
+
+    def decode_column_types(self) -> Dict[str, str]:
+        """The decode vocabulary of the dataset (every partition has one
+        schema): the first partition's."""
+        return ParquetSource(
+            self.paths[0], columns=self.columns, batch_rows=self.batch_rows
+        ).decode_column_types()
 
     def _iter_tables(self, batch_size: int) -> Iterator[Table]:
         # the whole dataset as one stream (the group-by and profiler

@@ -34,7 +34,11 @@ few distinct values (`_counts_family_shortcut`), or from the encoded
 fold's run streams (data/encfold.py).
 
 A streamed source (data/source.py) runs the same per-batch steps over
-its decoded batches, with only the columns its inputs read; a Parquet
+its decoded batches, with only the columns its inputs read. A Parquet
+source first skips the row groups whose footer statistics prove that no
+member's where filter holds on any of their rows, and swaps a where
+proven to hold on every row of the rest for a constant mask
+(`plan_row_group_prune`, `apply_prune_plan`, lint/pushdown.py); a Parquet
 source's numeric and boolean columns (and its dictionary strings that
 are read packed only) decode through the C library's kernels, and those
 whose every chunk the footer proves readable skip pyarrow for the C
@@ -148,6 +152,64 @@ def prune_table_columns(table, specs: Dict[str, Any]):
     return with_columns(sorted(needed))
 
 
+def plan_row_group_prune(table, members):
+    """The row-group prune plan of a Parquet-backed scan
+    (lint/pushdown.py's three-valued interpreter over the file's
+    row-group statistics and the live members' where filters), or None
+    when `DEEQU_TPU_PUSHDOWN=0`, the source has no statistics, or anything
+    goes wrong: pruning only ever skips work, it never fails a run. The
+    source is the only statistics reader."""
+    if not runtime.pushdown_enabled():
+        return None
+    stats_fn = getattr(table, "row_group_stats", None)
+    if stats_fn is None or getattr(table, "with_prune", None) is None:
+        return None
+    from deequ_tpu_torch.lint.pushdown import build_prune_plan
+
+    try:
+        groups = stats_fn()
+        if not groups:
+            return None
+        return build_prune_plan(
+            [getattr(m, "where", None) for m in members], groups, dict(table.schema)
+        )
+    except Exception:  # noqa: BLE001
+        return None
+
+
+def elide_where_specs(specs: Dict[str, Any], wheres) -> int:
+    """Swap the mask spec of each where text in `wheres` (proven all-true
+    on every decoded row group) for a constant all-true spec that reads
+    no column, in place -> the number swapped. Its filter columns then
+    drop out of column pruning, and the all-true mask ships as a
+    constant."""
+    from deequ_tpu_torch.analyzers.base import InputSpec, where_key
+
+    elided = 0
+    for text in wheres:
+        key = where_key(text)
+        if key in specs:
+            specs[key] = InputSpec(
+                key=key, build=lambda t: np.ones(t.num_rows, dtype=np.bool_), columns=()
+            )
+            elided += 1
+    return elided
+
+
+def apply_prune_plan(table, prune, specs: Dict[str, Any]):
+    """Act on a PrunePlan: elide the proven-all-true wheres' mask specs
+    (`elide_where_specs`), record the decision (`runtime.monitored()`'s
+    rg_* counts), and view the source without its proven-all-false row
+    groups."""
+    elided = elide_where_specs(specs, prune.elided_wheres())
+    runtime.record_pruned_groups(
+        prune.skipped_groups, prune.total_groups, prune.skipped_rows, elided
+    )
+    if prune.skip:
+        table = table.with_prune(prune.skip)
+    return table
+
+
 #: spec-key prefixes whose builds read only the packed form of a
 #: dictionary-string column (codes, mask, the dictionary's digest), never
 #: its per-row strings: such columns may take the C dictionary decode. A
@@ -173,10 +235,15 @@ class DecodePlan:
     candidates' (column, reason, key) in `wire_falloffs`) and the
     encoded-fold columns (`enc_specs`, column -> data/encfold.py's
     EncFoldColSpec, with the others' (column, reason) in `enc_falloffs`).
-    Only decode time depends on it: every route gives the same bits."""
+    `fallbacks` and `reader_falloffs` give why the other columns stay on
+    the host chain or on pyarrow (EXPLAIN's DQ312 and DQ315). Only
+    decode time depends on it: every route gives the same bits."""
 
     fast: Tuple[str, ...]
+    fallbacks: Tuple[Tuple[str, str], ...] = ()  # (column, reason) off the C decode
     reader_chunks: Dict[Tuple[int, str], Any] = field(default_factory=dict)
+    reader_planned: bool = False
+    reader_falloffs: Tuple[Tuple[str, str], ...] = ()  # (column, reason) off the C reader
     total: int = 0
     wire_planned: bool = False
     wire_specs: Dict[str, Any] = field(default_factory=dict)
@@ -190,12 +257,15 @@ class DecodePlan:
         return tuple(sorted({name for _, name in self.reader_chunks}))
 
 
-def classify_decode_columns(col_types: Dict[str, str], specs: Dict[str, Any]) -> List[str]:
-    """The scan's columns that take the C decode; the rest take the host
-    chain. `col_types` is the source's `decode_column_types()`; `specs`
-    the live input specs, whose key prefixes prove which
-    dictionary-string columns are read packed only (plain strings,
-    timestamps and decimals always take the host chain)."""
+def classify_decode_columns(
+    col_types: Dict[str, str], specs: Dict[str, Any]
+) -> Tuple[List[str], List[Tuple[str, str]]]:
+    """-> (the scan's columns that take the C decode, the others with the
+    reason each takes the host chain). `col_types` is the source's
+    `decode_column_types()`; `specs` the live input specs, whose key
+    prefixes prove which dictionary-string columns are read packed only
+    (plain strings, timestamps and decimals always take the host chain).
+    The reasons are the JAX package's."""
     from deequ_tpu_torch.ops import native
 
     consumers: Dict[str, set] = {}
@@ -204,13 +274,28 @@ def classify_decode_columns(col_types: Dict[str, str], specs: Dict[str, Any]) ->
         for col in spec.columns or ():
             consumers.setdefault(col, set()).add(prefix)
     fast: List[str] = []
+    fallbacks: List[Tuple[str, str]] = []
     for name in sorted(col_types):
         token = col_types[name]
         if token in native.DECODE_PRIMITIVES or token == "bool":
             fast.append(name)
-        elif token == "dictionary<string,int32>" and consumers.get(name, set()) <= PACKED_SAFE_PREFIXES:
-            fast.append(name)
-    return fast
+        elif token == "dictionary<string,int32>":
+            unsafe = sorted(consumers.get(name, set()) - PACKED_SAFE_PREFIXES)
+            if unsafe:
+                fallbacks.append(
+                    (name, "host string values may be required by " + ", ".join(unsafe))
+                )
+            else:
+                fast.append(name)
+        elif token in ("string", "large_string"):
+            fallbacks.append((name, "plain string values are host objects"))
+        elif token.startswith("timestamp"):
+            fallbacks.append((name, "timestamp decode needs an arrow cast"))
+        elif token.startswith("decimal"):
+            fallbacks.append((name, "decimal values decode host-side"))
+        else:
+            fallbacks.append((name, f"no native kernel for {token}"))
+    return fast, fallbacks
 
 
 #: integer Arrow tokens the wire kernels take, with their value bounds
@@ -539,7 +624,7 @@ def plan_decode_fastpath(
     col_types = types_fn()
     if not col_types:
         return None
-    fast = classify_decode_columns(col_types, specs)
+    fast, fallbacks = classify_decode_columns(col_types, specs)
     fast_types = {c: col_types[c] for c in fast}
     wire_specs: Dict[str, Any] = {}
     wire_falloffs: List[Tuple[str, str, str]] = []
@@ -554,11 +639,13 @@ def plan_decode_fastpath(
             int_bounds=wire_int_bounds(table, sorted(fast_types)),
         )
     reader_chunks = {}
+    reasons: Dict[str, str] = {}
     enc_specs: Dict[str, Any] = {}
     enc_falloffs: List[Tuple[str, str]] = []
     enc_planned = False
-    if runtime.native_reader_enabled():
-        reader_chunks = table._reader_chunk_meta(fast)
+    reader_planned = runtime.native_reader_enabled()
+    if reader_planned:
+        reader_chunks = table._reader_chunk_meta(fast, reasons)
         reader_cols = sorted({name for _, name in reader_chunks})
         if (
             reader_cols
@@ -567,18 +654,23 @@ def plan_decode_fastpath(
             and runtime.encoded_fold_enabled()
         ):
             groups = table.row_group_stats()
+            skip = getattr(table, "prune_groups", None) or frozenset()
             enc_specs, enc_falloffs = classify_encfold_columns(
                 {c: col_types[c] for c in reader_cols},
                 analyzers,
                 specs,
                 member_plan.device_keys,
-                groups,
+                # only the chunks the scan reads are judged
+                [rg for rg in groups if rg.index not in skip],
                 int_bounds=wire_int_bounds_from_groups(groups, reader_cols),
             )
             enc_planned = True
     return DecodePlan(
         fast=tuple(fast),
+        fallbacks=tuple(fallbacks),
         reader_chunks=reader_chunks,
+        reader_planned=reader_planned,
+        reader_falloffs=tuple(sorted(reasons.items())),
         total=len(col_types),
         wire_planned=wire_planned,
         wire_specs=wire_specs,
@@ -1507,6 +1599,11 @@ class FusedScanPass:
             len(plan.merge_idx) + len(plan.assisted_idx),
             len(plan.host_idx) + len(plan.host_assisted_idx),
         )
+        prune = plan_row_group_prune(table, [self.analyzers[i] for i in live_idx])
+        if prune is not None:
+            # spec elision must precede column pruning, so that an elided
+            # where's filter columns drop out of the decode
+            table = apply_prune_plan(table, prune, plan.specs)
         table = prune_table_columns(table, plan.specs)
         # decode routing comes last: it classifies the columns that
         # survived pruning, and attaches to the final view

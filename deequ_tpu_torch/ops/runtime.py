@@ -337,6 +337,13 @@ class ExecutionStats:
     shard_partitions_local: int = 0
     shard_merge_bytes: int = 0
     shard_rows_local: int = 0
+    # row-group pruning (lint/pushdown.py), summed over the pruned
+    # scans: groups skipped unread, groups in the files, the rows of the
+    # skipped groups, and where filters swapped for a constant mask
+    rg_skipped: int = 0
+    rg_total: int = 0
+    rg_rows_skipped: int = 0
+    wheres_elided: int = 0
 
     @property
     def jobs(self) -> int:
@@ -478,6 +485,15 @@ def record_shard_scan(partitions_local: int, merge_bytes: int, rows_local: int) 
         sink.shard_rows_local += int(rows_local)
 
 
+def record_pruned_groups(skipped: int, total: int, rows_skipped: int, wheres_elided: int) -> None:
+    """One scan's row-group prune decision (ops/fused.py:apply_prune_plan)."""
+    for sink in _sinks():
+        sink.rg_skipped += int(skipped)
+        sink.rg_total += int(total)
+        sink.rg_rows_skipped += int(rows_skipped)
+        sink.wheres_elided += int(wheres_elided)
+
+
 def shard_tag() -> str:
     """This process's shard in a sharded scan (``DEEQU_TPU_SHARD``, set
     by the launcher for each worker), which the pipeline's thread names
@@ -506,6 +522,16 @@ def state_cache_enabled() -> bool:
     ``off``) scans every partition, as with no repository; partitions
     merge in partition order either way, so both give the same bits."""
     return os.environ.get("DEEQU_TPU_STATE_CACHE", "") not in ("0", "off")
+
+
+def pushdown_enabled() -> bool:
+    """Whether a Parquet scan may skip the row groups that the pruning
+    interpreter (lint/pushdown.py) proves hold no row for ANY fused
+    member's where filter, and swap the filters it proves all-true for
+    constant masks. ``DEEQU_TPU_PUSHDOWN=0`` (or ``off``) decodes every
+    group and evaluates every filter; folds are where-masked, so both
+    give the same bits."""
+    return os.environ.get("DEEQU_TPU_PUSHDOWN", "") not in ("0", "off")
 
 
 # -- decode knobs (data/source.py, data/arrow_decode.py, data/native_reader.py) --

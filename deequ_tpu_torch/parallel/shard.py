@@ -61,6 +61,32 @@ class ShardPlan:
     def assignment(self, shard: int) -> ShardAssignment:
         return self.assignments[shard]
 
+    def owner_of(self, name: str) -> int:
+        for a in self.assignments:
+            if name in a.names:
+                return a.shard
+        raise KeyError(name)
+
+    @property
+    def max_partitions(self) -> int:
+        return max(a.num_partitions for a in self.assignments)
+
+    @property
+    def min_partitions(self) -> int:
+        live = [a.num_partitions for a in self.assignments if a.num_partitions]
+        return min(live) if live else 0
+
+    @property
+    def skew(self) -> float:
+        """The largest shard over the even split (total / num_shards):
+        1.0 is a perfectly even split. EXPLAIN's `shards:` line reports it
+        (lint/cost.py:PlanCost.shard_skew over the same counts)."""
+        total = len(self.order)
+        if total == 0 or self.num_shards == 0:
+            return 1.0
+        ideal = total / float(self.num_shards)
+        return self.max_partitions / ideal if ideal > 0 else 1.0
+
 
 def plan_shards(partitions: Sequence, num_shards: int, exclude: Sequence[int] = ()) -> ShardPlan:
     """Assign `partitions` (with `.name`, `.path` and `.fingerprint`, in

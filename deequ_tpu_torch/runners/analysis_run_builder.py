@@ -34,6 +34,7 @@ class AnalysisRunBuilder:
         self._dataset_name = "default"
         self._engine = "auto"
         self._mesh = None
+        self._validation: Optional[str] = None
 
     def with_engine(self, engine: str, mesh=None) -> "AnalysisRunBuilder":
         """"auto" (a mesh over every CUDA device when there are two or
@@ -42,6 +43,25 @@ class AnalysisRunBuilder:
         self._engine = engine
         self._mesh = mesh
         return self
+
+    def with_plan_validation(self, mode: str) -> "AnalysisRunBuilder":
+        """Plan-time static analysis mode: "strict" raises one aggregated
+        PlanValidationError before any scan, "lenient" (default) attaches
+        diagnostics to the context, "off" skips the pass."""
+        self._validation = mode
+        return self
+
+    def explain(self, **kwargs):
+        """EXPLAIN the planned run without scanning a row: the static
+        cost/effect prediction (passes, batches, wire bytes, family
+        groups) plus DQ3xx performance diagnostics, as an
+        `ExplainResult` (render with `str(...)`), on the run's device."""
+        from deequ_tpu_torch.lint.explain import explain_plan
+
+        if self._deadline_s is not None:
+            kwargs.setdefault("deadline_s", self._deadline_s)
+        kwargs.setdefault("device", self._device)
+        return explain_plan(self._data, analyzers=self._analyzers, **kwargs)
 
     def with_controller(self, controller) -> "AnalysisRunBuilder":
         """Attach a `RunController` (core/controller.py) whose `cancel()`
@@ -122,4 +142,5 @@ class AnalysisRunBuilder:
             controller=controller,
             engine=self._engine,
             mesh=self._mesh,
+            validation=self._validation,
         )

@@ -59,16 +59,30 @@ class AnalysisRunner:
         controller=None,
         engine: str = "auto",
         mesh=None,
+        validation: Optional[str] = None,
     ) -> AnalyzerContext:
         """`controller` (core/controller.RunController) is checked at every
         batch and partition boundary of the fused pass. `state_repository`
         (repository/states.StateRepository) caches the states of each
         partition of a partitioned source under `dataset_name`. `engine`
         and `mesh` pick the single-device pass or the mesh-sharded one
-        (runners/engine.py); the mesh pass never uses a state cache."""
+        (runners/engine.py); the mesh pass never uses a state cache.
+        `validation` is the static pass's mode (lint/planlint.py:
+        "strict", "lenient" or "off"; default ``DEEQU_TPU_VALIDATE``, else
+        "lenient"): its diagnostics land on the context as
+        `validation_warnings` and its cost prediction as `plan_cost`."""
         if not analyzers:
             return AnalyzerContext.empty()
         device = runtime.resolve_device(device)
+        state_cache = None
+        if state_repository is not None and getattr(data, "partitions", None) is not None:
+            from deequ_tpu_torch.repository.states import StateCacheContext
+
+            state_cache = StateCacheContext(state_repository, dataset_name)
+        # plan-time static analysis: strict raises before any scan
+        validation_diagnostics, plan_cost = AnalysisRunner._validate_plan(
+            data, analyzers, validation, state_cache, device
+        )
         from deequ_tpu_torch.runners.engine import resolve_engine
 
         mesh = resolve_engine(engine, mesh, num_rows=data.num_rows, device=device)
@@ -127,11 +141,6 @@ class AnalysisRunner:
 
                 scan = DistributedScanPass(shareable, mesh=mesh, controller=controller)
             else:
-                state_cache = None
-                if state_repository is not None and getattr(data, "partitions", None) is not None:
-                    from deequ_tpu_torch.repository.states import StateCacheContext
-
-                    state_cache = StateCacheContext(state_repository, dataset_name)
                 scan = FusedScanPass(
                     shareable, device=device, controller=controller, state_cache=state_cache
                 )
@@ -163,7 +172,50 @@ class AnalysisRunner:
             AnalysisRunner._save_or_append(
                 metrics_repository, save_or_append_results_with_key, context
             )
+        context.validation_warnings = validation_diagnostics
+        context.plan_cost = plan_cost
         return context
+
+    @staticmethod
+    def _validate_plan(data, analyzers, validation, state_cache=None, device=None):
+        """-> (diagnostics, PlanCost | None) of the static pass over the
+        run (`validate_run_plan`)."""
+        return validate_run_plan(data, analyzers, validation, state_cache, device)
+
+    @staticmethod
+    def _predict_partitions(data, analyzers, state_cache, device=None):
+        """Per-partition cache prediction records for the cost model:
+        `{"cached": bool, "bytes": int}` per partition, in partition
+        order, from a probe of the state repository with the fingerprint
+        and plan signature the fused pass will use (the runner's own
+        filtering: dedupe, scan-shareable, not grouping)."""
+        import os
+
+        probe = None
+        if state_cache is not None and runtime.state_cache_enabled():
+            from deequ_tpu_torch.repository.states import plan_signature_for
+
+            seen: set = set()
+            shareable = []
+            for a in analyzers:
+                if a in seen:
+                    continue
+                seen.add(a)
+                if isinstance(a, ScanShareableAnalyzer) and not isinstance(a, GroupingAnalyzer):
+                    shareable.append(a)
+            probe = plan_signature_for(shareable, data, device=device)
+        records = []
+        for part in data.partitions():
+            cached = bool(
+                probe is not None
+                and state_cache.repository.has_states(state_cache.dataset, part.fingerprint, probe)
+            )
+            try:
+                nbytes = int(os.path.getsize(part.path))
+            except OSError:
+                nbytes = 0
+            records.append({"cached": cached, "bytes": nbytes})
+        return records
 
     @staticmethod
     def run_on_aggregated_states(
@@ -233,3 +285,58 @@ class AnalysisRunner:
         existing = repository.load_by_key(key)
         combined = (existing + context) if existing is not None else context
         repository.save(key, combined)
+
+
+def validate_run_plan(
+    data, analyzers, validation, state_cache=None, device=None, checks=(), deadline_s=None
+):
+    """-> (diagnostics, PlanCost | None) of the static pass over a run of
+    `analyzers` and the analyzers of `checks` (a verification run) on
+    `device` (lint/planlint.py:validate_plan); ([], None) when it is off.
+    A strict-mode error raises PlanValidationError; any other failure of
+    the pass leaves the run alone."""
+    from deequ_tpu_torch.lint import PlanValidationError, SchemaInfo, validate_plan
+    from deequ_tpu_torch.lint.planlint import resolve_validation_mode
+
+    mode = resolve_validation_mode(validation)
+    if mode == "off":
+        return [], None
+    try:
+        schema = SchemaInfo.from_table(data)
+        streaming = bool(getattr(data, "is_streaming", False))
+        cap = getattr(data, "batch_rows", None) if streaming else None
+        # a Parquet source's row-group statistics: the cost pass then
+        # predicts the pushdown outcome the scan will produce
+        row_groups = None
+        stats_fn = getattr(data, "row_group_stats", None)
+        if stats_fn is not None:
+            try:
+                row_groups = stats_fn()
+            except Exception:  # noqa: BLE001 - statistics are advisory
+                row_groups = None
+        partitions = None
+        if getattr(data, "partitions", None) is not None:
+            planned = list(analyzers)
+            for check in checks:
+                planned.extend(check.required_analyzers())
+            partitions = AnalysisRunner._predict_partitions(
+                data, planned, state_cache, device
+            )
+        report = validate_plan(
+            schema,
+            checks=checks,
+            required_analyzers=analyzers,
+            mode=mode,
+            num_rows=int(data.num_rows),
+            streaming=streaming,
+            stream_batch_rows=int(cap) if cap else None,
+            row_groups=row_groups,
+            partitions=partitions,
+            device=device,
+            deadline_s=deadline_s,
+        )
+        return list(report.diagnostics), report.plan_cost
+    except PlanValidationError:
+        raise
+    except Exception:  # noqa: BLE001 - lint must never break a run
+        return [], None

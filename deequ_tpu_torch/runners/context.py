@@ -30,6 +30,12 @@ def sanitize_json_values(rows):
 class AnalyzerContext:
     def __init__(self, metric_map: Optional[Dict["Analyzer", Metric]] = None):
         self.metric_map: Dict["Analyzer", Metric] = dict(metric_map or {})
+        # the static pass's diagnostics (lint.Diagnostic items) in lenient
+        # mode, and its cost prediction (lint/cost.PlanCost; None when
+        # validation is off): attached by AnalysisRunner, not part of
+        # equality — two contexts with the same metrics are the same
+        self.validation_warnings: List = []
+        self.plan_cost = None
 
     @staticmethod
     def empty() -> "AnalyzerContext":

@@ -7,7 +7,7 @@ reference: VerificationResult.scala:33-119.
 from __future__ import annotations
 
 import json
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import TYPE_CHECKING, Dict, List
 
 from deequ_tpu_torch.checks.check import Check, CheckResult, CheckStatus
@@ -23,6 +23,11 @@ class VerificationResult:
     status: CheckStatus
     check_results: Dict[Check, CheckResult]
     metrics: Dict["Analyzer", Metric]
+    # the static pass's diagnostics (lint.Diagnostic items) in lenient
+    # mode, and its cost prediction (lint/cost.PlanCost); empty and None
+    # when validation is off
+    validation_warnings: List = field(default_factory=list)
+    plan_cost: object = None
 
     # -- metric exporters (reference: VerificationResult.scala:40-72) --------
 

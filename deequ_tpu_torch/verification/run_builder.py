@@ -53,6 +53,7 @@ class VerificationRunBuilder:
         self._overwrite_output_files = False
         self._engine = "auto"
         self._mesh = None
+        self._validation: Optional[str] = None
 
     def with_engine(self, engine: str, mesh=None) -> "VerificationRunBuilder":
         """"auto" (a mesh over every CUDA device when there are two or
@@ -60,6 +61,27 @@ class VerificationRunBuilder:
         `mesh`, parallel/distributed.data_mesh), runners/engine.py."""
         self._engine = engine
         self._mesh = mesh
+        return self
+
+    def explain(self, **kwargs):
+        """EXPLAIN the planned verification without scanning a row: the
+        static cost/effect prediction plus DQ3xx performance
+        diagnostics, as an `ExplainResult` (render with `str(...)`), on
+        the run's device."""
+        from deequ_tpu_torch.lint.explain import explain_plan
+
+        if self._deadline_s is not None:
+            kwargs.setdefault("deadline_s", self._deadline_s)
+        kwargs.setdefault("device", self._device)
+        return explain_plan(
+            self._data, analyzers=self._required_analyzers, checks=self._checks, **kwargs
+        )
+
+    def with_plan_validation(self, mode: str) -> "VerificationRunBuilder":
+        """Plan-time static analysis mode: "strict" raises one aggregated
+        PlanValidationError before any scan, "lenient" (default) attaches
+        diagnostics to the result, "off" skips the pass."""
+        self._validation = mode
         return self
 
     def with_controller(self, controller) -> "VerificationRunBuilder":
@@ -191,6 +213,7 @@ class VerificationRunBuilder:
             deadline_s=self._deadline_s,
             engine=self._engine,
             mesh=self._mesh,
+            validation=self._validation,
         )
         # JSON file outputs (reference: VerificationSuite.scala:146-172)
         from deequ_tpu_torch.core.fileio import write_text_output

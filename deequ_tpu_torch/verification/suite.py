@@ -12,7 +12,7 @@ from typing import TYPE_CHECKING, Dict, List, Optional, Sequence
 from deequ_tpu_torch.analyzers.base import Analyzer
 from deequ_tpu_torch.checks.check import Check, CheckResult, CheckStatus
 from deequ_tpu_torch.ops import runtime
-from deequ_tpu_torch.runners.analysis_runner import AnalysisRunner
+from deequ_tpu_torch.runners.analysis_runner import AnalysisRunner, validate_run_plan
 from deequ_tpu_torch.runners.context import AnalyzerContext
 from deequ_tpu_torch.verification.result import VerificationResult
 
@@ -60,6 +60,7 @@ class VerificationSuite:
         deadline_s: Optional[float] = None,
         engine: str = "auto",
         mesh=None,
+        validation: Optional[str] = None,
     ) -> VerificationResult:
         """reference: VerificationSuite.scala:107-144. A `controller`
         (core/controller.RunController) is checked at every batch and
@@ -67,7 +68,8 @@ class VerificationSuite:
         `state_repository` and a partitioned source, unchanged partitions
         load their states instead of being scanned. `engine` and `mesh`
         pick the single-device or the mesh-sharded pass
-        (runners/engine.py)."""
+        (runners/engine.py). `validation` is the static pass's mode over
+        the whole plan, checks included (`_validate_plan`)."""
         if controller is None and deadline_s is not None:
             from deequ_tpu_torch.core.controller import RunController
 
@@ -75,6 +77,11 @@ class VerificationSuite:
         analyzers: List[Analyzer] = list(required_analyzers)
         for check in checks:
             analyzers.extend(check.required_analyzers())
+        validation_diagnostics, plan_cost = VerificationSuite._validate_plan(
+            data, checks, required_analyzers, validation, device,
+            state_repository=state_repository, dataset_name=dataset_name,
+            deadline_s=deadline_s,
+        )
         analysis_results = AnalysisRunner.do_analysis_run(
             data,
             analyzers,
@@ -93,13 +100,35 @@ class VerificationSuite:
             controller=controller,
             engine=engine,
             mesh=mesh,
+            # the suite validated the whole plan, checks included
+            validation="off",
         )
         result = VerificationSuite.evaluate(checks, analysis_results)
+        result.validation_warnings = validation_diagnostics
+        result.plan_cost = plan_cost
         if metrics_repository is not None and save_or_append_results_with_key is not None:
             AnalysisRunner._save_or_append(
                 metrics_repository, save_or_append_results_with_key, analysis_results
             )
         return result
+
+    @staticmethod
+    def _validate_plan(
+        data, checks, required_analyzers, validation, device=None,
+        state_repository=None, dataset_name: str = "default", deadline_s=None,
+    ):
+        """The static pass over the whole plan before any scan ->
+        (diagnostics, PlanCost | None): `validate_run_plan` with the
+        checks. Strict mode raises the aggregated PlanValidationError."""
+        cache = None
+        if state_repository is not None and getattr(data, "partitions", None) is not None:
+            from deequ_tpu_torch.repository.states import StateCacheContext
+
+            cache = StateCacheContext(state_repository, dataset_name)
+        return validate_run_plan(
+            data, list(required_analyzers), validation, cache,
+            runtime.resolve_device(device), checks=checks, deadline_s=deadline_s,
+        )
 
     @staticmethod
     def run_on_aggregated_states(

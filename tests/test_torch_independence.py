@@ -74,6 +74,16 @@ SLICE_MODULES = [
     "deequ_tpu_torch.repository.serde",
     "deequ_tpu_torch.repository.states",
     "deequ_tpu_torch.lint.schema",
+    "deequ_tpu_torch.lint",
+    "deequ_tpu_torch.lint.interval",
+    "deequ_tpu_torch.lint.diagnostics",
+    "deequ_tpu_torch.lint.fold",
+    "deequ_tpu_torch.lint.typecheck",
+    "deequ_tpu_torch.lint.effects",
+    "deequ_tpu_torch.lint.subsume",
+    "deequ_tpu_torch.lint.cost",
+    "deequ_tpu_torch.lint.explain",
+    "deequ_tpu_torch.lint.planlint",
     "deequ_tpu_torch.applicability.applicability",
     "deequ_tpu_torch.schema.row_level_schema_validator",
     "deequ_tpu_torch.anomaly",

@@ -657,16 +657,24 @@ class TestPlanner:
             "num:f": InputSpec(key="num:f", build=None, columns=("f",)),
             "valid:d": InputSpec(key="valid:d", build=None, columns=("d",)),
         }
-        fast = classify_decode_columns(col_types, specs)
+        fast, fallbacks = classify_decode_columns(col_types, specs)
         # plain strings, timestamps and decimals take the host chain
         assert fast == ["b", "d", "f", "i"]
+        assert fallbacks == [
+            ("dec", "decimal values decode host-side"),
+            ("p", "plain string values are host objects"),
+            ("ts", "timestamp decode needs an arrow cast"),
+        ]
 
     def test_classifier_conservative_on_unknown_prefix(self):
         from deequ_tpu_torch.analyzers.base import InputSpec
         from deequ_tpu_torch.ops.fused import classify_decode_columns
 
         specs = {"rawstr:d": InputSpec(key="rawstr:d", build=None, columns=("d",))}
-        assert classify_decode_columns({"d": "dictionary<string,int32>"}, specs) == []
+        assert classify_decode_columns({"d": "dictionary<string,int32>"}, specs) == (
+            [],
+            [("d", "host string values may be required by rawstr")],
+        )
 
     def test_classifiers_equal_the_jax_packages(self, tmp_path):
         """The same fast set and reader set as the JAX planner on the same
@@ -688,15 +696,16 @@ class TestPlanner:
         src, jsrc = ParquetSource(path), JaxParquetSource(path)
         types_ = src.decode_column_types()
         assert types_ == jsrc.decode_column_types()
-        fast = fused.classify_decode_columns(types_, specs)
-        assert fast == jax_fused.classify_decode_columns(types_, jspecs)[0]
+        fast, fallbacks = fused.classify_decode_columns(types_, specs)
+        assert (fast, fallbacks) == jax_fused.classify_decode_columns(types_, jspecs)
         fast_types = {c: types_[c] for c in fast}
-        want = jax_fused.classify_reader_columns(
+        want, want_falloffs, _ = jax_fused.classify_reader_columns(
             fast_types, jsrc.row_group_stats(), jax_native.reader_codecs()
-        )[0]
+        )
         plan = fused.plan_decode_fastpath(src, specs)
         assert plan.fast == tuple(fast)
         assert list(plan.reader_cols) == want
+        assert list(plan.reader_falloffs) == want_falloffs
         assert want == sorted(c for c in table.column_names if c != "s")
         planned = fused.apply_decode_plan(src, plan)
         assert planned._reader_chunks == plan.reader_chunks

@@ -90,3 +90,49 @@ def test_rejects_bad_inputs():
         plan_shards(parts(4), 0)
     with pytest.raises(ValueError):
         plan_shards(parts(4), 2, exclude=(0, 1))
+
+
+@pytest.mark.parametrize("n_parts", [0, 1, 9, 40])
+@pytest.mark.parametrize("num_shards", [1, 3, 5])
+def test_plan_summaries_equal_jax(n_parts, num_shards):
+    """owner_of, the largest and smallest shard, and the skew: exactly
+    the JAX package's, and the skew EXPLAIN's `shards:` line renders."""
+    from deequ_tpu_torch.lint.cost import PlanCost
+
+    ps = parts(n_parts, salt="summary")
+    got = plan_shards(ps, num_shards)
+    want = jshard.plan_shards(ps, num_shards)
+    for p in ps:
+        assert got.owner_of(p.name) == want.owner_of(p.name)
+    with pytest.raises(KeyError):
+        got.owner_of("absent.parquet")
+    assert (got.max_partitions, got.min_partitions, got.skew) == (
+        want.max_partitions, want.min_partitions, want.skew
+    )
+    cost = PlanCost(
+        placement="device", compute_dtype="float64", engine="single", num_rows=None,
+        batch_size=None, num_shards=num_shards,
+        shard_partitions=tuple(got.assignment(k).num_partitions for k in range(num_shards)),
+    )
+    assert cost.shard_partitions_max == got.max_partitions
+    assert cost.shard_skew == pytest.approx(got.skew, rel=1e-15)
+
+
+def test_explain_renders_the_shards_line(tmp_path):
+    """EXPLAIN of a sharded scan: `shards: N processes × K partitions each
+    (max skew S)`, from the planner's own split."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from deequ_tpu_torch.analyzers import Mean
+    from deequ_tpu_torch.data.source import PartitionedParquetSource
+    from deequ_tpu_torch.lint import explain_plan
+
+    for i in range(6):
+        pq.write_table(pa.table({"x": np.arange(10.0) + i}), str(tmp_path / f"p-{i}.parquet"))
+    src = PartitionedParquetSource(str(tmp_path))
+    plan = plan_shards(list(src.partitions()), 4)
+    counts = [plan.assignment(k).num_partitions for k in range(4)]
+    text = str(explain_plan(src, [Mean("x")], num_shards=4, shard_partitions=counts, device="cpu"))
+    assert f"shards: 4 processes × 2 partitions each (max skew {plan.skew:.2f})" in text
