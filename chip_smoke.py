@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """GPU smoke run of deequ_tpu_torch's main paths: verification under each
-placement, column profiling, constraint suggestion, streamed Parquet
-with its host fast paths, row-group pruning and EXPLAIN, incremental
-runs, anomaly detection, the mesh-sharded scan and the sharded scan
-across processes.
+placement, traced, with forensics and telemetry, column profiling,
+constraint suggestion, streamed Parquet with its host fast paths,
+row-group pruning and EXPLAIN, incremental runs, anomaly detection, the
+mesh-sharded scan and the sharded scan across processes.
 
 Run from the repository root on a machine with one CUDA GPU:
 
@@ -57,6 +57,22 @@ Phases, one JSON line each:
               the warm run's passes, group passes, launches and batches
               exactly, and its first-batch wire bytes up to the masks the
               run found all-true and sent as constants (listed);
+     observe  on phase 4's table, its check less the containment
+              (`observe_check`), placement "device" and the counts
+              shortcut off (the cost model's assumptions): untraced,
+              traced, untraced, traced, the same bits and K1-K4 launches
+              (the traced/untraced wall ratio of each pair printed); the
+              trace's counters equal runtime.monitored()'s, with a label
+              per pass; observe.dispatch_signature of the trace equals
+              the PlanCost's and cost_drift is 0 on every counter and
+              span; phase_seconds, the root span's share of the wall and,
+              from one traced run under torch.profiler, the device's busy
+              time and K1-K4's; the Chrome trace written and read back
+              (pid 0, one B event per span); two runs with forensics:
+              metric-neutral, the same samples, is_complete("x")'s rows
+              null in numpy, the audit trail saved and loaded back; the
+              engine telemetry record saved, loaded and rendered as
+              OpenMetrics text;
      placement  the bandwidth probe on the card with an empty disk
               cache (it must place as "device"; a second call is served
               from the cache with no copy), then phase 4's check less its
@@ -111,7 +127,11 @@ Phases, one JSON line each:
               same rows (phase 4's first run when it ran the same
               table), metric for metric
               and bit for bit, with the grouping analyzers folded through
-              GroupCountAccumulator. Files go to a temporary directory;
+              GroupCountAccumulator; then the flagship scan analyzers
+              streamed over that file with the heartbeat on
+              (`observe_heartbeat`: snapshots every 0.2 s to a JSONL file,
+              batches never falling, the last one's equal to the scan's).
+              Files go to a temporary directory;
               their writing is timed apart from the runs.
  9b. prune    the lineitem table stably sorted by l_orderkey (dbgen's
               order) in one zstd file of 10 row groups of 1,048,576 rows.
@@ -194,15 +214,18 @@ Phases, one JSON line each:
               own: every worker's metrics equal the solo run's bit for
               bit, the workers' first runs launch what the solo run did,
               and their second runs load all 16 partitions from the
-              repositories; times of the solo run, each worker's scan and
-              gather, and the spawn.
+              repositories; each traces its second run into a file of
+              its own (suffixed with its rank), and the two traces merge
+              with pids 0 and 1; times of the solo run, each worker's
+              scan and gather, and the spawn.
 Then the kernels' summary line (launches on the main path, on the
 profile as `launches_profile`, on the streamed profile and verification
 as `launches_stream`, on the incremental append run as
 `launches_incremental`, per placement of phase `placement` as
 `launches_placement`, on one mesh run as `launches_mesh`, on the
-workers' first sharded runs as `launches_sharded` and on the pruned run A
-as `launches_prune`) and, last, the device line. Any failed
+workers' first sharded runs as `launches_sharded`, on the pruned run A
+as `launches_prune` and on phase `observe`'s traced run as
+`launches_observe`) and, last, the device line. Any failed
 check raises: the script exits non-zero and prints no result. Without
 CUDA it exits non-zero at once.
 """
@@ -1035,8 +1058,289 @@ def main_path_phase(torch, ck, rows: int, seed: int, card: str, power_limit: str
         "status": runs[0][0].status.value,
     }
     emit(out)
-    # the first run, which the stream phase compares its streamed run with
-    return runs[0][2], ((rows, seed), runs[0])
+    # the first run, which the stream phase compares its streamed run
+    # with, and the table, which the observe phase runs on
+    return runs[0][2], ((rows, seed), runs[0], data, table)
+
+
+# the CUDA symbol of each kernel, as torch.profiler names its launches
+KERNEL_SYMBOLS = {
+    "masked_moments": "masked_moments_kernel",
+    "masked_centered_sumsq": "centered_sumsq_kernel",
+    "hll_register_max": "hll_max",
+    "hist16": "hist16_count",
+}
+
+
+def observe_check(rows: int):
+    """The main path's check less its string containment
+    (`is_contained_in`, ~17 s of the main path's ~20 s warm run: host
+    work over Python strings, the same traced or not), so that the
+    observe phase's runs fit its time budget; the flagship analyzers,
+    two quantiles, a Compliance, a pattern and the three grouping sets
+    stay."""
+    from deequ_tpu_torch import Check, CheckLevel
+
+    return (
+        Check(CheckLevel.ERROR, "observe")
+        .has_size(lambda n: n == rows)
+        .is_complete("x")  # fails: every 11th x is null
+        .has_completeness("x", lambda c: c > 0.9)
+        .has_mean("x", lambda v: 2.9 < v < 3.1)
+        .has_min("x", lambda v: v < 0)
+        .has_max("x", lambda v: v > 6)
+        .has_sum("x", lambda v: v > 0)
+        .has_standard_deviation("x", lambda v: 1.9 < v < 2.1)
+        .has_correlation("x", "y", lambda r: r > 0.5)
+        .has_approx_count_distinct("id", lambda v: v > 0.5 * rows)
+        .has_approx_quantile("x", 0.5, lambda m: 2.9 < m < 3.1)
+        .satisfies("x > 0 OR x IS NULL", "x positive or null", lambda r: r > 0.9)
+        .has_pattern("cat", "^(ok|warn)$", lambda r: 0.35 < r < 0.45)
+        .is_unique("id")  # fails: ids are drawn with repeats
+        .has_number_of_distinct_values("grp", lambda b: b == 5)
+        .has_entropy("cat", lambda e: e > 1.0)
+    )
+
+
+def device_busy_ms(prof, DeviceType):
+    """(the union of the device operations' intervals, each kernel's
+    device time) of a torch.profiler run, in ms."""
+    ops = sorted(
+        ((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+         if e.device_type == DeviceType.CUDA),
+        key=lambda t: t[0],
+    )
+    busy_us, end = 0.0, None
+    for start, stop, _name in ops:
+        if end is None or start > end:
+            busy_us += stop - start
+            end = stop
+        elif stop > end:
+            busy_us += stop - end
+            end = stop
+    kernels = {
+        name: sum(stop - start for start, stop, op in ops if symbol in op) / 1e3
+        for name, symbol in KERNEL_SYMBOLS.items()
+    }
+    return busy_us / 1e3, kernels
+
+
+def observe_phase(torch, ck, main_run, card: str, power_limit: str, kernel_rows):
+    """Tracing, counters, the trace differential, forensics and telemetry
+    on the main path's table (`main_run` of phase 4), placement "device"
+    and the counts shortcut off (the knobs the cost model assumes, as
+    tests/test_trace_differential.py pins them). -> the kernels'
+    launches in the traced run."""
+    import tempfile
+
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from deequ_tpu_torch import VerificationSuite, observe
+    from deequ_tpu_torch.analyzers import ApproxQuantiles
+    from deequ_tpu_torch.lint.cost import cost_drift
+    from deequ_tpu_torch.ops import runtime
+    from deequ_tpu_torch.repository import engine
+    from deequ_tpu_torch.repository.audit import load_audit_trail
+    from deequ_tpu_torch.repository.base import ResultKey
+    from deequ_tpu_torch.repository.fs import FileSystemMetricsRepository
+
+    phase_t0 = time.perf_counter()
+    (rows, _seed), _first, data, table = main_run
+    check = observe_check(rows)
+    quantiles_y = ApproxQuantiles("y", [0.1, 0.5, 0.9])
+    expected_launches = flagship_launches(rows)
+
+    def run(traced=False, forensics=False, repository=None, key=None):
+        builder = (VerificationSuite.on_data(table, device="cuda").add_check(check)
+                   .add_required_analyzer(quantiles_y).with_tracing(traced))
+        if forensics:
+            builder = builder.with_forensics()
+        if repository is not None:
+            builder = builder.use_repository(repository).save_or_append_result(key)
+        ck.reset_launch_counts()
+        torch.cuda.synchronize()
+        with runtime.monitored() as stats:
+            start = time.perf_counter()
+            result = builder.run()
+            wall = time.perf_counter() - start
+        counts = ck.launch_counts()
+        if counts != expected_launches:
+            raise AssertionError(f"observe: launches {counts}, expected {expected_launches}")
+        return result, wall, counts, stats
+
+    with env(DEEQU_TPU_PLACEMENT="device", DEEQU_TPU_NO_COUNTS_FASTPATH="1"), \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_observe_") as tmp:
+        # warm untraced, traced, untraced, traced: the same bits and launches
+        runs = [run(traced) for traced in (False, True, False, True)]
+        plain = metric_values(runs[0][0])
+        for result, _wall, counts, _stats in runs[1:]:
+            got = metric_values(result)
+            if list(got) != list(plain) or not all(same_bits(got[k], v) for k, v in plain.items()):
+                raise AssertionError("observe: a traced run's metrics differ from an untraced run's")
+            if verdicts(result) != verdicts(runs[0][0]):
+                raise AssertionError("observe: a traced run's verdicts differ")
+        for result, _wall, _counts, _stats in runs[::2]:
+            if result.run_trace is not None:
+                raise AssertionError("observe: an untraced run carries a trace")
+        pairs = [runs[1][1] / runs[0][1], runs[3][1] / runs[2][1]]
+
+        # the counters: the trace's equal monitored() of the same run
+        traced, traced_wall, traced_launches, stats = runs[3]
+        trace = traced.run_trace
+        for name in ("device_passes", "device_launches", "group_passes"):
+            if trace.counters.get(name, 0) != getattr(stats, name):
+                raise AssertionError(f"observe: trace {name} {trace.counters.get(name, 0)} vs "
+                                     f"monitored() {getattr(stats, name)}")
+        labels = list(stats.pass_labels)
+        if len(labels) != stats.device_passes + stats.group_passes or not all(
+                label.startswith(("scan:", "freq-agg:", "group:")) for label in labels):
+            raise AssertionError(f"observe: pass labels {labels}")
+
+        # the trace differential: the cost model's prediction equals the trace
+        predicted = traced.plan_cost.dispatch_signature()
+        observed = observe.dispatch_signature(trace)
+        if predicted != observed:
+            raise AssertionError(f"observe: predicted {predicted} vs traced {observed}")
+        drift = cost_drift(traced.plan_cost, trace)
+        moved = {k: v for k, v in drift.items()
+                 if k.startswith(("drift.counter.", "drift.span.")) and v != 0.0}
+        if moved:
+            raise AssertionError(f"observe: cost_drift {moved}")
+
+        # where the time goes: the spans' self time, the root's share of
+        # the wall, and the device's busy time under torch.profiler
+        phases = trace.phase_seconds()
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            profiled, profiled_wall, _c, _s = run(traced=True)
+            torch.cuda.synchronize()
+        busy_ms, kernel_ms = device_busy_ms(prof, DeviceType)
+        estimate_ms = sum(row["ms"] * expected_launches[row["name"]] for row in kernel_rows)
+
+        # the Chrome trace, written and read back
+        trace_path = trace.write(os.path.join(tmp, "observe_trace.json"))
+        with open(trace_path, encoding="utf-8") as f:
+            doc = json.load(f)
+        begins = [e for e in doc["traceEvents"] if e["ph"] == "B"]
+        n_spans = sum(1 for _ in trace.spans())
+        if len(begins) != n_spans or {e["pid"] for e in doc["traceEvents"]} != {0}:
+            raise AssertionError(f"observe: trace file holds {len(begins)} spans of {n_spans}, "
+                                 f"pids {sorted({e['pid'] for e in doc['traceEvents']})}")
+
+        # forensics: deterministic, metric-neutral, saved and loaded back
+        repo = FileSystemMetricsRepository(os.path.join(tmp, "metrics.json"))
+        key = ResultKey(1, {"phase": "observe"})
+        first, first_wall, _c, _s = run(forensics=True)
+        second, second_wall, _c, _s = run(forensics=True, repository=repo, key=key)
+        for result in (first, second):
+            got = metric_values(result)
+            if not all(same_bits(got[k], v) for k, v in plain.items()):
+                raise AssertionError("observe: a forensics run's metrics differ from the run off")
+        report = first.forensics()
+        if report.to_dict() != second.forensics().to_dict():
+            raise AssertionError("observe: two forensics runs sampled different rows")
+        complete = [c for c in report.constraints
+                    if c.kind == "completeness" and c.columns == ["x"] and c.status == "FAILURE"]
+        if len(complete) != 1 or not complete[0].samples:
+            raise AssertionError(f"observe: is_complete('x') gave {complete}")
+        sampled = np.array([s.row_index for s in complete[0].samples])
+        if not np.isnan(data["x"][sampled]).all():
+            raise AssertionError(f"observe: sampled rows {sampled.tolist()} are not null in x")
+        loaded = load_audit_trail(repo, key)
+        if loaded is None or loaded.to_dict() != second.forensics().to_dict():
+            raise AssertionError("observe: the audit trail did not load back")
+
+        # telemetry: the engine record saved, loaded back and rendered
+        record = observe.engine_metric_record(trace, traced.plan_cost)
+        engine.record_run(repo, trace, traced.plan_cost, suite="chip_smoke",
+                          dataset="main_path", data_set_date=2)
+        series = engine.engine_series(repo, "engine.rows_per_s")
+        if [p.metric_value for p in series] != [record["engine.rows_per_s"]]:
+            raise AssertionError(f"observe: engine series {series}")
+        text = observe.openmetrics_text(repo.load().get())
+        if not text.endswith("# EOF\n") or "deequ_tpu_engine_rows_per_s" not in text:
+            raise AssertionError("observe: OpenMetrics text lacks the engine series")
+
+    emit({
+        "phase": "observe",
+        "rows": rows,
+        "card": card,
+        "power_limit": power_limit,
+        "runs_s": {"untraced": [runs[0][1], runs[2][1]], "traced": [runs[1][1], runs[3][1]]},
+        "traced_over_untraced": pairs,
+        "launches_per_run": traced_launches,
+        "counters": {k: trace.counters.get(k, 0)
+                     for k in ("device_passes", "device_launches", "group_passes")},
+        "pass_labels": labels,
+        "dispatch_signature": observed,
+        "cost_drift": drift,
+        "phase_seconds": phases,
+        "root_span_share_of_wall": trace.duration_s / traced_wall,
+        "spans": n_spans,
+        "profiled_run": {
+            "wall_s": profiled_wall,
+            "device_busy_ms": busy_ms,
+            "k1_k4_device_ms": kernel_ms,
+            "device_idle_share": 1.0 - busy_ms / (profiled_wall * 1e3),
+            "k1_k4_launches_times_kernel_line_ms": estimate_ms,
+            "phase_seconds": profiled.run_trace.phase_seconds(),
+        },
+        "forensics": {
+            "runs_s": [first_wall, second_wall],
+            "constraints": len(report.constraints),
+            "falloffs": len(report.falloffs),
+            "is_complete_x_samples": sampled.tolist(),
+            "violations_seen": complete[0].violations_seen,
+        },
+        "telemetry": {
+            "rows_per_s": record["engine.rows_per_s"],
+            "peak_rss_mb": record["engine.peak_rss_mb"],
+            "keys": len(record),
+        },
+        "seconds": time.perf_counter() - phase_t0,
+    })
+    return traced_launches
+
+
+def observe_heartbeat(torch, ck, path: str, rows: int, card: str, power_limit: str):
+    """A streamed scan of the stream phase's flagship Parquet file (`path`,
+    `rows` rows) with the heartbeat on (DEEQU_TPU_HEARTBEAT_S=0.2, a
+    JSONL out file): at least one snapshot, completed batches never fall,
+    and the last snapshot's batches equal the scan's."""
+    import tempfile
+
+    from deequ_tpu_torch import Table
+    from deequ_tpu_torch.analyzers import (
+        ApproxCountDistinct, Completeness, Maximum, Mean, Minimum, Size, StandardDeviation,
+    )
+    from deequ_tpu_torch.runners import AnalysisRunner
+
+    analyzers = [Size(), Completeness("x"), Mean("x"), Minimum("x"), Maximum("x"),
+                 StandardDeviation("x"), ApproxCountDistinct("id")]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_heartbeat_") as tmp:
+        out = os.path.join(tmp, "heartbeat.jsonl")
+        with env(DEEQU_TPU_HEARTBEAT_S="0.2", DEEQU_TPU_HEARTBEAT_OUT=out):
+            ck.reset_launch_counts()
+            start = time.perf_counter()
+            ctx = (AnalysisRunner.on_data(Table.scan_parquet(path), device="cuda")
+                   .add_analyzers(analyzers).with_tracing(True).run())
+            wall = time.perf_counter() - start
+        with open(out, encoding="utf-8") as f:
+            snaps = [json.loads(line) for line in f if line.strip()]
+    batches = [s["batches"] for s in snaps if s.get("name") == "fused_scan"]
+    scan_batches = sum(sp.attrs.get("batches", 0) for sp in ctx.run_trace.spans()
+                       if sp.name == "fused_scan")
+    if not batches or any(b < a for a, b in zip(batches, batches[1:])):
+        raise AssertionError(f"heartbeat: snapshot batches {batches}")
+    if batches[-1] != scan_batches or not snaps[-1].get("done"):
+        raise AssertionError(f"heartbeat: last snapshot {snaps[-1]}, the scan's {scan_batches}")
+    if ck.launch_counts()["masked_moments"] != scan_batches:
+        raise AssertionError(f"heartbeat: launches {ck.launch_counts()}")
+    emit({"phase": "observe_heartbeat", "rows": rows, "card": card, "power_limit": power_limit,
+          "run_s": wall, "snapshots": len(snaps), "snapshot_batches": batches,
+          "last_snapshot": snaps[-1]})
 
 
 PLACEMENT_RTOL = 1e-12  # float sums folded on the host and on the card (the CPU tests' bound)
@@ -2166,6 +2470,7 @@ def stream_phase(torch, ck, lineitem, memory_profiles, memory_launches, stream_r
             raise AssertionError(f"stream verify: verdicts {verdicts(streamed)} vs {verdicts(memory)}")
         if ParquetSource(path).num_rows != stream_rows:
             raise AssertionError("stream verify: the file lost rows")
+        observe_heartbeat(torch, ck, path, stream_rows, card, power_limit)
 
     emit({
         "phase": "stream",
@@ -3033,6 +3338,7 @@ rank, port, _tmp, data_dir, cache_root = int(sys.argv[1]), sys.argv[2], sys.argv
 import torch
 
 import chip_smoke
+from deequ_tpu_torch import observe
 from deequ_tpu_torch.data.source import PartitionedParquetSource
 from deequ_tpu_torch.ops import cuda_kernels as ck
 from deequ_tpu_torch.ops import runtime
@@ -3054,17 +3360,23 @@ try:
         return out
 
     runs = []
-    for _ in range(2):  # the second run loads every partition from the repository
+    for i in range(2):  # the second run loads every partition from the repository
         del gather_s[:]
         ck.reset_launch_counts()
         torch.cuda.synchronize()
         start = time.perf_counter()
-        with runtime.monitored() as stats:
+        # the second run is traced: each worker writes its own trace file,
+        # suffixed with its rank (observe.runtrace)
+        trace_to = os.path.join(cache_root, "trace.json") if i == 1 else False
+        with runtime.monitored() as stats, observe.traced_run(
+                "sharded_scan", enable=trace_to) as handle:
             context = multihost.run_sharded_analysis(
                 source, analyzers, state_repository=repository, dataset_name="clicks",
                 gather=gather)
         torch.cuda.synchronize()
         runs.append({
+            "trace_path": handle.trace.path if handle else None,
+            "trace_counters": handle.trace.counters if handle else None,
             "wall_s": time.perf_counter() - start,
             "gather_s": sum(gather_s),
             "gathers": len(gather_s),
@@ -3094,6 +3406,7 @@ def sharded_phase(torch, ck, seed: int, card: str, power_limit: str):
     import pyarrow as pa
     import pyarrow.parquet as pq
 
+    from deequ_tpu_torch import observe
     from deequ_tpu_torch.data.source import PartitionedParquetSource
     from deequ_tpu_torch.ops import runtime
     from deequ_tpu_torch.parallel import procspawn
@@ -3142,6 +3455,20 @@ def sharded_phase(torch, ck, seed: int, card: str, power_limit: str):
             SHARDED_WORKER, SHARDED_PROCS, [data_dir, os.path.join(tmp, "workers")],
             timeout=600, env={"DEEQU_TPU_PLACEMENT": "device"})
         spawn_s = time.perf_counter() - start
+        # the workers' traces of their second runs, merged into one document
+        trace_paths = [r["runs"][1]["trace_path"] for r in results]
+        merged = observe.merge_chrome_traces(trace_paths)
+        merged_pids = sorted({e["pid"] for e in merged["traceEvents"]})
+        merged_spans = sorted({e["name"] for e in merged["traceEvents"] if e["ph"] == "B"})
+        for r in results:
+            counters = r["runs"][1]["trace_counters"]
+            if (counters.get("shard.count") != SHARDED_PROCS
+                    or counters.get("shard.index", 0) != r["rank"]
+                    or not r["runs"][1]["trace_path"].endswith(f"_p{r['rank']}.json")):
+                raise AssertionError(f"rank {r['rank']}: trace {r['runs'][1]['trace_path']}, "
+                                     f"counters {counters}")
+        if merged_pids != list(range(SHARDED_PROCS)) or "shard_allgather" not in merged_spans:
+            raise AssertionError(f"merged worker traces: pids {merged_pids}, spans {merged_spans}")
 
     workers_launches = {name: 0 for name in solo_launches}
     for result in results:
@@ -3184,6 +3511,8 @@ def sharded_phase(torch, ck, seed: int, card: str, power_limit: str):
         } for r in results],
         "launches_solo": solo_launches,
         "launches_sharded": workers_launches,
+        "merged_worker_traces": {"pids": merged_pids, "spans": merged_spans,
+                                 "events": len(merged["traceEvents"])},
     })
     return workers_launches
 
@@ -3242,6 +3571,8 @@ def main() -> int:
     refused_launch_phase(torch, ck, cuda_build, device)
     del timer, profile  # frees the 256 MB L2 flush buffer before the main path
     launches, main_run = main_path_phase(torch, ck, args.rows, args.seed, card, power_limit)
+    observe_launches = observe_phase(torch, ck, main_run, card, power_limit, summary)
+    main_run = main_run[:2]  # the stream phase reads the first run alone
     placement_launches_by_mode = placement_phase(torch, ck, args.rows, args.seed, card, power_limit)
     basic_example_phase(torch, ck)
     warm_profile_s, profile_launches, lineitem, profiles = profile_phase(
@@ -3266,12 +3597,14 @@ def main() -> int:
         row["launches_mesh"] = mesh_launches[row["name"]]
         row["launches_sharded"] = sharded_launches[row["name"]]
         row["launches_prune"] = prune_launches[row["name"]]
+        row["launches_observe"] = observe_launches[row["name"]]
         if not (row["launches"] and row["launches_profile"] and row["launches_stream"]
                 and row["launches_incremental"] and row["launches_mesh"]
-                and row["launches_sharded"] and row["launches_prune"]):
+                and row["launches_sharded"] and row["launches_prune"]
+                and row["launches_observe"]):
             raise AssertionError(f"{row['name']} never launched on the main path, the profile, "
                                  "the streamed path, the incremental path, the mesh, the "
-                                 "sharded scan or the pruned scan")
+                                 "sharded scan, the pruned scan or the traced run")
     emit({"kernels": summary})
     emit({
         "ok": True,

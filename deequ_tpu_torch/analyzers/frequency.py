@@ -23,6 +23,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from deequ_tpu_torch import observe
 from deequ_tpu_torch.analyzers.base import Preconditions, entity_from
 from deequ_tpu_torch.analyzers.grouping import GroupingAnalyzer
 from deequ_tpu_torch.analyzers.states import State
@@ -164,7 +165,14 @@ def compute_frequencies(
     below the cap and bounded above it (the disk spill). With a `mesh`
     (parallel/distributed.py) a code space of at most _MAX_DEVICE_BINS
     groups is counted row-sharded on its devices (`sharded_bincount`)."""
-    runtime.record_group_pass()
+    with observe.span("group_pass", cat="group", columns=",".join(grouping_columns)):
+        runtime.record_group_pass(",".join(grouping_columns))
+        return _compute_frequencies(data, grouping_columns, num_rows, mesh)
+
+
+def _compute_frequencies(
+    data: Table, grouping_columns: Sequence[str], num_rows: Optional[int], mesh
+) -> FrequenciesAndNumRows:
     if hasattr(data, "with_columns"):
         data = data.with_columns(list(grouping_columns))
     if getattr(data, "is_streaming", False):
@@ -433,7 +441,7 @@ class MutualInformation(FrequencyBasedAnalyzer):
     def compute_metric_from(self, state: Optional[FrequenciesAndNumRows], device=None) -> Metric:
         if state is None or state.num_groups == 0:
             return self.empty_state_failure()
-        runtime.record_pass()
+        runtime.record_pass("freq-agg:MutualInformation")
         total = state.num_rows
         # state columns may be sorted differently than self.columns
         ia = state.columns.index(self.columns[0])

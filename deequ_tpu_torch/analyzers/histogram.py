@@ -91,7 +91,7 @@ class Histogram(Analyzer):
         return [param_check, Preconditions.has_column(self.column)]
 
     def compute_state_from(self, table: Table, device=None) -> Optional[FrequenciesAndNumRows]:
-        runtime.record_group_pass()
+        runtime.record_group_pass(f"histogram:{self.column}")
         if hasattr(table, "with_columns"):
             table = table.with_columns([self.column])
         if getattr(table, "is_streaming", False):

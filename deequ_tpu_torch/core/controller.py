@@ -81,6 +81,7 @@ class RunController:
         self._soft_cancel = threading.Event()
         self._soft_reason = "preempted"
         self._boundary_probe: Optional[Callable[[Dict[str, Any]], Optional[str]]] = None
+        self.beats = 0
 
     def cancel(self, reason: str = "cancelled") -> None:
         """Trip the token: the run raises at its next check. The first
@@ -127,6 +128,17 @@ class RunController:
     @property
     def soft_cancelled(self) -> bool:
         return self._soft_cancel.is_set()
+
+    def remaining_s(self) -> Optional[float]:
+        """Seconds until the deadline, or None when none is set."""
+        if self._deadline_at is None:
+            return None
+        return self._deadline_at - time.monotonic()
+
+    def beat(self) -> None:
+        """One unit of forward progress (a folded batch). Written by the
+        fold thread alone."""
+        self.beats += 1
 
     def check(
         self,

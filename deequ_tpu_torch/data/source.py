@@ -38,6 +38,8 @@ from typing import TYPE_CHECKING, Callable, Dict, Iterator, List, Optional, Sequ
 import numpy as np
 
 from deequ_tpu_torch.data.table import NUMPY_BACKING, Column, ColumnType, Table
+from deequ_tpu_torch.observe import heartbeat
+from deequ_tpu_torch.observe import spans as _spans
 from deequ_tpu_torch.ops import runtime
 
 if TYPE_CHECKING:
@@ -67,6 +69,23 @@ def _arrow_ctype(t) -> ColumnType:
     if pa.types.is_timestamp(t):
         return ColumnType.TIMESTAMP
     return ColumnType.STRING
+
+
+def _decode_table(arrow_table, fastpath, wire=None) -> Table:
+    """Arrow batch -> Table under an `arrow_decode` span, which parts the
+    buffer-to-Column work from the Parquet read around it; `wire_fuse`
+    counts the columns this batch decoded straight to wire rows."""
+    sp = _spans.span("arrow_decode", cat="decode")
+    with sp:
+        table = Table.from_arrow(arrow_table, fastpath, wire)
+        if sp:
+            wire_rows = getattr(table, "wire_rows", None) or {}
+            sp.set(
+                rows=int(table.num_rows),
+                fast=bool(fastpath),
+                wire_fuse=len({k.split(":", 1)[1] for k in wire_rows}),
+            )
+    return table
 
 
 def _empty_column(name: str, ctype: ColumnType) -> Column:
@@ -153,17 +172,34 @@ class DataSource:
             return False
 
         sinks = runtime.current_sinks()
+        tracer = _spans.current_tracer()
+        parent = _spans.current_span()
 
         def producer() -> None:
-            with runtime.attached_sinks(sinks):
+            with runtime.attached_sinks(sinks), _spans.attached(tracer, parent):
                 _produce()
 
         def _produce() -> None:
             it = self._iter_tables(batch_size)
             try:
-                for table in it:
-                    if stop.is_set() or not _put(table):
-                        return
+                with _spans.span("pipe_stage", cat="pipeline", stage="decode") as stage_sp:
+                    items = 0
+                    while not stop.is_set():
+                        sp = _spans.span("pipe_item", cat="pipeline", stage="decode")
+                        with sp:
+                            table = next(it, _SENTINEL)
+                            if sp:
+                                # the exhausted iterator still runs its tail
+                                # (close): decode time, but no item
+                                if table is _SENTINEL:
+                                    sp.set(eos=True)
+                                else:
+                                    sp.set(rows=int(table.num_rows))
+                        if table is _SENTINEL or not _put(table):
+                            break
+                        items += 1
+                    if stage_sp:
+                        stage_sp.set(items=items)
             except BaseException as e:  # noqa: BLE001 - raised again in the consumer
                 error.append(e)
             finally:
@@ -626,11 +662,15 @@ class ParquetSource(DataSource):
         failed = set()
         enc_off = set()  # columns a chunk of which refused the runs mode
         enc_fallback = 0
-        for g in unit:
-            for name in scanned:
-                meta = metas.get((g, name))
-                if meta is None:
-                    continue
+        unit_metas = [(g, name, metas.get((g, name))) for g in unit for name in scanned]
+        unit_metas = [(g, name, meta) for g, name, meta in unit_metas if meta is not None]
+        sp = (
+            _spans.span("page_read", cat="read", groups=len(unit), chunks=len(unit_metas))
+            if unit_metas
+            else contextlib.nullcontext()
+        )
+        with sp, heartbeat.current().timed("read"):
+            for g, name, meta in unit_metas:
                 runs = name in enc_specs and name not in enc_off
                 decoded = self._read_native(fd, meta, runs)
                 if runs and decoded is not None and not isinstance(decoded, native_reader.RunChunk):
@@ -685,7 +725,7 @@ class ParquetSource(DataSource):
         wire_cols = wire.columns if wire is not None else {}
         for start in range(0, total, size):
             rest = (
-                Table.from_arrow(merged.slice(start, size), fastpath, wire)
+                _decode_table(merged.slice(start, size), fastpath, wire)
                 if merged is not None
                 else None
             )

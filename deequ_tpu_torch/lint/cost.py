@@ -374,6 +374,87 @@ def cost_tier(cost: "PlanCost") -> str:
     return "batch"
 
 
+def cost_drift(cost: "PlanCost", trace: Any) -> Dict[str, float]:
+    """Predicted-vs-observed drift per PlanCost field, from a RunTrace.
+
+    Positive values mean the run did *more* than the planner predicted
+    (extra passes/launches, more batches, wider wire rows). Keys:
+    `drift.counter.<name>`, `drift.span.<name>`, `drift.family_groups`,
+    and, when both sides are known, `drift.batches`,
+    `drift.wire_bytes_first_batch` and the pins of pruning, decode
+    routing, the C reader, the encoded fold, the state cache and the
+    shard split. Feeds `engine.drift.*` in the telemetry record, so the
+    sentinel watches the prediction's quality as a time series."""
+    from deequ_tpu_torch.observe import compare  # lazy: lint imports without observe
+
+    predicted = cost.dispatch_signature()
+    observed = compare.dispatch_signature(trace)
+    out: Dict[str, float] = {}
+    for key in set(predicted["counters"]) | set(observed["counters"]):
+        out[f"drift.counter.{key}"] = float(
+            observed["counters"].get(key, 0) - predicted["counters"].get(key, 0)
+        )
+    for key in set(predicted["spans"]) | set(observed["spans"]):
+        out[f"drift.span.{key}"] = float(
+            observed["spans"].get(key, 0) - predicted["spans"].get(key, 0)
+        )
+    out["drift.family_groups"] = float(
+        len(observed["family_groups"]) - len(predicted["family_groups"])
+    )
+
+    counters = trace.counters
+    scan = cost.scan_pass
+    if scan is not None:
+        observed_batches = 0
+        saw_batches = False
+        first_wire: Optional[int] = None
+        for sp in trace.spans():
+            if sp.name in ("fused_scan", "dist_scan") and "batches" in sp.attrs:
+                observed_batches += int(sp.attrs["batches"])
+                saw_batches = True
+            elif first_wire is None and sp.name == "dispatch" and "wire_bytes" in sp.attrs:
+                first_wire = int(sp.attrs["wire_bytes"])
+        if saw_batches:
+            out["drift.batches"] = float(observed_batches - scan.n_batches)
+        if first_wire is not None and scan.wire_bytes_per_batch is not None:
+            out["drift.wire_bytes_first_batch"] = float(first_wire - scan.wire_bytes_per_batch)
+        pins = (
+            ("drift.rg_skipped", scan.rg_skipped, "rg_total", "rg_skipped"),
+            ("drift.decode_cols_fast", scan.decode_cols_fast, "decode_cols_total", "decode_cols_fast"),
+            ("drift.wire_fused_cols", scan.wire_fused_cols, "wire_cols_total", "wire_fused_cols"),
+            (
+                "drift.reader_chunks_native", scan.reader_chunks_native,
+                "reader_chunks_total", "reader_chunks_native",
+            ),
+            ("drift.encfold_columns", scan.encfold_cols, "encfold_cols", "encfold_cols"),
+        )
+        for key, predicted_value, present, name in pins:
+            if predicted_value is not None and present in counters:
+                out[key] = float(int(counters.get(name, 0)) - predicted_value)
+        if (
+            scan.partitions_cached is not None
+            and scan.partitions_total is not None
+            and "partitions_total" in counters
+        ):
+            out["drift.partitions_cached"] = float(
+                int(counters.get("partitions_cached", 0)) - scan.partitions_cached
+            )
+            out["drift.partitions_scanned"] = float(
+                int(counters.get("partitions_scanned", 0))
+                - (scan.partitions_total - scan.partitions_cached)
+            )
+
+    # the shard planner is deterministic: the observed split must equal
+    # the predicted one exactly
+    if cost.num_shards > 1 and "shard.count" in counters:
+        out["drift.shard_count"] = float(int(counters.get("shard.count", 0)) - cost.num_shards)
+        if cost.shard_partitions:
+            out["drift.shard_partitions_max"] = float(
+                int(counters.get("shard.partitions_max", 0)) - cost.shard_partitions_max
+            )
+    return out
+
+
 # -- wire-format replay -------------------------------------------------------
 
 
@@ -995,5 +1076,6 @@ __all__ = [
     "PipelineCost",
     "PlanCost",
     "analyze_plan",
+    "cost_drift",
     "cost_tier",
 ]

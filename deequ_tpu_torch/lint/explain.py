@@ -10,8 +10,8 @@ diagnostics feed `validate_plan` when a row-count is known, so strict
 runs aggregate DQ3xx warnings next to DQ1xx/DQ2xx errors.
 
 The port's copy of deequ_tpu/lint/explain.py: it renders the port's own
-cost model. The failure-forensics capability lines (DQ316) come with
-the port's observability layer.
+cost model, and the failure-forensics capability lines (DQ316) from the
+capture's own classification (observe/forensics.py).
 """
 
 from __future__ import annotations
@@ -630,17 +630,34 @@ def render_explain(
 class ExplainResult:
     cost: PlanCost
     diagnostics: List[Diagnostic] = field(default_factory=list)
+    # failure-forensics capability, from the capture's own static
+    # classification of the checks (observe/forensics.py): (constraint
+    # repr, row-level family) of the capable constraints, and
+    # (constraint repr, reason) of the DQ316 fall-offs
+    forensics_capable: List[Tuple[str, str]] = field(default_factory=list)
+    forensics_falloffs: List[Tuple[str, str]] = field(default_factory=list)
     # the plan-subsumption proof (lint/subsume.SubsumptionProof) when
     # the plan was checked against a candidate shared scan; its summary
     # renders as the `sharing:` line
     sharing: Optional[Any] = None
 
     def render(self) -> str:
-        return render_explain(
+        text = render_explain(
             self.cost,
             self.diagnostics,
             sharing=self.sharing.summary() if self.sharing is not None else None,
         )
+        if self.forensics_capable or self.forensics_falloffs:
+            lines = [
+                "failure forensics (with_forensics() / DEEQU_TPU_FORENSICS=1): "
+                f"{len(self.forensics_capable)} of "
+                f"{len(self.forensics_capable) + len(self.forensics_falloffs)}"
+                " constraint(s) capture violating rows"
+            ]
+            for rep, kind in self.forensics_capable:
+                lines.append(f"  + {rep}: {kind}")
+            text = "\n".join([text] + lines)
+        return text
 
     def __str__(self) -> str:
         return self.render()
@@ -782,7 +799,38 @@ def explain_plan(
             diagnostics.extend(sharing_diagnostics(sharing_proof, plan))
         except Exception:  # noqa: BLE001 — the prover is advisory here
             sharing_proof = None
-    return ExplainResult(cost=cost, diagnostics=diagnostics, sharing=sharing_proof)
+    # DQ316: which constraints' failures come back with sampled rows,
+    # predicted by the classification the capture itself uses
+    capable: List[Tuple[str, str]] = []
+    falloffs: List[Tuple[str, str]] = []
+    if checks:
+        try:
+            from deequ_tpu_torch.observe.forensics import classify_constraints
+
+            for constraint, _inner, kind, reason in classify_constraints(checks):
+                if kind is not None:
+                    capable.append((repr(constraint), kind))
+                else:
+                    falloffs.append((repr(constraint), reason))
+                    diagnostics.append(
+                        Diagnostic(
+                            "DQ316",
+                            Severity.WARNING,
+                            f"constraint {constraint!r} falls off row-level "
+                            f"failure forensics ({reason}): a FAILURE "
+                            "reports the metric value only, with no "
+                            "sampled violating rows",
+                        )
+                    )
+        except Exception:  # noqa: BLE001 — prediction is advisory
+            capable, falloffs = [], []
+    return ExplainResult(
+        cost=cost,
+        diagnostics=diagnostics,
+        forensics_capable=capable,
+        forensics_falloffs=falloffs,
+        sharing=sharing_proof,
+    )
 
 
 def explain(

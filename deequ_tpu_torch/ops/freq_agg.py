@@ -15,6 +15,7 @@ from typing import TYPE_CHECKING, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from deequ_tpu_torch import observe
 from deequ_tpu_torch.core.metrics import Metric
 from deequ_tpu_torch.ops import runtime
 
@@ -35,7 +36,19 @@ def run_shared_freq_agg(
     and the leaves sum on the host in partition order: every aggregation
     is a sum over groups, so this is exact, and the whole counts array
     is never built."""
-    runtime.record_pass()
+    spilled = bool(getattr(state, "is_spilled", False))
+    with observe.span(
+        "freq_agg",
+        cat="group",
+        analyzers=len(analyzers),
+        groups=-1 if spilled else len(getattr(state, "counts", ())),
+        spilled=spilled,
+    ):
+        return _run_shared_freq_agg(state, analyzers, device)
+
+
+def _run_shared_freq_agg(state, analyzers, device: torch.device) -> List[Metric]:
+    runtime.record_pass("freq-agg:" + ",".join(a.name for a in analyzers))
     num_rows = torch.tensor(float(state.num_rows), dtype=torch.float64, device=device)
 
     def reduce(counts) -> Tuple[list, np.ndarray]:

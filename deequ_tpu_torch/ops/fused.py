@@ -72,9 +72,11 @@ from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
+from deequ_tpu_torch import observe
 from deequ_tpu_torch.analyzers.base import ScanShareableAnalyzer
 from deequ_tpu_torch.analyzers.states import State
 from deequ_tpu_torch.data.table import ColumnType, Table
+from deequ_tpu_torch.observe.spans import _NOOP as _NO_SPAN
 from deequ_tpu_torch.ops import counts_family, pipeline, runtime
 
 DEFAULT_BATCH_SIZE = 1 << 22  # 4,194,304 rows, as the JAX package
@@ -198,10 +200,19 @@ def elide_where_specs(specs: Dict[str, Any], wheres) -> int:
 
 def apply_prune_plan(table, prune, specs: Dict[str, Any]):
     """Act on a PrunePlan: elide the proven-all-true wheres' mask specs
-    (`elide_where_specs`), record the decision (`runtime.monitored()`'s
-    rg_* counts), and view the source without its proven-all-false row
-    groups."""
+    (`elide_where_specs`), record the decision (a `prune` span, the
+    tracer's rg_* counters and `runtime.monitored()`'s rg_* counts), and
+    view the source without its proven-all-false row groups."""
     elided = elide_where_specs(specs, prune.elided_wheres())
+    with observe.span(
+        "prune",
+        cat="plan",
+        groups_total=prune.total_groups,
+        groups_skipped=prune.skipped_groups,
+        rows_skipped=prune.skipped_rows,
+        wheres_elided=elided,
+    ):
+        pass
     runtime.record_pruned_groups(
         prune.skipped_groups, prune.total_groups, prune.skipped_rows, elided
     )
@@ -683,9 +694,37 @@ def plan_decode_fastpath(
 
 def apply_decode_plan(table, plan: DecodePlan):
     """The source with the plan's fast set, wire columns, reader chunks
-    and encoded-fold columns attached; the wire and encoded-fold
-    verdicts are recorded (runtime.monitored()) even when they take no
-    column."""
+    and encoded-fold columns attached. The plan is recorded: a
+    `decode_fastpath` span and the tracer's decode and reader counters
+    (the port decodes on one thread), and the wire and encoded-fold
+    verdicts (`runtime.monitored()` and the tracer) even when they take
+    no column."""
+    reader_groups = len({g for g, _ in plan.reader_chunks})
+    with observe.span(
+        "decode_fastpath",
+        cat="plan",
+        cols_total=plan.total,
+        cols_fast=len(plan.fast),
+        cols_fallback=len(plan.fallbacks),
+        cols_wire_fused=len(plan.wire_specs),
+        cols_reader=len(plan.reader_cols),
+        reader_groups=reader_groups,
+        cols_encfold=len(plan.enc_specs),
+        workers=1,
+    ):
+        pass
+    runtime.record_decode_fastpath(len(plan.fast), plan.total, 1)
+    if plan.reader_planned:
+        # chunks are static: the scanned columns of every row group the
+        # scan reads
+        skip = getattr(table, "prune_groups", None) or frozenset()
+        stats_fn = getattr(table, "row_group_stats", None)
+        groups = (
+            sum(1 for g in stats_fn() if g.index not in skip) if stats_fn is not None else 0
+        )
+        native_chunks = len(plan.reader_chunks)
+        total_chunks = max(plan.total * groups, native_chunks)
+        runtime.record_reader_chunks(native_chunks, total_chunks - native_chunks, total_chunks)
     if plan.wire_planned:
         runtime.record_wire_fused(sorted(plan.wire_specs), plan.total, plan.wire_falloffs)
     if plan.enc_planned:
@@ -1135,22 +1174,38 @@ def _precompute_family_kernels(
     if not groups:
         return
     multi = runtime.multi_family_enabled()
+    # the family pool's threads adopt this thread's trace context, so the
+    # family spans stay under this scan (a no-op when untraced)
+    trace_tracer = observe.current_tracer()
+    trace_parent = observe.current_span()
 
     def run_group(group: List[FamilyJobPlan]):
         """-> (each job's outputs, C traversals run)."""
         args = [inputs[job.qkey] for job in group]
-        if len(group) > 1 and multi:
-            # one where mask and cap per group (`family_group_key`)
-            outs = native.masked_moments_select_multi(
-                [(x, valid, mode, hv) for x, valid, _w, mode, hv in args], args[0][2],
-                group[0].cap,
-            )
-            if outs is not None:
-                return outs, 1
-        return [
-            native.masked_moments_select(x, valid, warr, job.cap, hll_mode=mode, hashvals=hv)
-            for job, (x, valid, warr, mode, hv) in zip(group, args)
-        ], len(group)
+        x0 = args[0][0]
+        with observe.attached(trace_tracer, trace_parent), observe.span(
+            "family_kernel",
+            cat="dispatch",
+            where=str(group[0].wkey),
+            cap=int(group[0].cap),
+            rows=len(x0),
+            dtype=str(x0.dtype),
+            columns=len(group),
+            cols=",".join(job.column for job in group),
+            batched=len(group) > 1 and multi,
+        ):
+            if len(group) > 1 and multi:
+                # one where mask and cap per group (`family_group_key`)
+                outs = native.masked_moments_select_multi(
+                    [(x, valid, mode, hv) for x, valid, _w, mode, hv in args], args[0][2],
+                    group[0].cap,
+                )
+                if outs is not None:
+                    return outs, 1
+            return [
+                native.masked_moments_select(x, valid, warr, job.cap, hll_mode=mode, hashvals=hv)
+                for job, (x, valid, warr, mode, hv) in zip(group, args)
+            ], len(group)
 
     if len(groups) > 1 and (os.cpu_count() or 1) > 1:
         # the C kernels release the GIL: groups run at once
@@ -1327,6 +1382,7 @@ def get_fused_fn(
     key = (plan_shape_key(analyzers, layout, assisted), str(device))
     with _PLAN_CACHE_LOCK:
         program = _PLAN_CACHE.get(key)
+        runtime.record_plan_cache(program is not None)
         if program is None:
             program = FusedProgram(analyzers, layout, device, assisted)
             _PLAN_CACHE[key] = program
@@ -1421,11 +1477,19 @@ class PipelinedAggFold:
         self._pending = (host, landed, meta, host_ctx, shard_bounds)
 
     def _fold(self, pending) -> None:
+        """Wait for a batch's packed partials to land on the host (the
+        `transfer` span: under asynchronous launches this is where the
+        host waits for the device) and fold them (the `merge` span)."""
         host, landed, meta, host_ctx, shard_bounds = pending
-        if landed is not None:
-            landed.synchronize()
+        with observe.span("transfer", cat="transfer", bytes=int(host.nbytes)):
+            if landed is not None:
+                landed.synchronize()
+            rows = host.numpy().reshape(self.n_dev, -1)
+        with observe.span("merge", cat="merge"):
+            self._merge(rows, meta, host_ctx, shard_bounds)
+
+    def _merge(self, rows: np.ndarray, meta, host_ctx, shard_bounds) -> None:
         n_merge = len(self.analyzers)
-        rows = host.numpy().reshape(self.n_dev, -1)
         batch_aggs = None
         for d in range(self.n_dev):
             outs = unpack_outputs(rows[d], meta, n_merge + len(self.assisted))
@@ -1463,14 +1527,16 @@ class PipelinedAggFold:
 # ---------------------------------------------------------------------------
 
 
-def scan_partition(analyzers, partition, *, batch_size=None, device=None, controller=None):
+def scan_partition(
+    analyzers, partition, *, batch_size=None, device=None, controller=None, forensics=None
+):
     """Fold ONE partition to per-analyzer results through the
     single-source pass: the one sub-scan of a solo partitioned run
     (`FusedScanPass._run_partitioned`) and of a shard of the sharded scan
     (parallel/multihost.py), so a shard's per-partition states are a solo
     run's, bit for bit."""
     return FusedScanPass(
-        analyzers, batch_size, device=device, controller=controller
+        analyzers, batch_size, device=device, controller=controller, forensics=forensics
     ).run(partition.source())
 
 
@@ -1489,7 +1555,13 @@ class FusedScanPass:
     table or a streamed source. `device` is where the pass runs: CUDA
     unless the caller asks for the CPU. A `controller`
     (core/controller.RunController) is checked before every batch and
-    every partition."""
+    every partition. A `forensics` capture (observe/forensics.py
+    ForensicsCapture) samples each decoded host batch's violating rows;
+    without one, each batch pays one falsy check."""
+
+    #: the pass's own `plan_fuse` and `fused_scan` spans (the mesh pass
+    #: opens one `dist_scan` span instead)
+    _scan_spans = True
 
     def __init__(
         self,
@@ -1498,6 +1570,7 @@ class FusedScanPass:
         device: runtime.DeviceLike = None,
         controller=None,
         state_cache=None,
+        forensics=None,
     ):
         self.analyzers = list(analyzers)
         # an explicit size (even the default's) enters the plan signature
@@ -1510,6 +1583,7 @@ class FusedScanPass:
         # repository/states.StateCacheContext (or None): lets a
         # partitioned run load a partition's states instead of scanning it
         self._state_cache = state_cache
+        self._forensics = forensics
 
     def run(self, table: Table) -> List[AnalyzerRunResult]:
         if getattr(table, "partitions", None) is not None:
@@ -1531,7 +1605,8 @@ class FusedScanPass:
             else None
         )
         signature = None
-        if cache is not None:
+        cap = self._forensics
+        if cache is not None or cap is not None:
             from deequ_tpu_torch.repository.states import plan_signature_for
 
             signature = plan_signature_for(
@@ -1540,6 +1615,8 @@ class FusedScanPass:
                 batch_size=self.batch_size if self._batch_size_explicit else None,
                 device=self.device,
             )
+        if cap is not None:
+            cap.note_plan_signature(signature)
         merged: Optional[List[AnalyzerRunResult]] = None
         cached_n = scanned_n = 0
         ctl = self._controller
@@ -1558,12 +1635,18 @@ class FusedScanPass:
                 )
             results: Optional[List[AnalyzerRunResult]] = None
             if cache is not None:
-                states = cache.repository.load_states(
-                    cache.dataset, part.fingerprint, signature, self.analyzers
-                )
+                sp = observe.span("state_cache", cat="cache", op="load", partition=part.name)
+                with sp:
+                    states = cache.repository.load_states(
+                        cache.dataset, part.fingerprint, signature, self.analyzers
+                    )
+                    if sp:
+                        sp.set(hit=states is not None)
                 if states is not None:
                     results = [AnalyzerRunResult(a, state=s) for a, s in zip(self.analyzers, states)]
                     cached_n += 1
+                    if cap is not None:
+                        cap.note_partition(part.name, part.fingerprint, "cache")
             if results is None:
                 results = scan_partition(
                     self.analyzers,
@@ -1571,13 +1654,19 @@ class FusedScanPass:
                     batch_size=self.batch_size if self._batch_size_explicit else None,
                     device=self.device,
                     controller=ctl,
+                    forensics=(
+                        cap.enter_partition(part.name, part.fingerprint) if cap is not None else None
+                    ),
                 )
                 scanned_n += 1
+                if cap is not None:
+                    cap.note_partition(part.name, part.fingerprint, "scan")
                 if cache is not None and all(r.error is None for r in results):
-                    cache.repository.save_states(
-                        cache.dataset, part.fingerprint, signature,
-                        [(r.analyzer, r.state) for r in results],
-                    )
+                    with observe.span("state_cache", cat="cache", op="save", partition=part.name):
+                        cache.repository.save_states(
+                            cache.dataset, part.fingerprint, signature,
+                            [(r.analyzer, r.state) for r in results],
+                        )
             merged = (
                 results
                 if merged is None
@@ -1588,9 +1677,22 @@ class FusedScanPass:
 
     def _run_single(self, table: Table) -> List[AnalyzerRunResult]:
         results: Dict[int, AnalyzerRunResult] = {}
-        plan = plan_scan_members(self.analyzers, runtime.placement_mode(self.device))
-        for i, err in plan.spec_errors.items():
-            results[i] = AnalyzerRunResult(self.analyzers[i], error=err)
+        plan_sp = (
+            observe.span("plan_fuse", cat="plan", analyzers=len(self.analyzers))
+            if self._scan_spans
+            else _NO_SPAN
+        )
+        with plan_sp:
+            plan = plan_scan_members(self.analyzers, runtime.placement_mode(self.device))
+            for i, err in plan.spec_errors.items():
+                results[i] = AnalyzerRunResult(self.analyzers[i], error=err)
+            if plan_sp:
+                plan_sp.set(
+                    placement=plan.mode,
+                    input_keys=len(plan.specs),
+                    device_members=len(plan.merge_idx) + len(plan.assisted_idx),
+                    host_members=len(plan.host_idx) + len(plan.host_assisted_idx),
+                )
         live_idx = plan.merge_idx + plan.assisted_idx + plan.host_idx + plan.host_assisted_idx
         if not live_idx:
             return [results[i] for i in range(len(self.analyzers))]
@@ -1605,12 +1707,29 @@ class FusedScanPass:
             # where's filter columns drop out of the decode
             table = apply_prune_plan(table, prune, plan.specs)
         table = prune_table_columns(table, plan.specs)
+        if self._forensics is not None:
+            # coordinates and prune provenance come from the pruned source
+            self._forensics.note_table(table)
         # decode routing comes last: it classifies the columns that
         # survived pruning, and attaches to the final view
         decode_plan = self._plan_decode(table, plan, [self.analyzers[i] for i in live_idx])
         if decode_plan is not None:
             table = apply_decode_plan(table, decode_plan)
-        scan = self._run_pass(table, plan)
+            if self._forensics is not None:
+                self._forensics.note_decode_plan(decode_plan)
+        scan_sp = (
+            observe.span("fused_scan", cat="scan", analyzers=len(self.analyzers))
+            if self._scan_spans
+            else _NO_SPAN
+        )
+        with scan_sp:
+            scan = self._run_pass(table, plan)
+            if scan_sp:
+                scan_sp.set(rows=scan.rows, batches=scan.batches)
+            aggs = assisted_states = None
+            if scan.use_device and scan.device_error is None:
+                # the last batch's transfer and merge belong to the scan
+                aggs, assisted_states = scan.fold.finish()
         # host outcomes stand on their own
         for i, member in scan.host_members:
             if i in scan.host_errors:
@@ -1633,7 +1752,6 @@ class FusedScanPass:
                 results[i] = AnalyzerRunResult(self.analyzers[i], error=scan.device_error)
             return [results[i] for i in range(len(self.analyzers))]
         if scan.use_device:
-            aggs, assisted_states = scan.fold.finish()
             for i, agg in zip(plan.merge_idx, aggs):
                 analyzer = self.analyzers[i]
                 try:
@@ -1654,12 +1772,21 @@ class FusedScanPass:
     def _new_scan(self, plan: ScanMemberPlan) -> "_BatchScan":
         return _BatchScan(self.device, self._controller, self.analyzers, plan)
 
+    def _pass_label(self, scan: "_BatchScan") -> str:
+        members = (
+            scan.analyzers + scan.assisted
+            + [m for _, m in scan.host_members] + [m for _, m in scan.host_assisted]
+        )
+        return "scan:" + ",".join(a.name for a in members)
+
     def _run_pass(self, table: Table, plan: ScanMemberPlan) -> "_BatchScan":
         """One scan over the table's batches: the device program for the
         device-placed members (none runs when no member is), the host fold
-        for the rest."""
-        runtime.record_pass()
+        for the rest. With `DEEQU_TPU_HEARTBEAT_S` set, a heartbeat
+        reports the scan's progress while it runs."""
         scan = self._new_scan(plan)
+        scan.forensics = self._forensics
+        runtime.record_pass(self._pass_label(scan))
         streaming = bool(getattr(table, "is_streaming", False))
         batch_size = self.batch_size
         if not scan.use_device and not streaming and not self._batch_size_explicit:
@@ -1669,10 +1796,26 @@ class FusedScanPass:
             # so one batch of up to ~16M rows saves the per-batch machinery
             batch_size = max(batch_size, min(table.num_rows, 1 << 24))
         scan.streaming = streaming
-        if streaming and runtime.pipeline_enabled():
-            scan.run_pipelined(table.batches(batch_size))
-        else:
-            scan.run_serial(table.batches(batch_size))
+        total_rows = getattr(table, "num_rows", None)
+        # a streamed source caps its batches at its `batch_rows`
+        hb_batch = batch_size
+        if streaming and getattr(table, "batch_rows", None):
+            hb_batch = min(hb_batch, int(table.batch_rows))
+        scan.progress = observe.heartbeat.start(
+            runtime.heartbeat_s(),
+            total_rows=total_rows,
+            predicted_batches=(
+                None if total_rows is None else max(1, -(-int(total_rows) // hb_batch))
+            ),
+            name="fused_scan",
+        )
+        try:
+            if streaming and runtime.pipeline_enabled():
+                scan.run_pipelined(table.batches(batch_size))
+            else:
+                scan.run_serial(table.batches(batch_size))
+        finally:
+            scan.progress.finish()
         return scan
 
 
@@ -1690,6 +1833,7 @@ class _Prepped:
     layout: Any = None
     error: Optional[BaseException] = None
     precomputed: bool = False
+    wire_bytes: int = 0  # the packed host buffers' bytes, for the dispatch span
 
 
 class _BatchScan:
@@ -1702,7 +1846,11 @@ class _BatchScan:
     CUDA stream of its own and the host-folded sketches' family kernels,
     and `fold_item` on the caller in batch order. The sticky wire dict is
     written by `prep` alone, in batch order, so both loops give the same
-    bits."""
+    bits.
+
+    Spans never synchronize with the card: a `dispatch` span times the
+    host's launch of a batch's program, and the wait for the device falls
+    into the `transfer` span of the fold that reads its partials."""
 
     def __init__(self, device, controller, analyzers, plan: ScanMemberPlan):
         self.device = device
@@ -1727,6 +1875,8 @@ class _BatchScan:
         self.streaming = False
         self.batches = 0
         self.rows = 0
+        self.forensics = None  # observe/forensics.ForensicsCapture
+        self.progress = observe.heartbeat.NOOP_PROGRESS
 
     @property
     def host_count(self) -> int:
@@ -1736,10 +1886,11 @@ class _BatchScan:
         built = HostInputs(self.plan.specs, batch)
         item = _Prepped(batch, built)
         if precompute and len(self.host_errors) < self.host_count:
-            _precompute_family_kernels(
-                built, self.host_assisted, self.host_members, self.host_errors,
-                streaming=True, family_memo=self.family_memo,
-            )
+            with observe.span("host_prep", cat="host", rows=batch.num_rows):
+                _precompute_family_kernels(
+                    built, self.host_assisted, self.host_members, self.host_errors,
+                    streaming=True, family_memo=self.family_memo,
+                )
             item.precomputed = True
         if not self.use_device or self.device_down.is_set():
             return item
@@ -1777,6 +1928,7 @@ class _BatchScan:
             items, runtime.wire_pad_size(batch.num_rows), self.sticky, batch.num_rows,
             pin=self.device.type == "cuda", prepacked=wire_rows,
         )
+        item.wire_bytes = sum(int(v.nbytes) for v in host.values())
         item.wire, item.copied = self._copy_to(host, self.device, self.copy_stream)
 
     def _await_copy(self, wire: Dict[str, torch.Tensor], copied, device: torch.device) -> None:
@@ -1811,22 +1963,39 @@ class _BatchScan:
         host_live = len(self.host_errors) < self.host_count
         if not device_live and not host_live:
             return False
+        rows = item.batch.num_rows
         if device_live:
             if item.error is not None:
                 self.device_error = item.error
                 self.device_down.set()
             elif item.wire is not None:
-                self._launch(item)
-        if host_live:
-            fold_host_batch(
-                item.built, self.host_members, self.host_assisted, self.plan.host_keys,
-                self.host_aggs, self.host_states, self.host_errors,
-                streaming=self.streaming, family_memo=self.family_memo,
-                precomputed=item.precomputed,
-            )
+                with observe.span(
+                    "dispatch", cat="dispatch", rows=rows, wire_bytes=item.wire_bytes,
+                    **self._dispatch_attrs(),
+                ):
+                    self._launch(item)
+        with observe.span("host_fold", cat="host", rows=rows):
+            if host_live:
+                fold_host_batch(
+                    item.built, self.host_members, self.host_assisted, self.plan.host_keys,
+                    self.host_aggs, self.host_states, self.host_errors,
+                    streaming=self.streaming, family_memo=self.family_memo,
+                    precomputed=item.precomputed,
+                )
+        if self.forensics is not None:
+            # the decoded host batch, through the members' own input
+            # specs: no device tensor is read back
+            with observe.span("forensics_capture", cat="forensics", rows=rows):
+                self.forensics.capture_batch(item.batch, self.rows)
         self.batches += 1
-        self.rows += item.batch.num_rows
+        self.rows += rows
+        if self.controller is not None:
+            self.controller.beat()
+        self.progress.advance(rows)
         return True
+
+    def _dispatch_attrs(self) -> Dict[str, Any]:
+        return {}
 
     def run_serial(self, batches) -> None:
         with contextlib.closing(iter(batches)) as it:
@@ -1843,9 +2012,17 @@ class _BatchScan:
         if self.device.type == "cuda" and self.use_device:
             self._make_copy_streams()
         items = pipeline.staged(
-            batches, lambda batch: self.prep(batch, precompute=True), name="prep"
+            batches, lambda batch: self.prep(batch, precompute=True), name="prep",
+            progress=self.progress,
         )
         with contextlib.closing(items):
-            for item in items:
-                if not self.fold_item(item):
-                    break
+            with observe.span("pipe_stage", cat="pipeline", stage="fold") as stage_sp:
+                for item in items:
+                    with self.progress.timed("fold"), observe.span(
+                        "pipe_item", cat="pipeline", stage="fold", rows=item.batch.num_rows
+                    ):
+                        live = self.fold_item(item)
+                    if not live:
+                        break
+                if stage_sp:
+                    stage_sp.set(items=self.batches)

@@ -35,7 +35,11 @@ import subprocess
 import threading
 from typing import Optional, Tuple
 
+import functools
+
 import numpy as np
+
+from deequ_tpu_torch import observe
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_PKG_DIR)), "build")
@@ -59,6 +63,26 @@ _LOCK = threading.Lock()
 class NativeBuildError(RuntimeError):
     """The C library failed to build or load; the message carries the
     compiler's output."""
+
+
+def _traced_kernel(fn):
+    """One `native:<name>` span per call of a C kernel, with the length of
+    its first array argument as `n`. Untraced, it costs one call and the
+    span's thread-local probe."""
+    name = f"native:{fn.__name__}"
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        kernel_sp = observe.span(name, cat="native")
+        if not kernel_sp:
+            return fn(*args, **kwargs)
+        with kernel_sp:
+            first = args[0] if args else None
+            if hasattr(first, "__len__"):
+                kernel_sp.set(n=len(first))
+            return fn(*args, **kwargs)
+
+    return wrapper
 
 
 def library_path() -> str:
@@ -221,6 +245,7 @@ def _check_rows(n: int, **masks) -> None:
             raise ValueError(f"{name} has {len(mask)} rows, the values {n}")
 
 
+@_traced_kernel
 def xxhash64_pack(values: np.ndarray, valid: np.ndarray) -> Optional[np.ndarray]:
     """(register idx << 6 | rank) int32 per row from canonical int64
     values, 0 for invalid rows; None when the library is off."""
@@ -240,6 +265,7 @@ def xxhash64_pack(values: np.ndarray, valid: np.ndarray) -> Optional[np.ndarray]
     return packed
 
 
+@_traced_kernel
 def bincount(
     codes: np.ndarray, nbins: int, base: int = 0, where: Optional[np.ndarray] = None
 ) -> Optional[np.ndarray]:
@@ -265,6 +291,7 @@ def bincount(
     return out
 
 
+@_traced_kernel
 def masked_moments(
     x: np.ndarray, valid: Optional[np.ndarray], where: Optional[np.ndarray]
 ) -> Optional[np.ndarray]:
@@ -286,6 +313,7 @@ def masked_moments(
     return out
 
 
+@_traced_kernel
 def hll_update_registers(
     packed: np.ndarray, where: Optional[np.ndarray], registers: np.ndarray
 ) -> bool:
@@ -311,6 +339,7 @@ _HASHCOUNT_LOG2 = 17  # 131,072 slots: a load factor of at most 0.5
 _HASHCOUNT_MAX_DISTINCT = 1 << 16
 
 
+@_traced_kernel
 def hashcount(
     keys_u64: np.ndarray,
     valid: Optional[np.ndarray],
@@ -348,6 +377,7 @@ def hashcount(
     return table_keys[occupied], table_counts[occupied], int(meta[0]), int(meta[1])
 
 
+@_traced_kernel
 def bincount_window(
     values: np.ndarray,
     valid: Optional[np.ndarray],
@@ -377,6 +407,7 @@ def bincount_window(
     return counts, int(meta[0]), int(meta[1])
 
 
+@_traced_kernel
 def masked_select_decimate(
     x: np.ndarray, valid: Optional[np.ndarray], where: Optional[np.ndarray], cap: int
 ):
@@ -403,6 +434,7 @@ def masked_select_decimate(
     return samples[: int(meta[2])], int(meta[0]), int(meta[1])
 
 
+@_traced_kernel
 def masked_moments_select(
     x: np.ndarray,
     valid: Optional[np.ndarray],
@@ -457,6 +489,7 @@ def masked_moments_select(
     return mom, samples[: int(meta[2])], int(meta[0]), int(meta[1]), regs
 
 
+@_traced_kernel
 def masked_moments_select_multi(columns, where: Optional[np.ndarray], cap: int):
     """`masked_moments_select` for K columns of one row count in one
     row-blocked traversal. `columns` holds (x, valid or None, hll_mode,
@@ -544,6 +577,7 @@ DECODE_PRIMITIVES = {
 }
 
 
+@_traced_kernel
 def decode_primitive(
     kind: str,
     values_addr: int,
@@ -572,6 +606,7 @@ def decode_primitive(
     )
 
 
+@_traced_kernel
 def decode_bool_bitmap(
     values_addr: int,
     value_bit_offset: int,
@@ -596,6 +631,7 @@ def decode_bool_bitmap(
     )
 
 
+@_traced_kernel
 def decode_dict_codes(
     indices_addr: int,
     validity_addr: Optional[int],
@@ -650,6 +686,7 @@ def wire_supported(token: str, out_dtype_name: str) -> bool:
     return token in _WIRE_INT_KERNELS and out_dtype_name in _WIRE_OUT_CODES
 
 
+@_traced_kernel
 def wire_valid_bits(
     validity_addr: Optional[int], bit_offset: int, n: int, out_bits: np.ndarray, out_bit_offset: int
 ) -> Optional[int]:
@@ -671,6 +708,7 @@ def wire_valid_bits(
     )
 
 
+@_traced_kernel
 def wire_primitive(
     token: str,
     values_addr: int,
@@ -761,6 +799,7 @@ def reader_codecs() -> int:
     return int(lib.pq_reader_codecs())
 
 
+@_traced_kernel
 def read_chunk(
     chunk: np.ndarray,
     phys: int,
@@ -803,6 +842,7 @@ def read_chunk(
 ENCFOLD_DICT_CAP = 65536
 
 
+@_traced_kernel
 def read_chunk_runs(
     chunk: np.ndarray,
     phys: int,
@@ -861,6 +901,7 @@ def read_chunk_runs(
     )
 
 
+@_traced_kernel
 def encfold_code_counts(
     run_len: np.ndarray, run_code: np.ndarray, dict_count: int
 ) -> Optional[np.ndarray]:
@@ -885,6 +926,7 @@ def encfold_code_counts(
     return counts[:dict_count]
 
 
+@_traced_kernel
 def encfold_def_nulls(def_len: np.ndarray, def_val: np.ndarray, expect_rows: int = -1) -> Optional[int]:
     """The null count of (run length, present) definition-level runs,
     with no validity mask built. None when the library is off or a run is

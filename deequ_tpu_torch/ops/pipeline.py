@@ -17,6 +17,12 @@ batch order: the pipeline changes where per-batch work runs, never what
 is computed. `DEEQU_TPU_PIPELINE=0` runs everything on the caller, and
 gives the same bits.
 
+The stage thread adopts the consumer's `monitored()` blocks and its
+trace context (tracer and innermost span) in one hook, and reports a
+`pipe_stage` span with one `pipe_item` child per batch: what the run
+report's pipeline occupancy reads. With tracing off the spans are the
+no-op singleton.
+
 The JAX counterpart is deequ_tpu/ops/pipeline.py.
 """
 
@@ -26,6 +32,7 @@ import queue
 import threading
 from typing import Any, Callable, Iterable, Iterator, List
 
+from deequ_tpu_torch import observe
 from deequ_tpu_torch.ops import runtime
 
 _SENTINEL = object()
@@ -38,7 +45,9 @@ DEPTH = 2
 JOIN_TIMEOUT_S = 10.0
 
 
-def staged(iterable: Iterable[Any], fn: Callable[[Any], Any], *, name: str = "prep") -> Iterator[Any]:
+def staged(
+    iterable: Iterable[Any], fn: Callable[[Any], Any], *, name: str = "prep", progress: Any = None
+) -> Iterator[Any]:
     """Run `fn` over `iterable`'s items on a stage thread, yielding the
     results in input order through a queue of `DEPTH` items: at most
     `DEPTH` + 1 prepped batches are resident however far the consumer
@@ -50,7 +59,13 @@ def staged(iterable: Iterable[Any], fn: Callable[[Any], Any], *, name: str = "pr
     thread closes the upstream iterator on its own thread before it
     exits, so a generator upstream (a source's `batches`) runs its own
     cleanup there. An exception from `fn` or from upstream ends the stage
-    and is raised again in the consumer, after the same cleanup."""
+    and is raised again in the consumer, after the same cleanup.
+
+    `progress` is a live heartbeat handle (`observe.heartbeat`): the
+    stage times its wait for upstream items as the `decode` stage and
+    `fn`'s work as its own; the no-op handle by default."""
+    if progress is None:
+        progress = observe.heartbeat.NOOP_PROGRESS
     q: "queue.Queue[Any]" = queue.Queue(maxsize=DEPTH)
     stop = threading.Event()
     error: List[BaseException] = []
@@ -65,21 +80,37 @@ def staged(iterable: Iterable[Any], fn: Callable[[Any], Any], *, name: str = "pr
         return False
 
     sinks = runtime.current_sinks()
+    tracer = observe.current_tracer()
+    parent = observe.current_span()
 
     def worker() -> None:
-        with runtime.attached_sinks(sinks):
+        with runtime.attached_sinks(sinks), observe.attached(tracer, parent):
             _work()
 
     def _work() -> None:
         it = iter(iterable)
         try:
-            while not stop.is_set():
-                try:
-                    item = next(it)
-                except StopIteration:
-                    break
-                if not _put(fn(item)):
-                    return
+            with observe.span("pipe_stage", cat="pipeline", stage=name) as stage_sp:
+                items = 0
+                while not stop.is_set():
+                    # the wait for upstream is another stage's time: it
+                    # stays outside the item span
+                    try:
+                        with progress.timed("decode"):
+                            item = next(it)
+                    except StopIteration:
+                        break
+                    sp = observe.span("pipe_item", cat="pipeline", stage=name)
+                    with sp, progress.timed(name):
+                        rows = getattr(item, "num_rows", None)
+                        if sp and rows is not None:
+                            sp.set(rows=int(rows))
+                        out = fn(item)
+                    if not _put(out):
+                        return
+                    items += 1
+                if stage_sp:
+                    stage_sp.set(items=items)
         except BaseException as e:  # noqa: BLE001 - raised again in the consumer
             error.append(e)
         finally:

@@ -23,6 +23,8 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from deequ_tpu_torch.observe import counters as _counters
+
 DeviceLike = Union[str, torch.device, None]
 
 
@@ -293,6 +295,9 @@ class ExecutionStats:
     device_passes: int = 0  # one per fused scan over a table
     device_launches: int = 0  # one per device program run (per batch)
     group_passes: int = 0  # one per group-by frequency computation
+    # one label per device pass ("scan:...", "freq-agg:...") and group
+    # pass ("group:..."), in the order they ran
+    pass_labels: List[str] = field(default_factory=list)
     # partitioned scans: partitions whose states loaded from a state
     # repository, partitions that scanned, and all of them
     partitions_cached: int = 0
@@ -350,26 +355,19 @@ class ExecutionStats:
         return self.device_passes + self.group_passes
 
 
-_local = threading.local()
-
-
 def _sinks() -> List[ExecutionStats]:
-    return getattr(_local, "sinks", [])
+    return _counters._sinks()
 
 
 @contextlib.contextmanager
 def monitored() -> Iterator[ExecutionStats]:
-    """Count the passes of everything run on this thread inside the block."""
+    """Count the passes of everything run on this thread inside the block.
+    The counting lives in `observe.counters` (a thread-local sink stack
+    that also feeds the thread's tracer), so a traced run's counters and
+    these stats are the same numbers."""
     stats = ExecutionStats()
-    try:
-        stack = _local.sinks
-    except AttributeError:
-        stack = _local.sinks = []
-    stack.append(stats)
-    try:
+    with _counters.collect(stats):
         yield stats
-    finally:
-        stack.pop()
 
 
 def current_sinks() -> List[ExecutionStats]:
@@ -382,34 +380,25 @@ def current_sinks() -> List[ExecutionStats]:
 def attached_sinks(sinks: Sequence[ExecutionStats]) -> Iterator[None]:
     """Count this thread's work into `sinks` as well: a decode or prep
     thread of a monitored pass records into its caller's blocks."""
-    try:
-        stack = _local.sinks
-    except AttributeError:
-        stack = _local.sinks = []
-    depth = len(stack)
-    stack.extend(sinks)
-    try:
+    with contextlib.ExitStack() as stack:
+        for sink in sinks:
+            stack.enter_context(_counters.collect(sink))
         yield
-    finally:
-        del stack[depth:]
 
 
-def record_pass() -> None:
+def record_pass(label: str) -> None:
     """One fused scan over a table, or one shared frequency aggregation."""
-    for sink in _sinks():
-        sink.device_passes += 1
+    _counters.record_pass(label)
 
 
 def record_launch() -> None:
     """One run of a batch's device program, or of a frequency aggregation."""
-    for sink in _sinks():
-        sink.device_launches += 1
+    _counters.record_launch()
 
 
-def record_group_pass() -> None:
+def record_group_pass(label: str) -> None:
     """One group-by counting pass over a table."""
-    for sink in _sinks():
-        sink.group_passes += 1
+    _counters.record_group_pass(label)
 
 
 def record_state_cache(cached: int, scanned: int, total: int) -> None:
@@ -418,6 +407,7 @@ def record_state_cache(cached: int, scanned: int, total: int) -> None:
         sink.partitions_cached += int(cached)
         sink.partitions_scanned += int(scanned)
         sink.partitions_total += int(total)
+    _counters.record_state_cache(cached, scanned, total)
 
 
 def record_placement(mode: str, device_members: int, host_members: int) -> None:
@@ -444,6 +434,7 @@ def record_wire_fused(fused: Sequence[str], total: int, falloffs=()) -> None:
         sink.wire_cols_total += int(total)
         sink.wire_fused.extend(fused)
         sink.wire_falloffs.extend(falloffs)
+    _counters.record_wire_fused(len(fused), total)
 
 
 def record_encfold_plan(cols: Sequence[str], total: int, falloffs=()) -> None:
@@ -454,6 +445,7 @@ def record_encfold_plan(cols: Sequence[str], total: int, falloffs=()) -> None:
         sink.encfold_cols_total += int(total)
         sink.encfold_planned.extend(cols)
         sink.encfold_falloffs.extend(falloffs)
+    _counters.record_encfold_plan(len(cols), total)
 
 
 def record_encfold(
@@ -468,6 +460,7 @@ def record_encfold(
         sink.encfold_values += int(values)
         sink.encfold_codes_folded += int(codes)
         sink.encfold_bytes_saved += int(bytes_saved)
+    _counters.record_encfold(chunks, fallback, runs, values, codes, bytes_saved)
 
 
 def record_mesh_pass(shards: int) -> None:
@@ -477,12 +470,27 @@ def record_mesh_pass(shards: int) -> None:
         sink.mesh_shards += int(shards)
 
 
-def record_shard_scan(partitions_local: int, merge_bytes: int, rows_local: int) -> None:
-    """This process's part of one sharded streaming scan."""
+def record_shard_scan(
+    shard: int,
+    num_shards: int,
+    partitions_local: int,
+    partitions_max: int,
+    partitions_total: int,
+    merge_bytes: int,
+    rows_local: int,
+) -> None:
+    """This process's part of one sharded streaming scan: its shard of
+    how many, its partitions against the largest shard's and the
+    dataset's, the gathered envelope bytes and its rows. `monitored()`
+    keeps the local counts; the tracer gets every field (`shard.*`)."""
     for sink in _sinks():
         sink.shard_partitions_local += int(partitions_local)
         sink.shard_merge_bytes += int(merge_bytes)
         sink.shard_rows_local += int(rows_local)
+    _counters.record_shard_scan(
+        shard, num_shards, partitions_local, partitions_max, partitions_total,
+        merge_bytes, rows_local,
+    )
 
 
 def record_pruned_groups(skipped: int, total: int, rows_skipped: int, wheres_elided: int) -> None:
@@ -492,6 +500,25 @@ def record_pruned_groups(skipped: int, total: int, rows_skipped: int, wheres_eli
         sink.rg_total += int(total)
         sink.rg_rows_skipped += int(rows_skipped)
         sink.wheres_elided += int(wheres_elided)
+    _counters.record_pruned_groups(skipped, total)
+
+
+def record_decode_fastpath(fast: int, total: int, workers: int) -> None:
+    """One scan's decode routing: the columns on the C decode, the
+    columns scanned and the decode threads (a tracer counter only)."""
+    _counters.record_decode_fastpath(fast, total, workers)
+
+
+def record_reader_chunks(native: int, fallback: int, total: int) -> None:
+    """One scan's C reader plan: column chunks the reader takes, chunks
+    left to pyarrow, and all chunks scanned (a tracer counter only)."""
+    _counters.record_reader_chunks(native, fallback, total)
+
+
+def record_plan_cache(hit: bool) -> None:
+    """One device-program lookup, and whether its plan shape was cached
+    (a tracer counter only)."""
+    _counters.record_plan_cache(hit)
 
 
 def shard_tag() -> str:
@@ -503,6 +530,28 @@ def shard_tag() -> str:
 
 
 # -- stream knob (data/source.py, ops/pipeline.py) ------------------------------
+
+
+def forensics_enabled() -> bool:
+    """Whether verification runs capture failure forensics by default
+    (observe/forensics.py): a bounded, deterministic sample of violating
+    rows per row-level-capable constraint, and the run's provenance,
+    saved as an audit trail. Off unless asked for: capture does work per
+    batch, so ``DEEQU_TPU_FORENSICS=1`` (or ``on``/``true``) or
+    `with_forensics()` on the run builder turns it on. Off, the fused
+    pass carries no capture and each batch pays one falsy check."""
+    return os.environ.get("DEEQU_TPU_FORENSICS", "") in ("1", "on", "true")
+
+
+def heartbeat_s() -> float:
+    """The live scan heartbeat's interval in seconds
+    (``DEEQU_TPU_HEARTBEAT_S``, default 0 = off): when positive, a scan
+    emits progress snapshots (batches done and predicted, rows/s, the
+    pipeline's busiest stage, an ETA) through `observe.heartbeat`. Off,
+    the scan loop touches a falsy no-op handle and starts no thread."""
+    from deequ_tpu_torch.observe import heartbeat
+
+    return heartbeat.env_interval_s()
 
 
 def pipeline_enabled() -> bool:

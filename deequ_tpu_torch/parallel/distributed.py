@@ -31,6 +31,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from deequ_tpu_torch import observe
 from deequ_tpu_torch.analyzers.base import ScanShareableAnalyzer
 from deequ_tpu_torch.data.table import Table
 from deequ_tpu_torch.ops import runtime
@@ -105,6 +106,7 @@ class _MeshBatchScan(_BatchScan):
         n = item.batch.num_rows
         per_dev = _pad_size(-(-n // self.mesh.size), self.per_device)
         shards = []
+        item.wire_bytes = 0
         for d, device in enumerate(self.mesh.devices):
             lo = min(d * per_dev, n)
             hi = min(lo + per_dev, n)
@@ -114,9 +116,13 @@ class _MeshBatchScan(_BatchScan):
                 [(key, arr[lo:hi]) for key, arr in items], per_dev, self.sticky, hi - lo,
                 pin=device.type == "cuda",
             )
+            item.wire_bytes += sum(int(v.nbytes) for v in host.values())
             wire, copied = self._copy_to(host, device, self.copy_streams.get(device))
             shards.append((device, wire, copied, layout, lo, hi))
         item.wire = shards
+
+    def _dispatch_attrs(self) -> Dict[str, Any]:
+        return {"devices": self.mesh.size}
 
     def _launch(self, item: _Prepped) -> None:
         flats, bounds, meta = [], [], None
@@ -140,7 +146,10 @@ class DistributedScanPass(FusedScanPass):
     CUDA device of the process by default). `batch_size_per_device` rows
     per shard make a batch of `batch_size_per_device * mesh.size` rows.
     A partitioned source streams as one: the mesh pass never uses a
-    state cache, as in the JAX package."""
+    state cache, as in the JAX package. Its trace is one `dist_scan`
+    span over the run, with no `plan_fuse` or `fused_scan` of its own."""
+
+    _scan_spans = False
 
     def __init__(
         self,
@@ -160,7 +169,13 @@ class DistributedScanPass(FusedScanPass):
 
     def run(self, table: Table) -> List[AnalyzerRunResult]:
         runtime.record_mesh_pass(self.mesh.size)
-        return self._run_single(table)
+        with observe.span(
+            "dist_scan", cat="scan", devices=self.mesh.size, analyzers=len(self.analyzers)
+        ):
+            return self._run_single(table)
+
+    def _pass_label(self, scan) -> str:
+        return f"dist-scan[{self.mesh.size}x]:" + ",".join(a.name for a in self.analyzers)
 
     def _plan_decode(self, table, plan, live):
         # each shard packs its own wire from the built arrays: no column
@@ -181,12 +196,15 @@ def sharded_bincount(codes: np.ndarray, nbins: int, mesh: DeviceMesh) -> np.ndar
     per_dev = _pad_size(-(-len(codes) // mesh.size), 1 << 30)
     codes = np.where(codes >= 0, codes, nbins).astype(np.int64)
     total = None
-    for d, device in enumerate(mesh.devices):
-        shard = torch.from_numpy(codes[d * per_dev : (d + 1) * per_dev]).to(device)
-        counts = torch.bincount(shard, minlength=nbins + 1).to(mesh.devices[0])
-        runtime.record_launch()
-        total = counts if total is None else total + counts
-    return total[:nbins].cpu().numpy().astype(np.int64)
+    with observe.span(
+        "group_bincount", cat="dispatch", rows=len(codes), bins=nbins, devices=mesh.size
+    ):
+        for d, device in enumerate(mesh.devices):
+            shard = torch.from_numpy(codes[d * per_dev : (d + 1) * per_dev]).to(device)
+            counts = torch.bincount(shard, minlength=nbins + 1).to(mesh.devices[0])
+            runtime.record_launch()
+            total = counts if total is None else total + counts
+        return total[:nbins].cpu().numpy().astype(np.int64)
 
 
 def run_distributed_analysis(

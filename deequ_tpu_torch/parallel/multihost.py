@@ -43,6 +43,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from deequ_tpu_torch import observe
 from deequ_tpu_torch.analyzers.base import Analyzer
 from deequ_tpu_torch.analyzers.state_provider import (
     InMemoryStateProvider,
@@ -208,27 +209,35 @@ def merge_states_across_hosts(
             payload = _EMPTY if state is None else _STATE + serialize_state(analyzer, state)
         parts.append(struct.pack(">i", len(payload)))
         parts.append(payload)
-    for envelope in gather(b"".join(parts)):
-        if envelope[:8] != digest:
-            raise ValueError(
-                "multihost analyzer-list mismatch: a process sent a state envelope "
-                "for another analyzer set or order; every process must pass the "
-                "same analyzer list"
-            )
-        offset = 8
-        for analyzer in analyzers:
-            (length,) = struct.unpack(">i", envelope[offset : offset + 4])
-            offset += 4
-            blob = envelope[offset : offset + length]
-            offset += length
-            tag, body = blob[:1], blob[1:]
-            if tag == _FAILED and analyzer not in errors:
-                errors[analyzer] = body.decode("utf-8")
-            if tag != _STATE:
-                continue
-            other = deserialize_state(analyzer, body)
-            prev = merged.load(analyzer)
-            merged.persist(analyzer, other if prev is None else prev.merge(other))
+    envelope = b"".join(parts)
+    with observe.span(
+        "state_allgather", cat="transfer", analyzers=len(analyzers), envelope_bytes=len(envelope)
+    ):
+        host_envelopes = gather(envelope)
+    with observe.span(
+        "state_merge", cat="merge", analyzers=len(analyzers), hosts=len(host_envelopes)
+    ):
+        for envelope in host_envelopes:
+            if envelope[:8] != digest:
+                raise ValueError(
+                    "multihost analyzer-list mismatch: a process sent a state envelope "
+                    "for another analyzer set or order; every process must pass the "
+                    "same analyzer list"
+                )
+            offset = 8
+            for analyzer in analyzers:
+                (length,) = struct.unpack(">i", envelope[offset : offset + 4])
+                offset += 4
+                blob = envelope[offset : offset + length]
+                offset += length
+                tag, body = blob[:1], blob[1:]
+                if tag == _FAILED and analyzer not in errors:
+                    errors[analyzer] = body.decode("utf-8")
+                if tag != _STATE:
+                    continue
+                other = deserialize_state(analyzer, body)
+                prev = merged.load(analyzer)
+                merged.persist(analyzer, other if prev is None else prev.merge(other))
     return merged, errors
 
 
@@ -356,7 +365,8 @@ def run_sharded_analysis(
             clean = all(r.error is None for r in results)
             pairs = [(r.analyzer, r.state if r.error is None else None) for r in results]
             if repo is not None and clean:
-                repo.save_states(dataset_name, part.fingerprint, signature, pairs)
+                with observe.span("state_cache", cat="cache", op="save", partition=part.name):
+                    repo.save_states(dataset_name, part.fingerprint, signature, pairs)
             return [state for _a, state in pairs], pairs, clean
 
         for part in (parts_by_name[n] for n in mine.names):
@@ -374,7 +384,13 @@ def run_sharded_analysis(
                     )
                 states = None
                 if repo is not None:
-                    states = repo.load_states(dataset_name, part.fingerprint, signature, shareable)
+                    sp = observe.span("state_cache", cat="cache", op="load", partition=part.name)
+                    with sp:
+                        states = repo.load_states(
+                            dataset_name, part.fingerprint, signature, shareable
+                        )
+                        if sp:
+                            sp.set(hit=states is not None)
                 if states is not None:
                     # re-encoding decoded states gives the saved bytes
                     # (the state serde round-trips bit for bit)
@@ -401,7 +417,11 @@ def run_sharded_analysis(
         envelope = encode_shard_states(
             shard, signature, entries, cancelled=cancelled, reason=cancel_reason
         )
-        shard_envelopes = list(gather(envelope))
+        with observe.span(
+            "shard_allgather", cat="transfer", shard=shard, shards=num_shards,
+            envelope_bytes=len(envelope),
+        ):
+            shard_envelopes = list(gather(envelope))
         merge_bytes = sum(len(e) for e in shard_envelopes)
         decoded = []
         for i, env in enumerate(shard_envelopes):
@@ -441,29 +461,33 @@ def run_sharded_analysis(
                 blob_by_fp.setdefault(fp, blob)
         merged: List = [None] * len(shareable)
         # the dataset's partition order: a solo run's merge order
-        for name, _path, fp in plan.order:
-            states = None
-            blob = blob_by_fp.get(fp)
-            if blob is not None:
-                try:
-                    states = decode_states(blob, shareable)
-                except StateDecodeError as e:
-                    warnings.warn(
-                        f"DQ320: gathered states for partition {name!r} are unusable "
-                        f"({e}); falling back to committed states or a rescan",
-                        RuntimeWarning,
-                        stacklevel=2,
-                    )
-            if states is None:
-                # a lost shard or a bad entry: what this process holds,
-                # then the repository, then a rescan; the same fold
-                states = local_states_by_fp.get(fp)
-                if states is None and repo is not None:
-                    states = repo.load_states(dataset_name, fp, signature, shareable)
+        with observe.span(
+            "shard_merge", cat="merge", shard=shard, shards=len(shard_envelopes),
+            partitions=len(plan.order),
+        ):
+            for name, _path, fp in plan.order:
+                states = None
+                blob = blob_by_fp.get(fp)
+                if blob is not None:
+                    try:
+                        states = decode_states(blob, shareable)
+                    except StateDecodeError as e:
+                        warnings.warn(
+                            f"DQ320: gathered states for partition {name!r} are unusable "
+                            f"({e}); falling back to committed states or a rescan",
+                            RuntimeWarning,
+                            stacklevel=2,
+                        )
                 if states is None:
-                    states, _pairs, _clean = scan_one(parts_by_name[name])
-                    scanned_n += 1
-            merged = [merge_states(m, s) for m, s in zip(merged, states)]
+                    # a lost shard or a bad entry: what this process holds,
+                    # then the repository, then a rescan; the same fold
+                    states = local_states_by_fp.get(fp)
+                    if states is None and repo is not None:
+                        states = repo.load_states(dataset_name, fp, signature, shareable)
+                    if states is None:
+                        states, _pairs, _clean = scan_one(parts_by_name[name])
+                        scanned_n += 1
+                merged = [merge_states(m, s) for m, s in zip(merged, states)]
 
         for a, state in zip(shareable, merged):
             if a in scan_errors:
@@ -518,7 +542,10 @@ def run_sharded_analysis(
         for path in mine.paths:
             with pq.ParquetFile(path) as pf:
                 rows_local += int(pf.metadata.num_rows)
-    runtime.record_shard_scan(mine.num_partitions, merge_bytes, rows_local)
+    runtime.record_shard_scan(
+        shard, num_shards, mine.num_partitions, plan.max_partitions, len(plan.order),
+        merge_bytes, rows_local,
+    )
     metrics.update(failure_map)
     return AnalyzerContext(metrics)
 

@@ -407,7 +407,7 @@ def _compute_histograms(
     so host memory is O(distinct values)."""
     if not target_columns:
         return {}
-    runtime.record_group_pass()
+    runtime.record_group_pass("profiler-histograms:" + ",".join(target_columns))
     if hasattr(data, "with_columns"):
         data = data.with_columns(list(target_columns))
     totals: Dict[str, Dict[str, int]] = {name: {} for name in target_columns}

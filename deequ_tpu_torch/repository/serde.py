@@ -190,6 +190,22 @@ def serialize_analyzer(analyzer: Analyzer) -> Dict[str, Any]:
             "quantiles": ",".join(str(q) for q in analyzer.quantiles),
             "relativeError": analyzer.relative_error,
         }
+    from deequ_tpu_torch.repository.engine import EngineMetric
+
+    if isinstance(analyzer, EngineMetric):
+        return {
+            ANALYZER_NAME_FIELD: "EngineMetric",
+            "metric": analyzer.metric,
+            "instance": analyzer.instance,
+        }
+    from deequ_tpu_torch.repository.audit import AuditRecord
+
+    if isinstance(analyzer, AuditRecord):
+        return {
+            ANALYZER_NAME_FIELD: "ForensicsAudit",
+            "payload": analyzer.payload,
+            "instance": analyzer.instance,
+        }
     raise ValueError(f"Unable to serialize analyzer {analyzer!r}.")
 
 
@@ -242,6 +258,14 @@ def deserialize_analyzer(data: Dict[str, Any]) -> Analyzer:
     if name == "ApproxQuantiles":
         quantiles = [float(q) for q in data["quantiles"].split(",")]
         return ApproxQuantiles(data[COLUMN_FIELD], quantiles, data["relativeError"])
+    if name == "EngineMetric":
+        from deequ_tpu_torch.repository.engine import EngineMetric
+
+        return EngineMetric(data["metric"], data.get("instance", "engine"))
+    if name == "ForensicsAudit":
+        from deequ_tpu_torch.repository.audit import AuditRecord
+
+        return AuditRecord(data.get("payload", ""), data.get("instance", "forensics"))
     raise ValueError(f"Unable to deserialize analyzer {name}.")
 
 

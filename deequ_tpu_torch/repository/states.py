@@ -463,22 +463,26 @@ class StateRepository:
         Raises KeyError when any partition has no cached entry, and
         StateDecodeError when an entry is unusable — a range query must
         never silently drop data."""
+        from deequ_tpu_torch import observe
         from deequ_tpu_torch.ops import runtime
         from deequ_tpu_torch.runners.context import AnalyzerContext
 
         device = runtime.resolve_device(device)
 
         merged: List[Any] = [None] * len(analyzers)
-        for fingerprint in fingerprints:
-            blob = self._get(dataset, signature, fingerprint)
-            if blob is None:
-                raise KeyError(
-                    f"no cached states for dataset {dataset!r} "
-                    f"partition {fingerprint!r} under signature "
-                    f"{signature!r}"
-                )
-            states = decode_states(blob, analyzers)
-            merged = [merge_states(m, s) for m, s in zip(merged, states)]
+        with observe.span(
+            "state_cache", cat="cache", op="merge_range", partitions=len(fingerprints)
+        ):
+            for fingerprint in fingerprints:
+                blob = self._get(dataset, signature, fingerprint)
+                if blob is None:
+                    raise KeyError(
+                        f"no cached states for dataset {dataset!r} "
+                        f"partition {fingerprint!r} under signature "
+                        f"{signature!r}"
+                    )
+                states = decode_states(blob, analyzers)
+                merged = [merge_states(m, s) for m, s in zip(merged, states)]
         metrics = {
             analyzer: analyzer.compute_metric_from(state, device)
             for analyzer, state in zip(analyzers, merged)

@@ -35,6 +35,7 @@ class AnalysisRunBuilder:
         self._engine = "auto"
         self._mesh = None
         self._validation: Optional[str] = None
+        self._tracing = None
 
     def with_engine(self, engine: str, mesh=None) -> "AnalysisRunBuilder":
         """"auto" (a mesh over every CUDA device when there are two or
@@ -62,6 +63,14 @@ class AnalysisRunBuilder:
             kwargs.setdefault("deadline_s", self._deadline_s)
         kwargs.setdefault("device", self._device)
         return explain_plan(self._data, analyzers=self._analyzers, **kwargs)
+
+    def with_tracing(self, trace=True) -> "AnalysisRunBuilder":
+        """Run observability (observe/): True records the run's span tree
+        as `context.run_trace`; a path also writes its Chrome-trace JSON
+        there (load it in Perfetto); False turns tracing off whatever
+        ``DEEQU_TPU_TRACE`` says."""
+        self._tracing = trace
+        return self
 
     def with_controller(self, controller) -> "AnalysisRunBuilder":
         """Attach a `RunController` (core/controller.py) whose `cancel()`
@@ -143,4 +152,5 @@ class AnalysisRunBuilder:
             engine=self._engine,
             mesh=self._mesh,
             validation=self._validation,
+            tracing=self._tracing,
         )

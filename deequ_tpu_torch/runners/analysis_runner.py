@@ -20,6 +20,7 @@ from __future__ import annotations
 
 from typing import TYPE_CHECKING, Dict, List, Optional, Sequence
 
+from deequ_tpu_torch import observe
 from deequ_tpu_torch.analyzers.base import Analyzer, Preconditions, ScanShareableAnalyzer
 from deequ_tpu_torch.analyzers.grouping import GroupingAnalyzer
 from deequ_tpu_torch.core.metrics import Metric
@@ -60,6 +61,8 @@ class AnalysisRunner:
         engine: str = "auto",
         mesh=None,
         validation: Optional[str] = None,
+        tracing=None,
+        forensics=None,
     ) -> AnalyzerContext:
         """`controller` (core/controller.RunController) is checked at every
         batch and partition boundary of the fused pass. `state_repository`
@@ -70,9 +73,33 @@ class AnalysisRunner:
         `validation` is the static pass's mode (lint/planlint.py:
         "strict", "lenient" or "off"; default ``DEEQU_TPU_VALIDATE``, else
         "lenient"): its diagnostics land on the context as
-        `validation_warnings` and its cost prediction as `plan_cost`."""
+        `validation_warnings` and its cost prediction as `plan_cost`.
+        `tracing` is True, False, a trace file's path or None (then
+        ``DEEQU_TPU_TRACE`` decides); the finished trace attaches as
+        `run_trace`, a subtree of the suite's under a traced verification
+        run. `forensics` is a verification run's
+        observe/forensics.ForensicsCapture, which the single-device pass
+        feeds (the mesh pass has none)."""
         if not analyzers:
             return AnalyzerContext.empty()
+        with observe.traced_run("analysis_run", enable=tracing, analyzers=len(analyzers)) as run:
+            context = AnalysisRunner._do_analysis_run(
+                data, analyzers, device, aggregate_with, save_states_with, metrics_repository,
+                reuse_existing_results_for_key, fail_if_results_missing,
+                save_or_append_results_with_key, state_repository, dataset_name, controller,
+                engine, mesh, validation, forensics,
+            )
+        if run:
+            context.run_trace = run.trace
+        return context
+
+    @staticmethod
+    def _do_analysis_run(
+        data, analyzers, device, aggregate_with, save_states_with, metrics_repository,
+        reuse_existing_results_for_key, fail_if_results_missing,
+        save_or_append_results_with_key, state_repository, dataset_name, controller,
+        engine, mesh, validation, forensics,
+    ) -> AnalyzerContext:
         device = runtime.resolve_device(device)
         state_cache = None
         if state_repository is not None and getattr(data, "partitions", None) is not None:
@@ -80,9 +107,10 @@ class AnalysisRunner:
 
             state_cache = StateCacheContext(state_repository, dataset_name)
         # plan-time static analysis: strict raises before any scan
-        validation_diagnostics, plan_cost = AnalysisRunner._validate_plan(
-            data, analyzers, validation, state_cache, device
-        )
+        with observe.span("plan_validate", cat="plan"):
+            validation_diagnostics, plan_cost = AnalysisRunner._validate_plan(
+                data, analyzers, validation, state_cache, device
+            )
         from deequ_tpu_torch.runners.engine import resolve_engine
 
         mesh = resolve_engine(engine, mesh, num_rows=data.num_rows, device=device)
@@ -142,7 +170,8 @@ class AnalysisRunner:
                 scan = DistributedScanPass(shareable, mesh=mesh, controller=controller)
             else:
                 scan = FusedScanPass(
-                    shareable, device=device, controller=controller, state_cache=state_cache
+                    shareable, device=device, controller=controller, state_cache=state_cache,
+                    forensics=forensics,
                 )
             results = scan.run(data)
             for result in results:
@@ -247,15 +276,18 @@ class AnalysisRunner:
                 metrics[a] = a.to_failure_metric(err)
 
         aggregated = InMemoryStateProvider()
-        for analyzer in passed:
-            for loader in state_loaders:
-                state = loader.load(analyzer)
-                if state is None:
-                    continue
-                existing = aggregated.load(analyzer)
-                aggregated.persist(
-                    analyzer, existing.merge(state) if existing is not None else state
-                )
+        with observe.span(
+            "state_merge", cat="merge", analyzers=len(passed), loaders=len(state_loaders)
+        ):
+            for analyzer in passed:
+                for loader in state_loaders:
+                    state = loader.load(analyzer)
+                    if state is None:
+                        continue
+                    existing = aggregated.load(analyzer)
+                    aggregated.persist(
+                        analyzer, existing.merge(state) if existing is not None else state
+                    )
 
         for analyzer in passed:
             state = aggregated.load(analyzer)

@@ -36,6 +36,8 @@ class AnalyzerContext:
         # equality — two contexts with the same metrics are the same
         self.validation_warnings: List = []
         self.plan_cost = None
+        # the run's RunTrace (observe/) when tracing was on, else None
+        self.run_trace = None
 
     @staticmethod
     def empty() -> "AnalyzerContext":

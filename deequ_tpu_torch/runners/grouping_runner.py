@@ -14,6 +14,7 @@ from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from deequ_tpu_torch import observe
 from deequ_tpu_torch.analyzers.frequency import (
     FrequencyBasedAnalyzer,
     ScanShareableFrequencyBasedAnalyzer,
@@ -50,7 +51,10 @@ def run_grouping_analyzers(
             continue
         groups.setdefault(tuple(sorted(analyzer.grouping_columns())), []).append(analyzer)
     for cols, group in groups.items():
-        _run_column_set(data, cols, group, metrics, device, aggregate_with, save_states_with, mesh)
+        with observe.span("grouping", cat="group", columns=",".join(cols), analyzers=len(group)):
+            _run_column_set(
+                data, cols, group, metrics, device, aggregate_with, save_states_with, mesh
+            )
     return AnalyzerContext(metrics)
 
 

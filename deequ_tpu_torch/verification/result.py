@@ -27,7 +27,19 @@ class VerificationResult:
     # mode, and its cost prediction (lint/cost.PlanCost); empty and None
     # when validation is off
     validation_warnings: List = field(default_factory=list)
+    # the run's RunTrace (observe/) when tracing was on (with_tracing or
+    # DEEQU_TPU_TRACE), else None
+    run_trace: object = None
     plan_cost: object = None
+    # failure forensics (observe/forensics.ForensicsReport) when capture
+    # was on (with_forensics or DEEQU_TPU_FORENSICS), else None
+    forensics_report: object = None
+
+    def forensics(self):
+        """The run's ForensicsReport (sampled violating rows with their
+        partition, row group, row index and values, and the plan's
+        provenance), or None when capture was off (the default)."""
+        return self.forensics_report
 
     # -- metric exporters (reference: VerificationResult.scala:40-72) --------
 

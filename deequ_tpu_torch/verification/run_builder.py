@@ -54,6 +54,9 @@ class VerificationRunBuilder:
         self._engine = "auto"
         self._mesh = None
         self._validation: Optional[str] = None
+        self._tracing = None
+        self._forensics: Optional[bool] = None
+        self._forensics_max_samples: int = 10
 
     def with_engine(self, engine: str, mesh=None) -> "VerificationRunBuilder":
         """"auto" (a mesh over every CUDA device when there are two or
@@ -82,6 +85,29 @@ class VerificationRunBuilder:
         PlanValidationError before any scan, "lenient" (default) attaches
         diagnostics to the result, "off" skips the pass."""
         self._validation = mode
+        return self
+
+    def with_tracing(self, trace=True) -> "VerificationRunBuilder":
+        """Run observability (observe/): True records the run's span tree
+        (plan, dispatch, transfer, merge, constraint evaluation) as
+        `result.run_trace`; a path also writes its Chrome-trace JSON there
+        (load it in Perfetto); False turns tracing off whatever
+        ``DEEQU_TPU_TRACE`` says."""
+        self._tracing = trace
+        return self
+
+    def with_forensics(self, enabled: bool = True, max_samples: int = 10) -> "VerificationRunBuilder":
+        """Failure forensics (observe/forensics.py): a bounded,
+        deterministic sample of violating rows, with their (partition,
+        row group, row index, values), for every row-level-capable
+        constraint, and the run's provenance (plan signature, partitions
+        scanned and cached, row groups pruned, decode routing), as
+        `result.forensics()`; saved as an audit trail when a metrics
+        repository and a key are set. Off by default (also
+        ``DEEQU_TPU_FORENSICS=1``); metrics and verdicts are the same
+        bits either way."""
+        self._forensics = bool(enabled)
+        self._forensics_max_samples = int(max_samples)
         return self
 
     def with_controller(self, controller) -> "VerificationRunBuilder":
@@ -214,6 +240,9 @@ class VerificationRunBuilder:
             engine=self._engine,
             mesh=self._mesh,
             validation=self._validation,
+            tracing=self._tracing,
+            forensics=self._forensics,
+            forensics_max_samples=self._forensics_max_samples,
         )
         # JSON file outputs (reference: VerificationSuite.scala:146-172)
         from deequ_tpu_torch.core.fileio import write_text_output

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import TYPE_CHECKING, Dict, List, Optional, Sequence
 
+from deequ_tpu_torch import observe
 from deequ_tpu_torch.analyzers.base import Analyzer
 from deequ_tpu_torch.checks.check import Check, CheckResult, CheckStatus
 from deequ_tpu_torch.ops import runtime
@@ -61,6 +62,9 @@ class VerificationSuite:
         engine: str = "auto",
         mesh=None,
         validation: Optional[str] = None,
+        tracing=None,
+        forensics: Optional[bool] = None,
+        forensics_max_samples: int = 10,
     ) -> VerificationResult:
         """reference: VerificationSuite.scala:107-144. A `controller`
         (core/controller.RunController) is checked at every batch and
@@ -69,19 +73,57 @@ class VerificationSuite:
         load their states instead of being scanned. `engine` and `mesh`
         pick the single-device or the mesh-sharded pass
         (runners/engine.py). `validation` is the static pass's mode over
-        the whole plan, checks included (`_validate_plan`)."""
+        the whole plan, checks included (`_validate_plan`).
+
+        `tracing` (observe/): True records the run's span tree, a path
+        also names its Chrome-trace file, None defers to
+        ``DEEQU_TPU_TRACE``, False turns it off; the trace attaches as
+        `result.run_trace`. `forensics` (observe/forensics.py): True
+        samples up to `forensics_max_samples` violating rows of each
+        row-level-capable constraint from the decoded host batches, with
+        the run's provenance, as `result.forensics()`, and saves it as an
+        audit trail beside the metrics when a repository and key are set;
+        None defers to ``DEEQU_TPU_FORENSICS``; off under a mesh. The
+        metrics are the same bits either way."""
         if controller is None and deadline_s is not None:
             from deequ_tpu_torch.core.controller import RunController
 
             controller = RunController(deadline_s=deadline_s)
+        with observe.traced_run("verification_suite", enable=tracing, checks=len(checks)) as run:
+            result = VerificationSuite._do_verification_run(
+                data, checks, required_analyzers, device, aggregate_with, save_states_with,
+                metrics_repository, reuse_existing_results_for_key, fail_if_results_missing,
+                save_or_append_results_with_key, state_repository, dataset_name, controller,
+                deadline_s, engine, mesh, validation, forensics, forensics_max_samples,
+            )
+        if run:
+            result.run_trace = run.trace
+        return result
+
+    @staticmethod
+    def _do_verification_run(
+        data, checks, required_analyzers, device, aggregate_with, save_states_with,
+        metrics_repository, reuse_existing_results_for_key, fail_if_results_missing,
+        save_or_append_results_with_key, state_repository, dataset_name, controller,
+        deadline_s, engine, mesh, validation, forensics, forensics_max_samples,
+    ) -> VerificationResult:
         analyzers: List[Analyzer] = list(required_analyzers)
         for check in checks:
             analyzers.extend(check.required_analyzers())
-        validation_diagnostics, plan_cost = VerificationSuite._validate_plan(
-            data, checks, required_analyzers, validation, device,
-            state_repository=state_repository, dataset_name=dataset_name,
-            deadline_s=deadline_s,
-        )
+        capture = None
+        enable_forensics = forensics if forensics is not None else runtime.forensics_enabled()
+        if enable_forensics and mesh is None:
+            # a mesh shards each batch over its devices: there is no
+            # ordered host batch to hook, so capture is off there
+            from deequ_tpu_torch.observe.forensics import ForensicsCapture
+
+            capture = ForensicsCapture(checks, max_samples=forensics_max_samples)
+        with observe.span("plan_validate", cat="plan"):
+            validation_diagnostics, plan_cost = VerificationSuite._validate_plan(
+                data, checks, required_analyzers, validation, device,
+                state_repository=state_repository, dataset_name=dataset_name,
+                deadline_s=deadline_s,
+            )
         analysis_results = AnalysisRunner.do_analysis_run(
             data,
             analyzers,
@@ -102,13 +144,25 @@ class VerificationSuite:
             mesh=mesh,
             # the suite validated the whole plan, checks included
             validation="off",
+            forensics=capture,
         )
         result = VerificationSuite.evaluate(checks, analysis_results)
         result.validation_warnings = validation_diagnostics
         result.plan_cost = plan_cost
+        save_context = analysis_results
+        if capture is not None:
+            report = capture.finalize(result.check_results)
+            result.forensics_report = report
+            if metrics_repository is not None and save_or_append_results_with_key is not None:
+                # the audit trail saves with the metrics it explains
+                # (repository/audit.py)
+                from deequ_tpu_torch.repository.audit import audit_entry_for
+
+                record, metric = audit_entry_for(report)
+                save_context = analysis_results + AnalyzerContext({record: metric})
         if metrics_repository is not None and save_or_append_results_with_key is not None:
             AnalysisRunner._save_or_append(
-                metrics_repository, save_or_append_results_with_key, analysis_results
+                metrics_repository, save_or_append_results_with_key, save_context
             )
         return result
 
@@ -178,9 +232,10 @@ class VerificationSuite:
     ) -> VerificationResult:
         """reference: VerificationSuite.scala:263-281 — overall status is
         the max severity over check statuses."""
-        check_results: Dict[Check, CheckResult] = {
-            check: check.evaluate(analysis_context) for check in checks
-        }
+        with observe.span("constraint_eval", cat="constraint", checks=len(checks)):
+            check_results: Dict[Check, CheckResult] = {
+                check: check.evaluate(analysis_context) for check in checks
+            }
         if check_results:
             status = max(
                 (r.status for r in check_results.values()), key=lambda s: s.severity

@@ -93,6 +93,7 @@ def run(directory, repo, device="cpu", key=None, mrepo=None, paths=None):
         VerificationSuite.on_data(source, device=device)
         .add_check(check(Check, CheckLevel))
         .with_state_repository(repo, "daily")
+        .with_tracing(True)
     )
     if mrepo is not None:
         builder = builder.use_repository(mrepo).save_or_append_result(key)
@@ -103,6 +104,16 @@ def run(directory, repo, device="cpu", key=None, mrepo=None, paths=None):
 
 def split(stats):
     return stats.partitions_cached, stats.partitions_scanned, stats.partitions_total
+
+
+def traced_split(result):
+    """The same split from the run's trace counters (a zero count is left
+    out of a run's counters)."""
+    counters = result.run_trace.counters
+    return tuple(
+        counters.get(k, 0)
+        for k in ("partitions_cached", "partitions_scanned", "partitions_total")
+    )
 
 
 def metric_bits(result):
@@ -131,14 +142,14 @@ def test_cold_fill_append_and_rerun_equal_a_rescan(days, tmp_path, monkeypatch):
     repo = FileSystemStateRepository(str(tmp_path / "states"))
     mrepo = FileSystemMetricsRepository(str(tmp_path / "metrics.json"))
     cold, stats = run(days, repo, key=ResultKey(1, {"dataset": "daily"}), mrepo=mrepo)
-    assert split(stats) == (0, 6, 6)
+    assert split(stats) == (0, 6, 6) == traced_split(cold)
     write_day(days, 6)
     warm, stats = run(days, repo, key=ResultKey(2, {"dataset": "daily"}), mrepo=mrepo)
-    assert split(stats) == (6, 1, 7)
+    assert split(stats) == (6, 1, 7) == traced_split(warm)
     assert stats.device_passes == 1
     monkeypatch.setenv("DEEQU_TPU_STATE_CACHE", "0")
     rescan, stats = run(days, repo, key=ResultKey(3, {"dataset": "daily"}), mrepo=mrepo)
-    assert split(stats) == (0, 7, 7)
+    assert split(stats) == (0, 7, 7) == traced_split(rescan)
     assert metric_bits(warm) == metric_bits(rescan)
     assert verdicts(warm) == verdicts(rescan)
     assert warm.status == rescan.status

@@ -102,6 +102,18 @@ SLICE_MODULES = [
     "deequ_tpu_torch.parallel.multihost",
     "deequ_tpu_torch.parallel.procspawn",
     "deequ_tpu_torch.parallel.shard",
+    "deequ_tpu_torch.observe",
+    "deequ_tpu_torch.observe.spans",
+    "deequ_tpu_torch.observe.counters",
+    "deequ_tpu_torch.observe.export",
+    "deequ_tpu_torch.observe.report",
+    "deequ_tpu_torch.observe.runtrace",
+    "deequ_tpu_torch.observe.compare",
+    "deequ_tpu_torch.observe.heartbeat",
+    "deequ_tpu_torch.observe.telemetry",
+    "deequ_tpu_torch.observe.forensics",
+    "deequ_tpu_torch.repository.engine",
+    "deequ_tpu_torch.repository.audit",
 ]
 
 

@@ -5,7 +5,8 @@ NaN/NULL soundness edge cases (all-NULL groups, NaN-polluted float
 min/max, untrusted string min/max, absent statistics), the prune-plan
 skip/elision rules and the exact decode-batch replay, the
 ParquetSource prune/projection composition, the end-to-end skip path
-(the `runtime.monitored()` counts, bit-identical metrics vs DEEQU_TPU_PUSHDOWN=0,
+(the trace's rg_* counters and `prune` span, `cost_drift`, the
+`runtime.monitored()` counts, bit-identical metrics vs DEEQU_TPU_PUSHDOWN=0,
 predicted == observed skipped groups), and the DQ310/DQ311 lints.
 
 Port-mapped from tests/test_pushdown.py: the same cases against deequ_tpu_torch,
@@ -26,6 +27,7 @@ from deequ_tpu_torch.data.expr import parse
 from deequ_tpu_torch.data.table import ColumnType, Table
 from deequ_tpu_torch.lint import explain_plan
 from deequ_tpu_torch.lint.fold import dnf_branches
+from deequ_tpu_torch.lint.cost import cost_drift
 from deequ_tpu_torch.lint.interval import Interval
 from deequ_tpu_torch.lint.pushdown import (
     ALL_FALSE,
@@ -405,14 +407,14 @@ ANALYZERS = [
 
 
 def run_traced(path, monkeypatch, pushdown, analyzers=ANALYZERS):
-    """The run and its `runtime.monitored()` counts. The JAX package's
-    copy reads the same facts from a RunTrace (`with_tracing(True)`): its
-    rg_* counters and `prune` span; the port keeps them as the counts
-    (its trace comes with the observability layer)."""
+    """The traced run (its RunTrace carries the rg_* counters and the
+    `prune` span, as in the JAX package's copy) and its
+    `runtime.monitored()` counts (the port also keeps the rows skipped
+    and the wheres elided there)."""
     monkeypatch.setenv("DEEQU_TPU_PUSHDOWN", pushdown)
     monkeypatch.setenv("DEEQU_TPU_PLACEMENT", "host")
     with runtime.monitored() as stats:
-        ctx = AnalysisRunner.on_data(scan(path)).add_analyzers(analyzers).run()
+        ctx = AnalysisRunner.on_data(scan(path)).with_tracing(True).add_analyzers(analyzers).run()
     return ctx, stats
 
 
@@ -437,13 +439,22 @@ class TestEndToEnd:
         assert on_stats.rg_total == 10
         assert on_stats.rg_skipped == 8
         assert off_stats.rg_total == 0 and off_stats.rg_skipped == 0
+        assert on.run_trace.counters["rg_total"] == 10
+        assert on.run_trace.counters["rg_skipped"] == 8
+        assert "rg_skipped" not in off.run_trace.counters
         assert metric_values(on) == metric_values(off)
 
     def test_prune_span_records_decision(self, parquet_path, monkeypatch):
-        _ctx, stats = run_traced(parquet_path, monkeypatch, "1")
+        ctx, stats = run_traced(parquet_path, monkeypatch, "1")
         assert stats.rg_total == 10
         assert stats.rg_skipped == 8
         assert stats.rg_rows_skipped == 8 * GROUP_ROWS
+        spans = [sp for sp in ctx.run_trace.spans() if sp.name == "prune"]
+        assert len(spans) == 1
+        attrs = spans[0].attrs
+        assert attrs["groups_total"] == 10
+        assert attrs["groups_skipped"] == 8
+        assert attrs["rows_skipped"] == 8 * GROUP_ROWS
 
     def test_predicted_skips_match_observed_trace(self, parquet_path, monkeypatch):
         ctx, stats = run_traced(parquet_path, monkeypatch, "1")
@@ -457,6 +468,10 @@ class TestEndToEnd:
         # no tiny group), as the pruned source yields them
         survivors = scan(parquet_path).with_prune(frozenset(range(2, 10)))
         assert scan_cost.n_batches == 2 == len(list(survivors.batches(4096)))
+        drift = cost_drift(ctx.plan_cost, ctx.run_trace)
+        assert drift["drift.rg_skipped"] == 0.0
+        assert drift["drift.batches"] == 0.0
+        assert all(v == 0.0 for k, v in drift.items() if k.startswith(("drift.counter.", "drift.span.")))
 
     def test_pushdown_off_predicts_zero_skips(self, parquet_path, monkeypatch):
         ctx, stats = run_traced(parquet_path, monkeypatch, "0")
@@ -465,13 +480,16 @@ class TestEndToEnd:
         assert scan_cost.rg_skipped == 0
         assert stats.rg_skipped == 0
         assert scan_cost.n_batches == 10 == len(list(scan(parquet_path).batches(4096)))
+        assert cost_drift(ctx.plan_cost, ctx.run_trace)["drift.batches"] == 0.0
 
     def test_unfiltered_member_disables_skipping(self, parquet_path, monkeypatch):
-        _ctx, stats = run_traced(
+        ctx, stats = run_traced(
             parquet_path, monkeypatch, "1", analyzers=ANALYZERS + [Maximum("k")]
         )
         assert stats.rg_skipped == 0
         assert stats.rg_total == 10
+        assert ctx.run_trace.counters.get("rg_skipped", 0) == 0
+        assert ctx.run_trace.counters["rg_total"] == 10
 
     def test_all_groups_skipped_matches_off(self, parquet_path, monkeypatch):
         impossible = [
@@ -483,6 +501,7 @@ class TestEndToEnd:
         off, _ = run_traced(parquet_path, monkeypatch, "0", analyzers=impossible)
         # one sentinel group decodes (filtered-empty == unpruned scan)
         assert on_stats.rg_skipped == 9
+        assert on.run_trace.counters["rg_skipped"] == 9
         assert on.plan_cost.scan_pass.rg_skipped == 9
         assert metric_values(on) == metric_values(off)
 
@@ -494,6 +513,9 @@ class TestEndToEnd:
         off, off_stats = run_traced(parquet_path, monkeypatch, "0", analyzers=always)
         assert on_stats.wheres_elided == 1 and off_stats.wheres_elided == 0
         assert on_stats.rg_skipped == 0 and on_stats.rg_total == 10
+        spans = [sp for sp in on.run_trace.spans() if sp.name == "prune"]
+        assert spans and spans[0].attrs["wheres_elided"] == 1
+        assert spans[0].attrs["groups_skipped"] == 0
         assert metric_values(on) == metric_values(off)
 
 

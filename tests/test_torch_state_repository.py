@@ -8,8 +8,8 @@ contract: a cache hit must reproduce the exact bytes a rescan would.
 Port-mapped from tests/test_state_repository.py: the same cases against
 deequ_tpu_torch, with every run on device="cpu" and the toy tables of
 tests/fixtures.py as the port's tables (tests/torch_fixtures.py). The
-cases that read a run's trace counters (`tracing=True`) read the same
-counts from the port's `runtime.monitored()`.
+cases that read a run's trace counters (`tracing=True`) read them, and
+the same counts from the port's `runtime.monitored()` too.
 """
 
 from __future__ import annotations
@@ -289,10 +289,13 @@ class TestEnvelopeDefects:
         with pytest.warns(RuntimeWarning, match="DQ314"), runtime.monitored() as stats:
             warm = AnalysisRunner.do_analysis_run(
                 Table.scan_parquet_dataset(str(data_dir)), analyzers,
-                state_repository=repo, dataset_name="defects", device="cpu"
+                state_repository=repo, dataset_name="defects", device="cpu", tracing=True,
             )
         assert stats.partitions_cached == 2
         assert stats.partitions_scanned == 1
+        counters = warm.run_trace.counters
+        assert counters["partitions_cached"] == 2
+        assert counters["partitions_scanned"] == 1
         for a in analyzers:
             assert _bits(cold.metric_map[a].value.get()) == _bits(
                 warm.metric_map[a].value.get()
@@ -532,10 +535,13 @@ def test_state_cache_kill_switch(tmp_path, monkeypatch):
     with runtime.monitored() as stats:
         off = AnalysisRunner.do_analysis_run(
             Table.scan_parquet_dataset(str(data_dir)), analyzers,
-            state_repository=repo, dataset_name="kill", device="cpu"
+            state_repository=repo, dataset_name="kill", device="cpu", tracing=True,
         )
     assert stats.partitions_scanned == 3
     assert stats.partitions_cached == 0
+    counters = off.run_trace.counters
+    assert counters["partitions_scanned"] == 3
+    assert "partitions_cached" not in counters
     for a in analyzers:
         assert _bits(warm_prep.metric_map[a].value.get()) == _bits(
             off.metric_map[a].value.get()
