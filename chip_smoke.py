@@ -2,7 +2,8 @@
 """GPU smoke run of deequ_tpu_torch's main paths: verification under each
 placement, traced, with forensics and telemetry, column profiling,
 constraint suggestion, streamed Parquet with its host fast paths,
-row-group pruning and EXPLAIN, incremental runs, anomaly detection, the
+row-group pruning and EXPLAIN, fault containment under injected faults,
+incremental runs, window queries and drift checks, anomaly detection, the
 mesh-sharded scan and the sharded scan across processes.
 
 Run from the repository root on a machine with one CUDA GPU:
@@ -133,6 +134,21 @@ Phases, one JSON line each:
               batches never falling, the last one's equal to the scan's).
               Files go to a temporary directory;
               their writing is timed apart from the runs.
+ 9a. chaos    fault containment over the UNCOMPRESSED lineitem copy
+              (`chaos_phase`): two clean traced runs of `chaos_check`
+              (the flagship scan analyzers on its numeric columns and
+              one quantile; the first warms up), then one run under each
+              CHAOS_SPECS fault spec
+              (the JAX package's chaos matrix less decode.worker) and
+              under CHAOS_EXHAUST (every pread fails, each chunk spends
+              its retries and reads through pyarrow): each the clean
+              run's bits, verdicts and K1-K4 launches, its trace's
+              retry and fault counters agreeing with the plan's
+              injections, no engine thread left, its wall time beside the
+              clean run's; the stall watchdog cancelling a stalled scan
+              with DQ404; state.save failing for three of CHAOS_DAYS daily
+              partitions, whose rerun scans those three alone, with the
+              same bits;
  9b. prune    the lineitem table stably sorted by l_orderkey (dbgen's
               order) in one zstd file of 10 row groups of 1,048,576 rows.
               Run A filters every member (Size, Completeness, Mean, Sum,
@@ -185,6 +201,16 @@ Phases, one JSON line each:
               parameters within 1e-6, day 102 flagged on Mean("x") by
               both strategies; the fit's time, objective evaluations and
               launches (torch.profiler over one more fit).
+ 10b. windows  window queries over phase 10's partitions and state
+              repository (`windows_phase`): Sliding(7), Tumbling(7) and
+              LastN(100) cold and warm, each equal to a card rescan of
+              its partitions bit for bit, the warm query reading no row
+              and launching nothing, its segment merges equal to the cost
+              model's and EXPLAIN's `windows:` line (cost_drift 0); a
+              DriftCheck of week 14 against week 13 passing and of day
+              102 (x + 1.0, rescanned by the query) against its week
+              failing on mean and quantile drift; a state.segment fault
+              with the same bits; examples/drift_example.py on the card.
  11. mesh     BASELINE.json config 4 ("ApproxCountDistinct(HLL) +
               ApproxQuantile(KLL) on 1B-row clickstream, v5e-8 psum State
               merge"), its 1B rows cut to --mesh-rows (33,554,432) for the
@@ -224,8 +250,10 @@ as `launches_stream`, on the incremental append run as
 `launches_incremental`, per placement of phase `placement` as
 `launches_placement`, on one mesh run as `launches_mesh`, on the
 workers' first sharded runs as `launches_sharded`, on the pruned run A
-as `launches_prune` and on phase `observe`'s traced run as
-`launches_observe`) and, last, the device line. Any failed
+as `launches_prune`, on phase `observe`'s traced run as
+`launches_observe`, on the clean chaos run as `launches_chaos` and in
+the window queries' own rescans as `launches_windows`) and, last, the
+device line. Any failed
 check raises: the script exits non-zero and prints no result. Without
 CUDA it exits non-zero at once.
 """
@@ -2370,7 +2398,6 @@ def stream_phase(torch, ck, lineitem, memory_profiles, memory_launches, stream_r
         with env(DEEQU_TPU_PIPELINE="0"):
             runs.append(profile(serial_split, path=plain_path, read=plain_read))
         fusion_line = stream_fusion_runs(torch, ck, plain_path, lineitem.num_rows)
-        os.unlink(plain_path)
         numeric = {name for name, ctype in lineitem.schema if ctype.name in ("LONG", "DOUBLE")}
         if plain_read != numeric:
             raise AssertionError(f"stream profile: the C reader took {sorted(plain_read)} of the "
@@ -2472,28 +2499,31 @@ def stream_phase(torch, ck, lineitem, memory_profiles, memory_launches, stream_r
             raise AssertionError("stream verify: the file lost rows")
         observe_heartbeat(torch, ck, path, stream_rows, card, power_limit)
 
-    emit({
-        "phase": "stream",
-        "card": card,
-        "power_limit": power_limit,
-        "pipeline_depth": fused.pipeline.DEPTH,
-        "profile": profile_line,
-        "fusion": fusion_line,
-        "verify": {
-            "rows": stream_rows,
-            "row_group_size": 1 << 18,
-            "batch_rows": batch_rows,
-            "write_s": flagship_write_s,
-            "in_memory_run_s": memory_s,
-            "in_memory_run": memory_from,
-            "streamed_run_s": streamed_s,
-            "rows_per_s_streamed": stream_rows / streamed_s,
-            "group_accumulator_adds": len(adds),
-            "launches": streamed_counts,
-            "status": streamed.status.value,
-        },
-    })
-    return {name: profile_launches[name] + streamed_counts[name] for name in profile_launches}
+        emit({
+            "phase": "stream",
+            "card": card,
+            "power_limit": power_limit,
+            "pipeline_depth": fused.pipeline.DEPTH,
+            "profile": profile_line,
+            "fusion": fusion_line,
+            "verify": {
+                "rows": stream_rows,
+                "row_group_size": 1 << 18,
+                "batch_rows": batch_rows,
+                "write_s": flagship_write_s,
+                "in_memory_run_s": memory_s,
+                "in_memory_run": memory_from,
+                "streamed_run_s": streamed_s,
+                "rows_per_s_streamed": stream_rows / streamed_s,
+                "group_accumulator_adds": len(adds),
+                "launches": streamed_counts,
+                "status": streamed.status.value,
+            },
+        })
+        chaos_launches_ = chaos_phase(torch, ck, plain_path, lineitem.num_rows, seed, card,
+                                      power_limit)
+    return ({name: profile_launches[name] + streamed_counts[name] for name in profile_launches},
+            chaos_launches_)
 
 
 WIRE_COLUMNS = ("l_quantity", "l_extendedprice", "l_discount", "l_tax")
@@ -2665,6 +2695,264 @@ def write_daily_partition(directory: str, day: int, rows: int, seed: int,
     return path
 
 
+#: the chaos phase's fault specs: the JAX package's chaos matrix
+#: (tests/test_suite_differential_fuzz.py, CHAOS_MATRIX) less its
+#: decode.worker spec, which waits for a parallel decode (ROADMAP item 9)
+CHAOS_SPECS = (
+    "seed=101,read.pread:0.4:4",
+    "seed=102,read.short:0.5:3",
+    "seed=103,read.corrupt:0.5:2",
+    "seed=104,decode.chunk:0.6:3",
+    "seed=106,pipeline.stage:1.0:1",
+    "seed=107,stall=0.005,pipeline.stall:1.0:2",
+    "seed=108,stall=0.005,read.latency:1.0:3",
+)
+CHAOS_EXHAUST = "seed=109,read.pread:1.0"  # every pread of every attempt fails
+CHAOS_RETRY_BASE_MS = "1"  # the first retry's backoff under chaos
+WATCHDOG_S = 0.2  # the stall watchdog's window in the watchdog case
+WATCHDOG_STALL = "seed=110,stall=0.8,pipeline.stall:1.0:1"  # 4 windows on the first batch
+SAVE_FAULT = "seed=111,state.save:1.0:3"  # the first three partition saves fail
+CHAOS_DAYS = 12  # daily partitions of the state.save case (the incremental layout)
+CHAOS_COUNTERS = ("retry.attempts", "retry.recovered", "retry.exhausted", "fault.observed",
+                  "fault.fallback_units")
+
+
+def chaos_check():
+    """The chaos phase's check over the lineitem file: the flagship scan
+    analyzers on its numeric columns and one approximate quantile, so
+    K1-K4 all launch."""
+    from deequ_tpu_torch import Check, CheckLevel
+
+    return (
+        Check(CheckLevel.ERROR, "chaos")
+        .has_size(lambda n: n > 0)
+        .is_complete("l_extendedprice")
+        .has_completeness("l_discount", lambda c: c == 1.0)
+        .has_mean("l_extendedprice", lambda v: v > 0)
+        .has_min("l_quantity", lambda v: v >= 1)
+        .has_max("l_quantity", lambda v: v <= 50)
+        .has_sum("l_tax", lambda v: v > 0)
+        .has_standard_deviation("l_extendedprice", lambda v: v > 0)
+        .has_correlation("l_quantity", "l_extendedprice", lambda r: r > 0.5)
+        .has_approx_count_distinct("l_orderkey", lambda v: v > 0)
+        .has_approx_quantile("l_discount", 0.5, lambda m: 0.0 <= m <= 0.1)
+    )
+
+
+def chaos_launches(rows: int):
+    """Each kernel's launches in one chaos_check() run over `rows` rows in
+    row groups of BATCH rows: per batch, masked_moments once per moment
+    column (l_extendedprice, l_quantity, l_tax), the others once (one
+    standard deviation, one HLL, one quantile)."""
+    batches = -(-rows // BATCH)
+    return {"masked_moments": 3 * batches, "masked_centered_sumsq": batches,
+            "hll_register_max": batches, "hist16": batches}
+
+
+def chaos_counters_expected(spec: str, injected: int, got):
+    """Whether a faulted run's retry and fault counters (its trace's
+    `retry.*`, `fault.*`) agree with the plan's injections: every read
+    fault is seen, and each one retried until its chunk recovers or its
+    budget runs out; a corrupt read is seen and not retried; a failed
+    stage is redone once; decode refusals and stalls are no IO faults."""
+    point = spec.split(",")[-1].split(":")[0]
+    if point in ("read.pread", "read.short"):
+        # a chunk whose budget (RETRIES, 3) ran out took 3 retries; the
+        # rest belong to chunks that recovered, at least one retry each
+        attempts, exhausted = got["retry.attempts"], got["retry.exhausted"]
+        recovering = attempts - 3 * exhausted
+        recovered_ok = (got["retry.recovered"] >= 1) == (recovering > 0) and (
+            got["retry.recovered"] <= recovering)
+        return (got["fault.observed"] == injected and attempts + exhausted == injected
+                and got["fault.fallback_units"] == 0 and recovered_ok)
+    if point == "read.corrupt":
+        return got == {**dict.fromkeys(CHAOS_COUNTERS, 0), "fault.observed": injected}
+    if point == "pipeline.stage":
+        return got == {"retry.attempts": 1, "retry.recovered": 1, "retry.exhausted": 0,
+                       "fault.observed": 1, "fault.fallback_units": 0}
+    return got == dict.fromkeys(CHAOS_COUNTERS, 0)
+
+
+def engine_threads():
+    import threading
+
+    return [t.name for t in threading.enumerate() if t.name.startswith("deequ-")]
+
+
+def wait_no_engine_threads(label: str, timeout_s: float = 5.0) -> None:
+    deadline = time.monotonic() + timeout_s
+    while engine_threads() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    if engine_threads():
+        raise AssertionError(f"{label}: engine threads outlived the run: {engine_threads()}")
+
+
+def chaos_phase(torch, ck, path: str, rows: int, seed: int, card: str, power_limit: str):
+    """Fault containment on the card, over phase 9's UNCOMPRESSED lineitem
+    file (the C reader takes its numeric columns): two clean streamed runs
+    of chaos_check() (placement "device", pipeline on; the second is the
+    baseline), one run per
+    CHAOS_SPECS spec and one under CHAOS_EXHAUST, each traced. Every
+    faulted run must give the clean run's metrics and verdicts bit for
+    bit, with the clean run's K1-K4 launches, its plan must have fired,
+    its trace's retry and fault counters must agree with the plan
+    (chaos_counters_expected), and no engine thread may outlive it; each
+    run's wall time is printed beside the clean run's. Then the stall
+    watchdog (DEEQU_TPU_STALL_WATCHDOG_S) with a controller and a stall of
+    four windows: the scan raises RunCancelled with DQ404 after one dump
+    and the cancel's own, and no thread stays. Then SAVE_FAULT over
+    CHAOS_DAYS daily partitions of the incremental layout: the rerun
+    scans exactly the three partitions whose saves failed and gives the
+    same bits. Returns the clean run's launches."""
+    import io
+    import tempfile
+
+    from deequ_tpu_torch import Table, VerificationSuite
+    from deequ_tpu_torch.core.controller import DQ_STALLED, RunCancelled, RunController
+    from deequ_tpu_torch.ops import runtime
+    from deequ_tpu_torch.repository import FileSystemStateRepository
+    from deequ_tpu_torch.repository.states import plan_signature_for
+    from deequ_tpu_torch.runners import AnalysisRunner
+    from deequ_tpu_torch.testing import faults
+
+    check = chaos_check()
+
+    def run(spec=None):
+        with contextlib.ExitStack() as stack:
+            plan = stack.enter_context(faults.install(spec)) if spec else None
+            ck.reset_launch_counts()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            result = (VerificationSuite.on_data(Table.scan_parquet(path), device="cuda")
+                      .add_check(check).with_tracing(True).run())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+        wait_no_engine_threads(f"chaos {spec or 'clean'}")
+        counters = {k: int(result.run_trace.counters.get(k, 0)) for k in CHAOS_COUNTERS}
+        return result, wall, ck.launch_counts(), counters, dict(plan.injected) if plan else {}
+
+    runs = {}
+    phase_start = time.perf_counter()
+    with env(DEEQU_TPU_PLACEMENT="device", DEEQU_TPU_PIPELINE="1",
+             DEEQU_TPU_RETRY_BASE_MS=CHAOS_RETRY_BASE_MS):
+        # the first run warms what every later run reuses; the second is
+        # the clean baseline, and the same bits
+        first, first_s, _, _, _ = run()
+        clean, clean_s, clean_launches, clean_counters, _ = run()
+        assert_same_values(metric_values(clean), metric_values(first), "chaos clean runs")
+        if clean_launches != chaos_launches(rows):
+            raise AssertionError(f"chaos clean: launches {clean_launches}, "
+                                 f"expected {chaos_launches(rows)}")
+        if any(clean_counters.values()):
+            raise AssertionError(f"chaos clean: retry or fault counters {clean_counters}")
+        want, want_verdicts = metric_values(clean), verdicts(clean)
+        for spec in CHAOS_SPECS + (CHAOS_EXHAUST,):
+            result, wall, launches, counters, injected = run(spec)
+            label = f"chaos {spec}"
+            if not injected or sum(injected.values()) < 1:
+                raise AssertionError(f"{label}: the plan never fired")
+            assert_same_values(metric_values(result), want, label)
+            if verdicts(result) != want_verdicts or result.status != clean.status:
+                raise AssertionError(f"{label}: verdicts differ from the clean run's")
+            if launches != clean_launches:
+                raise AssertionError(f"{label}: launches {launches} vs clean {clean_launches}")
+            n = sum(injected.values())
+            agree = chaos_counters_expected(spec, n, counters)
+            if spec == CHAOS_EXHAUST:
+                agree = (counters["retry.exhausted"] >= 1 and counters["retry.recovered"] == 0
+                         and counters["retry.attempts"] == 3 * counters["retry.exhausted"]
+                         and counters["fault.observed"] == n == 4 * counters["retry.exhausted"])
+            if not agree:
+                raise AssertionError(f"{label}: counters {counters} disagree with {injected}")
+            runs[spec] = {"wall_s": wall, "clean_wall_s": clean_s, "injected": injected,
+                          "counters": counters}
+
+        # the stall watchdog: a controller, and a stall of four windows
+        ctl = RunController()
+        dump = io.StringIO()
+        analyzers = check.required_analyzers()
+        start = time.perf_counter()
+        with env(DEEQU_TPU_STALL_WATCHDOG_S=str(WATCHDOG_S)), faults.install(WATCHDOG_STALL) as plan, \
+                contextlib.redirect_stderr(dump):
+            try:
+                AnalysisRunner.do_analysis_run(Table.scan_parquet(path), analyzers, "cuda",
+                                               controller=ctl)
+            except RunCancelled as e:
+                cancelled = e
+            else:
+                raise AssertionError("chaos watchdog: the stalled scan was not cancelled")
+        watchdog_s = time.perf_counter() - start
+        wait_no_engine_threads("chaos watchdog")
+        dumps = dump.getvalue().count("deequ-watchdog: no batch progress")
+        if cancelled.code != DQ_STALLED or dumps != 2 or plan.injected != {"pipeline.stall": 1}:
+            raise AssertionError(f"chaos watchdog: code {cancelled.code}, {dumps} dumps, "
+                                 f"injected {plan.injected}")
+
+    # state.save over the incremental layout: the rerun scans exactly the
+    # partitions whose saves failed
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_chaos_") as tmp:
+        data_dir = os.path.join(tmp, "daily")
+        os.makedirs(data_dir)
+        for day in range(CHAOS_DAYS):
+            write_daily_partition(data_dir, day, INCREMENTAL_ROWS, seed)
+        repo = FileSystemStateRepository(os.path.join(tmp, "states"))
+        daily = incremental_check()
+        shareable = scan_shareable(daily)
+
+        def fill(spec=None):
+            with contextlib.ExitStack() as stack:
+                plan = stack.enter_context(faults.install(spec)) if spec else None
+                stats = stack.enter_context(runtime.monitored())
+                result = (VerificationSuite.on_data(Table.scan_parquet_dataset(data_dir), device="cuda")
+                          .add_check(daily).with_state_repository(repo, "daily").run())
+            return result, (stats.partitions_cached, stats.partitions_scanned), plan
+
+        first, split, plan = fill(SAVE_FAULT)
+        source = Table.scan_parquet_dataset(data_dir)
+        signature = plan_signature_for(shareable, source, device="cuda")
+        missing = [p.name for p in source.partitions()
+                   if not repo.has_states("daily", p.fingerprint, signature)]
+        if plan.injected != {"state.save": 3} or split != (0, CHAOS_DAYS) or len(missing) != 3:
+            raise AssertionError(f"chaos state.save: injected {plan.injected}, split {split}, "
+                                 f"unsaved {missing}")
+        rerun, rerun_split, _ = fill()
+        if rerun_split != (CHAOS_DAYS - 3, 3) or any(
+                not repo.has_states("daily", p.fingerprint, signature) for p in source.partitions()):
+            raise AssertionError(f"chaos state.save: the rerun's split {rerun_split}")
+        assert_same_values(metric_values(rerun), metric_values(first), "chaos state.save rerun")
+        if verdicts(rerun) != verdicts(first):
+            raise AssertionError("chaos state.save: the rerun's verdicts differ")
+
+    emit({
+        "phase": "chaos",
+        "card": card,
+        "power_limit": power_limit,
+        "rows": rows,
+        "row_group_size": BATCH,
+        "retry_base_ms": float(CHAOS_RETRY_BASE_MS),
+        "phase_s": time.perf_counter() - phase_start,
+        "first_clean_run_s": first_s,
+        "clean_run_s": clean_s,
+        "launches": clean_launches,
+        "runs": runs,
+        "watchdog": {"window_s": WATCHDOG_S, "spec": WATCHDOG_STALL, "code": cancelled.code,
+                     "dumps": dumps, "run_s": watchdog_s},
+        "state_save": {"spec": SAVE_FAULT, "partitions": CHAOS_DAYS, "unsaved": missing,
+                       "rerun_cached_scanned": list(rerun_split)},
+    })
+    return clean_launches
+
+
+def scan_shareable(check):
+    """The fused pass's analyzers of `check`, in its order (deduped,
+    scan-shareable, not grouping): the plan signature hashes them."""
+    from deequ_tpu_torch.analyzers.base import ScanShareableAnalyzer
+    from deequ_tpu_torch.analyzers.grouping import GroupingAnalyzer
+
+    return [a for a in dict.fromkeys(check.required_analyzers())
+            if isinstance(a, ScanShareableAnalyzer) and not isinstance(a, GroupingAnalyzer)]
+
+
 def context_values(metric_map):
     return {repr(a): m.value.get() for a, m in metric_map.items()}
 
@@ -2696,8 +2984,6 @@ def incremental_phase(torch, ck, days: int, rows: int, seed: int, card: str, pow
 
     from deequ_tpu_torch import Table, VerificationSuite
     from deequ_tpu_torch.analyzers import frequency
-    from deequ_tpu_torch.analyzers.base import ScanShareableAnalyzer
-    from deequ_tpu_torch.analyzers.grouping import GroupingAnalyzer
     from deequ_tpu_torch.analyzers.state_provider import serialize_state
     from deequ_tpu_torch.ops import fused, runtime
     from deequ_tpu_torch.repository import (
@@ -2706,11 +2992,7 @@ def incremental_phase(torch, ck, days: int, rows: int, seed: int, card: str, pow
     from deequ_tpu_torch.repository.states import StateRepository, merge_states, plan_signature_for
 
     check = incremental_check()
-    # the fused pass's analyzers, in its order: the plan signature hashes them
-    shareable = [
-        a for a in dict.fromkeys(check.required_analyzers())
-        if isinstance(a, ScanShareableAnalyzer) and not isinstance(a, GroupingAnalyzer)
-    ]
+    shareable = scan_shareable(check)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_incremental_") as tmp:
         data_dir = os.path.join(tmp, "daily")
         os.makedirs(data_dir)
@@ -2829,43 +3111,233 @@ def incremental_phase(torch, ck, days: int, rows: int, seed: int, card: str, pow
         for key, step in zip((1, 2, 3, 4), (cold, append, rescan, corrupt)):
             assert_same_values(saved[key], step["values"], f"incremental repository key {key}")
 
-        anomaly = anomaly_days(torch, paths[days], write_daily_partition(
-            tmp, days + 1, rows, seed, x_shift=1.0), shareable, daily["repository"])
+        shifted = write_daily_partition(tmp, days + 1, rows, seed, x_shift=1.0)
+        anomaly = anomaly_days(torch, paths[days], shifted, shareable, daily["repository"])
 
-    examples = incremental_example_flows("cuda")
-    if examples != incremental_example_flows("cpu"):
-        raise AssertionError("incremental examples: cuda and cpu differ")
+        examples = incremental_example_flows("cuda")
+        if examples != incremental_example_flows("cpu"):
+            raise AssertionError("incremental examples: cuda and cpu differ")
+        emit({
+            "phase": "incremental",
+            "card": card,
+            "power_limit": power_limit,
+            "days": days,
+            "rows_per_day": rows,
+            "write_s": write_s,
+            "cold_fill_s": cold["wall_s"],
+            "append_run_s": append["wall_s"],
+            "rescan_s": rescan["wall_s"],
+            "truncated_envelope_run_s": corrupt["wall_s"],
+            "cpu_run_s": cpu["wall_s"],
+            "merge_range_s": merge_range_s,
+            "append_run_split_s": {
+                "load_envelopes": append_split.get("load_states", 0.0),
+                "scan_partition": append_split.get("_run_single", 0.0),
+                "save_envelope": append_split.get("save_states", 0.0),
+            },
+            "envelope_bytes": envelope_bytes,
+            "launches": {"cold_fill": cold["launches"], "append": append["launches"],
+                         "rescan": rescan["launches"], "truncated_envelope": corrupt["launches"]},
+            "passes": {"cold_fill": cold["passes"], "append": append["passes"],
+                       "rescan": rescan["passes"], "truncated_envelope": corrupt["passes"],
+                       "cpu": cpu["passes"]},
+            "merge_range_vs_cpu_within_rtol": inexact,
+            "status": append["result"].status.value,
+            "examples_equal_cpu": sorted(examples),
+            "daily_runs": {k: v for k, v in daily.items() if k != "repository"},
+            "anomaly": anomaly,
+        })
+        window_launches = windows_phase(torch, ck, data_dir, paths, shifted, shareable, states,
+                                        rows, card, power_limit)
+    return append["launches"], window_launches
+
+
+WINDOW_SEGMENT_FAULT = "seed=112,state.segment:1.0:1"  # the first segment load fails
+
+
+def windows_phase(torch, ck, data_dir: str, paths, shifted: str, shareable, states, rows: int,
+                  card: str, power_limit: str):
+    """Window queries and drift checks on the card, over phase 10's daily
+    partitions (`paths`: the 100 of the cold fill and the appended day)
+    and its FileSystemStateRepository, whose entries the cold fill and
+    the append run saved. A WindowQuery over the incremental check's
+    scan-shareable analyzers in fill order answers Sliding(7),
+    Tumbling(7) and LastN(100), each cold (the segments no earlier query
+    built are built from the partitions' states) and warm (segment loads
+    alone): the warm query
+    reads no row and launches nothing, both equal a card rescan of the
+    window's partitions bit for bit, and `window.segments_merged` equals
+    the cost model's prediction and EXPLAIN's `windows:` line, with
+    cost_drift 0. A DriftCheck of week 14 (days 91-97) against week 13
+    passes; day 102 (`shifted`, x + 1.0, no saved state, so the query
+    rescans it on the card) against the seven days before fails its mean
+    and quantile constraints and no other. A query under
+    WINDOW_SEGMENT_FAULT degrades to the partitions' states (DQ323) with
+    the same bits. Then examples/drift_example.py, renamed onto the port,
+    on the card. Returns the window queries' own launches."""
+    import re
+    import warnings
+
+    from deequ_tpu_torch import Table
+    from deequ_tpu_torch.checks import CheckLevel, DriftCheck
+    from deequ_tpu_torch.lint.cost import cost_drift
+    from deequ_tpu_torch.lint.explain import render_explain
+    from deequ_tpu_torch.ops import runtime
+    from deequ_tpu_torch.runners import AnalysisRunner
+    from deequ_tpu_torch.testing import faults
+    from deequ_tpu_torch.windows import LastN, Sliding, Tumbling, WindowQuery
+
+    source = Table.scan_parquet_dataset(data_dir)
+    if [p.path for p in source.partitions()] != list(paths):
+        raise AssertionError("windows: the source's partitions are not the incremental phase's")
+    phase_start = time.perf_counter()
+    query = WindowQuery(source, shareable, repository=states, dataset="daily", device="cuda")
+    launches = dict.fromkeys(ck.launch_counts(), 0)
+
+    def timed_query(fn, count=True):
+        with runtime.monitored() as stats:
+            ck.reset_launch_counts()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+        counts = ck.launch_counts()
+        for name, n in counts.items():
+            launches[name] += n if count else 0
+        return out, wall, counts, stats
+
+    windows, answers = {}, {}
+    for spec in (Sliding(7), Tumbling(7), LastN(100)):
+        label = f"windows {spec!r}"
+        steps = {}
+        for step in ("cold", "warm"):
+            cost = query.admission_cost(spec)
+            ctx, wall, counts, stats = timed_query(lambda: query.run(spec, tracing=True))
+            plan, counters = ctx.window_plan, ctx.run_trace.counters
+            explained = [line for line in render_explain(cost).splitlines()
+                         if line.startswith("windows:")]
+            merges = re.search(r"-> (\d+) segment merges", explained[0]) if explained else None
+            drift = cost_drift(cost, ctx.run_trace)
+            if not merges or not (int(merges.group(1)) == cost.window_segments_merged
+                                  == counters["window.segments_merged"] == plan.segments_merged):
+                raise AssertionError(f"{label} {step}: EXPLAIN {explained}, predicted "
+                                     f"{cost.window_segments_merged}, ran {plan.segments_merged}")
+            if (drift["drift.window_segments_merged"], drift["drift.window_partitions_rescanned"]) != (0.0, 0.0):
+                raise AssertionError(f"{label} {step}: cost drift {drift}")
+            if plan.partitions_rescanned or stats.partitions_scanned or any(counts.values()):
+                raise AssertionError(f"{label} {step}: rescanned {plan.partitions_rescanned}, "
+                                     f"scanned {stats.partitions_scanned}, launches {counts}")
+            # a cold query builds the segments no earlier query built
+            hits, built = counters.get("window.segment_hits", 0), counters.get("window.segments_built", 0)
+            if hits + built != plan.segments_merged or (step == "warm") != (built == 0):
+                raise AssertionError(f"{label} {step}: {hits} segment hits and {built} built "
+                                     f"of {plan.segments_merged}")
+            steps[step] = {"ctx": ctx, "wall_s": wall, "segments_merged": plan.segments_merged,
+                           "segment_hits": hits, "segments_built": built,
+                           "partitions": len(plan.frame.indices)}
+        members = [paths[i] for i in steps["warm"]["ctx"].window_plan.frame.indices]
+        # the reference: its launches are not the queries'
+        rescan, rescan_s, rescan_counts, _ = timed_query(
+            lambda: AnalysisRunner.do_analysis_run(source.subset(members), shareable, "cuda"),
+            count=False)
+        if rescan_counts != incremental_launches(len(members), rows):
+            raise AssertionError(f"{label} rescan: launches {rescan_counts}")
+        want = answers[repr(spec)] = context_values(rescan.metric_map)
+        for step in ("cold", "warm"):
+            assert_same_values(context_values(steps[step]["ctx"].metric_map), want, f"{label} {step}")
+        windows[repr(spec)] = {
+            **{f"{step}_{k}": v for step in ("cold", "warm") for k, v in steps[step].items()
+               if k != "ctx"},
+            "rescan_s": rescan_s,
+        }
+
+    # a segment that does not load degrades to the partitions' states
+    with faults.install(WINDOW_SEGMENT_FAULT) as plan, warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        faulted, _, _, _ = timed_query(lambda: query.run(Sliding(7)))
+    if plan.injected != {"state.segment": 1} or not any("DQ323" in str(w.message) for w in caught):
+        raise AssertionError(f"windows segment fault: injected {plan.injected}")
+    assert_same_values(context_values(faulted.metric_map), answers[repr(Sliding(7))],
+                       "windows segment fault")
+
+    # drift: week 14 against week 13, then the shifted day against its week
+    check = (DriftCheck(CheckLevel.ERROR, "day over week")
+             .has_no_quantile_drift("x", max_quantile_shift=0.05)
+             .has_no_mean_drift("x", max_relative_delta=0.05)
+             .has_no_stddev_drift("x", max_relative_delta=0.05)
+             .has_no_completeness_drift("x", max_delta=0.02))
+    drifted = WindowQuery(Table.scan_parquet_dataset(list(paths) + [shifted]), shareable,
+                          repository=states, dataset="daily", device="cuda")
+    timeline = drifted.timeline()
+
+    def evaluate(current, baseline):
+        return check.evaluate(current=drifted.states(current), baseline=drifted.states(baseline))
+
+    weeks, weeks_s, weeks_counts, _ = timed_query(
+        lambda: evaluate(timeline.frame(91, 98), timeline.frame(84, 91)))
+    day, day_s, day_counts, day_stats = timed_query(
+        lambda: evaluate(timeline.frame(101, 102), timeline.frame(94, 101)))
+    failed = {r.constraint.description.split(" of ")[0] for r in day.constraint_results
+              if r.status.name == "FAILURE"}
+    if weeks.status.name != "SUCCESS" or any(weeks_counts.values()):
+        raise AssertionError(f"windows drift: week 14 vs 13 {weeks.status.name}, "
+                             f"launches {weeks_counts}")
+    if day.status.name != "ERROR" or failed != {"quantile drift", "mean drift"}:
+        raise AssertionError(f"windows drift: the shifted day {day.status.name}, failed {failed}")
+    if day_counts != incremental_launches(1, rows) or day_stats.partitions_scanned != 1:
+        raise AssertionError(f"windows drift: the shifted day's rescan launched {day_counts}")
+
+    example = drift_example_on_the_card()
     emit({
-        "phase": "incremental",
+        "phase": "windows",
         "card": card,
         "power_limit": power_limit,
-        "days": days,
-        "rows_per_day": rows,
-        "write_s": write_s,
-        "cold_fill_s": cold["wall_s"],
-        "append_run_s": append["wall_s"],
-        "rescan_s": rescan["wall_s"],
-        "truncated_envelope_run_s": corrupt["wall_s"],
-        "cpu_run_s": cpu["wall_s"],
-        "merge_range_s": merge_range_s,
-        "append_run_split_s": {
-            "load_envelopes": append_split.get("load_states", 0.0),
-            "scan_partition": append_split.get("_run_single", 0.0),
-            "save_envelope": append_split.get("save_states", 0.0),
+        "partitions": len(paths),
+        "rows_per_partition": rows,
+        "phase_s": time.perf_counter() - phase_start,
+        "windows": windows,
+        "segment_fault": {"spec": WINDOW_SEGMENT_FAULT, "dq323": True},
+        "drift": {
+            "week14_vs_week13": {"status": weeks.status.name, "s": weeks_s,
+                                 "values": {r.constraint.description: r.value
+                                            for r in weeks.constraint_results}},
+            "day102_vs_week": {"status": day.status.name, "s": day_s, "failed": sorted(failed),
+                               "values": {r.constraint.description: r.value
+                                          for r in day.constraint_results},
+                               "launches": day_counts},
         },
-        "envelope_bytes": envelope_bytes,
-        "launches": {"cold_fill": cold["launches"], "append": append["launches"],
-                     "rescan": rescan["launches"], "truncated_envelope": corrupt["launches"]},
-        "passes": {"cold_fill": cold["passes"], "append": append["passes"],
-                   "rescan": rescan["passes"], "truncated_envelope": corrupt["passes"],
-                   "cpu": cpu["passes"]},
-        "merge_range_vs_cpu_within_rtol": inexact,
-        "status": append["result"].status.value,
-        "examples_equal_cpu": sorted(examples),
-        "daily_runs": {k: v for k, v in daily.items() if k != "repository"},
-        "anomaly": anomaly,
+        "drift_example": example,
+        "launches": launches,
     })
-    return append["launches"]
+    return launches
+
+
+def drift_example_on_the_card():
+    """examples/drift_example.py with its deequ_tpu imports renamed onto
+    the port, run on the card (the port's default device): two stable
+    weeks pass, and after the skewed day the mean and cardinality
+    constraints fail, as in the JAX package's run of the script."""
+    import io
+    import re
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    name = os.path.join(here, "examples", "drift_example.py")
+    with open(name, encoding="utf-8") as f:
+        source = re.sub(r"\bdeequ_tpu\b(?=[ .])", "deequ_tpu_torch", f.read())
+    out = io.StringIO()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        exec(compile(source, name, "exec"), {"__name__": "__main__", "__file__": name})
+    wall = time.perf_counter() - start
+    text = out.getvalue()
+    stable, _, skewed = text.partition("week over week after the skewed day landed:")
+    failed = sorted({line.split("] ")[1].split(" of ")[0] for line in skewed.splitlines()
+                     if line.startswith("\t[FAILURE]")})
+    if ("drift status: SUCCESS" not in stable or "[FAILURE]" in stable
+            or "drift status: ERROR" not in skewed or failed != ["cardinality drift", "mean drift"]):
+        raise AssertionError(f"drift example on the card:\n{text}")
+    return {"s": wall, "failed_after_skew": failed}
 
 
 def daily_runs(torch, ck, paths, shareable, states, repository):
@@ -3579,11 +4051,12 @@ def main() -> int:
         torch, ck, args.profile_rows, args.seed, card, power_limit)
     profile_example_phase(torch, ck)
     suggest_phase(torch, ck, lineitem, warm_profile_s)
-    stream_launches = stream_phase(torch, ck, lineitem, profiles, profile_launches,
-                                   args.stream_rows, args.seed, card, power_limit, main_run)
+    stream_launches, chaos_launches = stream_phase(
+        torch, ck, lineitem, profiles, profile_launches, args.stream_rows, args.seed, card,
+        power_limit, main_run)
     prune_launches = prune_phase(torch, ck, lineitem, card, power_limit)
     del lineitem
-    append_launches = incremental_phase(
+    append_launches, window_launches = incremental_phase(
         torch, ck, INCREMENTAL_DAYS, INCREMENTAL_ROWS, args.seed, card, power_limit)
     mesh_launches = mesh_phase(torch, ck, MESH_ROWS, args.seed, card, power_limit)
     sharded_launches = sharded_phase(torch, ck, args.seed, card, power_limit)
@@ -3598,13 +4071,17 @@ def main() -> int:
         row["launches_sharded"] = sharded_launches[row["name"]]
         row["launches_prune"] = prune_launches[row["name"]]
         row["launches_observe"] = observe_launches[row["name"]]
+        row["launches_chaos"] = chaos_launches[row["name"]]
+        row["launches_windows"] = window_launches[row["name"]]
         if not (row["launches"] and row["launches_profile"] and row["launches_stream"]
                 and row["launches_incremental"] and row["launches_mesh"]
                 and row["launches_sharded"] and row["launches_prune"]
-                and row["launches_observe"]):
+                and row["launches_observe"] and row["launches_chaos"]
+                and row["launches_windows"]):
             raise AssertionError(f"{row['name']} never launched on the main path, the profile, "
                                  "the streamed path, the incremental path, the mesh, the "
-                                 "sharded scan, the pruned scan or the traced run")
+                                 "sharded scan, the pruned scan, the traced run, the chaos "
+                                 "runs or the window queries")
     emit({"kernels": summary})
     emit({
         "ok": True,

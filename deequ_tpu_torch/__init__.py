@@ -41,6 +41,14 @@ the plan and predicts its cost; `explain_plan(table, analyzers, checks)`
 renders that prediction. Over a Parquet file it also proves from the
 row-group statistics which groups no where filter can match, and the
 scan skips them unread.
+
+Over a partitioned dataset whose states a repository keeps, a
+`WindowQuery` (deequ_tpu_torch/windows/) answers any window of
+partitions from those states and precomputed segments, and a
+`DriftCheck` compares two windows state against state. The chaos
+harness (deequ_tpu_torch/testing/faults.py) injects faults at named
+points of the engine, which retries, redoes or falls back to the same
+bits.
 """
 
 from deequ_tpu_torch.checks.check import Check, CheckLevel, CheckStatus

@@ -5,5 +5,21 @@ from deequ_tpu_torch.checks.check import (
     CheckStatus,
     CheckWithLastConstraintFilterable,
 )
+from deequ_tpu_torch.checks.drift import (
+    DriftCheck,
+    DriftCheckResult,
+    DriftConstraint,
+    DriftConstraintResult,
+)
 
-__all__ = ["Check", "CheckLevel", "CheckResult", "CheckStatus", "CheckWithLastConstraintFilterable"]
+__all__ = [
+    "Check",
+    "CheckLevel",
+    "CheckResult",
+    "CheckStatus",
+    "CheckWithLastConstraintFilterable",
+    "DriftCheck",
+    "DriftCheckResult",
+    "DriftConstraint",
+    "DriftConstraintResult",
+]

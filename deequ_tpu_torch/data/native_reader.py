@@ -38,6 +38,7 @@ import numpy as np
 
 from deequ_tpu_torch.data.table import Column, ColumnType, LazyColumn, pool_empty, shared_all_true
 from deequ_tpu_torch.ops import native, runtime
+from deequ_tpu_torch.testing import faults
 
 
 @dataclass(frozen=True)
@@ -82,8 +83,15 @@ def fetch_chunk(fd: int, meta: ChunkMeta) -> Optional[np.ndarray]:
 
 def decode_chunk(raw: np.ndarray, meta: ChunkMeta) -> Optional[DecodedChunk]:
     """Decode one raw chunk through parquet_read.c. None on any decode
-    error (a truncated page, an unexpected encoding, corrupt Thrift):
-    bad bytes never raise here, the column reads through pyarrow."""
+    error (a truncated page, an unexpected encoding, corrupt Thrift) and
+    on the `decode.chunk` chaos directive: bad bytes never raise here, the
+    column reads through pyarrow."""
+    if faults.fault_point("decode.chunk") == "fail":
+        return None
+    return _decode_rows(raw, meta)
+
+
+def _decode_rows(raw: np.ndarray, meta: ChunkMeta) -> Optional[DecodedChunk]:
     nv = meta.num_values
     if meta.token == "bool":
         out_values = np.zeros((nv + 7) // 8, dtype=np.uint8)
@@ -161,8 +169,11 @@ def _dict_to_engine(draw: np.ndarray, phys: int, token: str):
 def decode_chunk_runs(raw: np.ndarray, meta: ChunkMeta) -> Optional[RunChunk]:
     """One raw chunk as encoded-run streams through the C reader's runs
     mode. None on any refusal (a PLAIN data page, an oversized dictionary,
-    a corrupt stream): the caller decodes the chunk at row width, so a
-    corrupt run fails closed and never folds into wrong values."""
+    a corrupt stream) and on the `decode.runs` chaos directive: the
+    caller decodes the chunk at row width, so a corrupt run fails closed
+    and never folds into wrong values."""
+    if faults.fault_point("decode.runs") == "fail":
+        return None
     if meta.token not in ENCFOLD_TOKENS:
         return None
     res = native.read_chunk_runs(raw, meta.phys, meta.codec, meta.max_def, meta.num_values)
@@ -195,8 +206,9 @@ def decode_chunk_runs(raw: np.ndarray, meta: ChunkMeta) -> Optional[RunChunk]:
 
 def expand_runs(rc: RunChunk) -> Optional[DecodedChunk]:
     """A RunChunk at row width, decoded again from its kept bytes (the
-    row route's `decode_chunk`); None when those bytes do not decode."""
-    return decode_chunk(rc.raw, rc.meta)
+    row route's `decode_chunk` without its chaos point: these bytes have
+    decoded once already); None when they do not decode."""
+    return _decode_rows(rc.raw, rc.meta)
 
 
 def _segment_overlaps(

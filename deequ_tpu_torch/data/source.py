@@ -41,6 +41,7 @@ from deequ_tpu_torch.data.table import NUMPY_BACKING, Column, ColumnType, Table
 from deequ_tpu_torch.observe import heartbeat
 from deequ_tpu_torch.observe import spans as _spans
 from deequ_tpu_torch.ops import runtime
+from deequ_tpu_torch.testing import faults
 
 if TYPE_CHECKING:
     from deequ_tpu_torch.data.native_reader import ChunkMeta
@@ -51,6 +52,15 @@ _SENTINEL = object()
 #: thread is a daemon; it can only still be alive if one row group's
 #: decode takes longer than this)
 JOIN_TIMEOUT_S = 10.0
+
+#: what one decode unit's C-reader fetches count for its records: retries
+#: taken, chunks recovered by one, chunks whose budget ran dry, faults seen
+_READ_TALLY = ("retries", "recovered", "exhausted", "observed")
+
+
+class _FetchFailed(Exception):
+    """A chunk's fetch failed with an error no retry covers: its decode
+    unit reads through pyarrow."""
 
 
 def _arrow_ctype(t) -> ColumnType:
@@ -636,13 +646,52 @@ class ParquetSource(DataSource):
             for unit in self._plan_decode_units(size):
                 yield from self._decode_unit(pf, fd, unit, size, metas, fastpath, wire, enc_specs)
 
-    def _read_native(self, fd: int, meta: "ChunkMeta", runs: bool = False):
-        """One chunk through the C reader: as run streams (a RunChunk)
-        when `runs` and they decode, else at row width; None when its
-        bytes come back short or do not decode."""
+    def _fetch_native(self, fd: int, meta: "ChunkMeta", key: str, tally: Dict[str, int]):
+        """One chunk's bytes through the C reader's pread, with bounded
+        retries and exponential backoff (`retry_call`): a failed or short
+        read is issued again up to `runtime.retry_budget()` times; a
+        budget run dry gives None, and the column reads through pyarrow.
+        A corrupt read is cut to half its bytes, so the decode refuses it
+        (a flipped byte could decode to wrong values). `tally` sums the
+        retries and the faults seen for the unit's records; an error no
+        retry covers raises `_FetchFailed`."""
+        from deequ_tpu_torch.core.controller import retry_call
         from deequ_tpu_torch.data import native_reader
 
-        raw = native_reader.fetch_chunk(fd, meta)
+        def fetch():
+            faults.fault_point("read.pread")
+            data = native_reader.fetch_chunk(fd, meta)
+            if data is not None and faults.fault_point("read.short") == "short":
+                return None  # truncated: retried
+            return data
+
+        try:
+            raw, retries, recovered = retry_call(
+                fetch, attempts=runtime.retry_budget(), base_s=runtime.retry_base_s(), key=key
+            )
+        except Exception as e:  # noqa: BLE001 - the unit degrades (`_decode_unit`)
+            raise _FetchFailed(meta.column) from e
+        tally["retries"] += retries
+        tally["observed"] += retries
+        if recovered:
+            tally["recovered"] += 1
+        elif raw is None:
+            tally["exhausted"] += 1
+            tally["observed"] += 1
+        if raw is not None and faults.fault_point("read.corrupt") == "corrupt":
+            tally["observed"] += 1
+            raw = raw[: max(1, len(raw) // 2)]
+        return raw
+
+    def _read_native(self, fd: int, meta: "ChunkMeta", runs: bool = False, tally=None, key: str = ""):
+        """One chunk through the C reader (`_fetch_native`): as run
+        streams (a RunChunk) when `runs` and they decode, else at row
+        width; None when its bytes stay short or do not decode."""
+        from deequ_tpu_torch.data import native_reader
+
+        if tally is None:
+            tally = dict.fromkeys(_READ_TALLY, 0)
+        raw = self._fetch_native(fd, meta, key or f"{self.path}:{meta.column}", tally)
         if raw is None:
             return None
         if runs:
@@ -669,19 +718,38 @@ class ParquetSource(DataSource):
             if unit_metas
             else contextlib.nullcontext()
         )
+        tally = dict.fromkeys(_READ_TALLY, 0)
+        unit_lost = False
         with sp, heartbeat.current().timed("read"):
-            for g, name, meta in unit_metas:
-                runs = name in enc_specs and name not in enc_off
-                decoded = self._read_native(fd, meta, runs)
-                if runs and decoded is not None and not isinstance(decoded, native_reader.RunChunk):
-                    # a chunk the runs mode refused decodes at row width:
-                    # it fails closed, never to wrong values
-                    enc_off.add(name)
-                    enc_fallback += 1
-                if decoded is None:
-                    failed.add(name)
-                else:
-                    segments.setdefault(name, []).append(decoded)
+            if unit_metas:
+                faults.fault_point("read.latency")
+            try:
+                for g, name, meta in unit_metas:
+                    runs = name in enc_specs and name not in enc_off
+                    key = f"{self.path}:{unit[0]}:{name}"
+                    decoded = self._read_native(fd, meta, runs, tally, key)
+                    if runs and decoded is not None and not isinstance(decoded, native_reader.RunChunk):
+                        # a chunk the runs mode refused decodes at row
+                        # width: it fails closed, never to wrong values
+                        enc_off.add(name)
+                        enc_fallback += 1
+                    if decoded is None:
+                        failed.add(name)
+                    else:
+                        segments.setdefault(name, []).append(decoded)
+            except _FetchFailed:
+                # a fetch that fails past its retries is contained, never
+                # silent: the whole unit reads through pyarrow and the
+                # fault telemetry counts it
+                unit_lost = True
+                segments.clear()
+                failed.update(name for _, name, _ in unit_metas)
+        if tally["retries"] or tally["exhausted"]:
+            runtime.record_retry(tally["retries"], tally["recovered"], tally["exhausted"])
+        if tally["observed"]:
+            runtime.record_fault(injected=tally["observed"])
+        if unit_lost:
+            runtime.record_fault(injected=1, fallback_units=1)
         # a column is the reader's in this unit only when every group's
         # chunk decoded; the rest of the unit reads through pyarrow
         covered = {n for n, segs in segments.items() if n not in failed and len(segs) == len(unit)}

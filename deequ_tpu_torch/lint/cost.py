@@ -249,9 +249,12 @@ class PlanCost:
     #: fields (per-predicate verdicts + eligibility for DQ310/DQ311);
     #: None when no row-group statistics reached the planner
     prune: Optional[Any] = None
-    #: the caller's deadline in seconds (None = unbounded), checked by
-    #: DQ318 (a deadline over an unpartitioned source leaves nothing
-    #: committed for a resume)
+    #: resilience knobs the run will execute under: the transient-IO
+    #: retry budget (DEEQU_TPU_RETRIES) and the caller's deadline in
+    #: seconds (None = unbounded) — rendered in EXPLAIN's resilience
+    #: line and checked by DQ318 (a deadline over an unpartitioned
+    #: source leaves nothing committed for a resume)
+    retry_budget: Optional[int] = None
     deadline_s: Optional[float] = None
     #: admission classification (DQService admission control): the cost
     #: tier this plan lands in — 'interactive' | 'batch' | 'heavy' —
@@ -264,6 +267,16 @@ class PlanCost:
     #: `quota_scan_bytes`; negative means the plan overdraws the window
     #: and DQ319 fires when it can NEVER fit
     quota_headroom_bytes: Optional[float] = None
+    #: windowed query (windows/query.py): the window spec text, how many
+    #: segment envelopes the merge tree touches, how many member
+    #: partitions must rescan (no usable cached state), and the member
+    #: bytes the segment algebra avoids reading — rendered in EXPLAIN's
+    #: `windows:` line and pinned against the observed `window.*` trace
+    #: counters. window_spec None = not a window query.
+    window_spec: Optional[str] = None
+    window_segments_merged: int = 0
+    window_partitions_rescanned: int = 0
+    saved_window_bytes: float = 0.0
 
     @property
     def shard_partitions_max(self) -> int:
@@ -452,6 +465,18 @@ def cost_drift(cost: "PlanCost", trace: Any) -> Dict[str, float]:
             out["drift.shard_partitions_max"] = float(
                 int(counters.get("shard.partitions_max", 0)) - cost.shard_partitions_max
             )
+
+    # the cover decomposition is deterministic: a window query merges
+    # exactly the predicted segment envelopes and rescans exactly the
+    # predicted partitions
+    if cost.window_spec is not None and "window.segments_merged" in counters:
+        out["drift.window_segments_merged"] = float(
+            int(counters.get("window.segments_merged", 0)) - cost.window_segments_merged
+        )
+        out["drift.window_partitions_rescanned"] = float(
+            int(counters.get("window.partitions_rescanned", 0))
+            - cost.window_partitions_rescanned
+        )
     return out
 
 
@@ -738,6 +763,7 @@ def analyze_plan(
         shard_partitions=tuple(int(c) for c in (shard_partitions or ())),
         counters={k: 0 for k in COUNTERS},
         span_counts={k: 0 for k in EXECUTION_SPANS},
+        retry_budget=runtime.retry_budget(),
         deadline_s=float(deadline_s) if deadline_s is not None else None,
     )
     spans = cost.span_counts

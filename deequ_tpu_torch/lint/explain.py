@@ -587,6 +587,13 @@ def render_explain(
                 "  per-batch wire time unmeasured "
                 "(no cached link-bandwidth probe)"
             )
+    if cost.window_spec is not None:
+        body.append(
+            f"windows: {cost.window_spec} -> "
+            f"{cost.window_segments_merged} segment merges, "
+            f"{cost.window_partitions_rescanned} partitions rescanned "
+            f"(saves ~{_fmt_bytes(cost.saved_window_bytes)} read)"
+        )
     if cost.admission_tier is not None:
         scan_bytes = cost.predicted_scan_bytes
         line = (
@@ -603,6 +610,17 @@ def render_explain(
         body.append(line)
     if sharing is not None:
         body.append(f"sharing: {sharing}")
+    if cost.retry_budget is not None or cost.deadline_s is not None:
+        scan = cost.scan_pass
+        resume = (
+            f"{scan.partitions_cached} cached partitions"
+            if scan is not None and scan.partitions_cached is not None
+            else "none (unpartitioned source)"
+        )
+        line = f"resilience: retries={cost.retry_budget}, resume={resume}"
+        if cost.deadline_s is not None:
+            line += f", deadline={cost.deadline_s:g}s"
+        body.append(line)
     sig = cost.dispatch_signature()
     body.append(
         "predicted counters: "

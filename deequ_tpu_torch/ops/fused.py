@@ -75,6 +75,7 @@ import torch
 from deequ_tpu_torch import observe
 from deequ_tpu_torch.analyzers.base import ScanShareableAnalyzer
 from deequ_tpu_torch.analyzers.states import State
+from deequ_tpu_torch.core.controller import StallWatchdog
 from deequ_tpu_torch.data.table import ColumnType, Table
 from deequ_tpu_torch.observe.spans import _NOOP as _NO_SPAN
 from deequ_tpu_torch.ops import counts_family, pipeline, runtime
@@ -1809,12 +1810,21 @@ class FusedScanPass:
             ),
             name="fused_scan",
         )
+        watchdog = None
+        if self._controller is not None and runtime.stall_watchdog_s() > 0:
+            # a stall dumps the live heartbeat snapshot when the heartbeat
+            # runs, else the deequ-* thread stacks, and then cancels
+            watchdog = StallWatchdog(
+                self._controller, runtime.stall_watchdog_s(), snapshot_fn=scan.progress.snapshot
+            ).start()
         try:
             if streaming and runtime.pipeline_enabled():
                 scan.run_pipelined(table.batches(batch_size))
             else:
                 scan.run_serial(table.batches(batch_size))
         finally:
+            if watchdog is not None:
+                watchdog.stop()
             scan.progress.finish()
         return scan
 

@@ -23,7 +23,9 @@ caller then takes its numpy route, which gives the same results (the
 moments of `masked_moments_select` aside: the C route sums in long
 double). Without the switch a failed build or load raises with the
 compiler's output; it never falls back on its own. `reset()` forgets the
-loaded library, so a test can flip the switch.
+loaded library, so a test can flip the switch. `DEEQU_TPU_SANITIZE`
+(`address,undefined` or `thread`) builds it with sanitizers, under a
+name of its own (`_sanitize_flags`).
 """
 
 from __future__ import annotations
@@ -85,13 +87,35 @@ def _traced_kernel(fn):
     return wrapper
 
 
+def _sanitize_flags() -> list:
+    """``DEEQU_TPU_SANITIZE=address,undefined`` adds ``-fsanitize``
+    instrumentation to the build (a debugging mode: the library then
+    needs the sanitizer runtime LD_PRELOADed into the python that loads
+    it). ``DEEQU_TPU_SANITIZE=thread`` builds with ThreadSanitizer
+    instead: the kernels release the GIL and run on several threads at
+    once, so TSan checks the C side's freedom from data races; it cannot
+    be combined with the address sanitizer. Empty when unset."""
+    spec = os.environ.get("DEEQU_TPU_SANITIZE", "").strip()
+    if not spec:
+        return []
+    sanitizers = ",".join(s.strip() for s in spec.split(",") if s.strip())
+    if not sanitizers:
+        return []
+    return [f"-fsanitize={sanitizers}", "-g", "-fno-omit-frame-pointer"]
+
+
 def library_path() -> str:
+    """The library's file: named by a digest of its sources and flags,
+    with a tag of its own for a sanitized build, so that it never shadows
+    the plain library or is shadowed by it."""
     digest = hashlib.sha256()
     for source in SOURCES:
         with open(source, "rb") as f:
             digest.update(f.read())
     digest.update(" ".join((COMPILER,) + CFLAGS + LDFLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libdeequ_native-{digest.hexdigest()[:16]}.so")
+    sanitize = _sanitize_flags()
+    tag = f"-san{hashlib.sha256(' '.join(sanitize).encode()).hexdigest()[:8]}" if sanitize else ""
+    return os.path.join(BUILD_DIR, f"libdeequ_native-{digest.hexdigest()[:16]}{tag}.so")
 
 
 def build() -> str:
@@ -102,7 +126,7 @@ def build() -> str:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [COMPILER, *CFLAGS, *SOURCES, "-o", tmp, *LDFLAGS]
+    cmd = [COMPILER, *CFLAGS, *_sanitize_flags(), *SOURCES, "-o", tmp, *LDFLAGS]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     except (OSError, subprocess.SubprocessError) as e:

@@ -34,6 +34,7 @@ from typing import Any, Callable, Iterable, Iterator, List
 
 from deequ_tpu_torch import observe
 from deequ_tpu_torch.ops import runtime
+from deequ_tpu_torch.testing import faults
 
 _SENTINEL = object()
 
@@ -59,7 +60,10 @@ def staged(
     thread closes the upstream iterator on its own thread before it
     exits, so a generator upstream (a source's `batches`) runs its own
     cleanup there. An exception from `fn` or from upstream ends the stage
-    and is raised again in the consumer, after the same cleanup.
+    and is raised again in the consumer, after the same cleanup; a batch
+    whose `fn` fails is first redone once in place (`fn` is a pure
+    per-batch prep, so the redo gives the same bits), and only a second
+    failure ends the stage.
 
     `progress` is a live heartbeat handle (`observe.heartbeat`): the
     stage times its wait for upstream items as the `decode` stage and
@@ -83,6 +87,10 @@ def staged(
     tracer = observe.current_tracer()
     parent = observe.current_span()
 
+    def _apply(item: Any) -> Any:
+        faults.fault_point("pipeline.stage")
+        return fn(item)
+
     def worker() -> None:
         with runtime.attached_sinks(sinks), observe.attached(tracer, parent):
             _work()
@@ -105,7 +113,16 @@ def staged(
                         rows = getattr(item, "num_rows", None)
                         if sp and rows is not None:
                             sp.set(rows=int(rows))
-                        out = fn(item)
+                        faults.fault_point("pipeline.stall")
+                        try:
+                            out = _apply(item)
+                        except Exception:  # noqa: BLE001 - one redo
+                            # a contained stage fault: one redo in place;
+                            # a second failure is a real error and ends
+                            # the stage
+                            runtime.record_fault(injected=1)
+                            out = _apply(item)
+                            runtime.record_retry(1, 1, 0)
                     if not _put(out):
                         return
                     items += 1

@@ -521,12 +521,70 @@ def record_plan_cache(hit: bool) -> None:
     _counters.record_plan_cache(hit)
 
 
+def record_retry(attempts: int, recovered: int, exhausted: int) -> None:
+    """One transient-IO operation's retries: backoff sleeps taken, whether
+    it recovered after one or more, whether its budget ran dry (a tracer
+    counter only, `engine.retry.*`)."""
+    _counters.record_retry(attempts, recovered, exhausted)
+
+
+def record_fault(injected: int = 0, fallback_units: int = 0) -> None:
+    """Faults seen at the engine's fault points, and decode units that
+    went to pyarrow because of one (a tracer counter only, `fault.*`)."""
+    _counters.record_fault(injected, fallback_units)
+
+
+def record_window(segments: int, hits: int, built: int, rescanned: int, partitions: int) -> None:
+    """One window query's merge: cover spans merged, of them segment
+    hits and segments built, partitions rescanned, and the window's
+    partitions (a tracer counter only, `window.*`)."""
+    _counters.record_window(segments, hits, built, rescanned, partitions)
+
+
 def shard_tag() -> str:
     """This process's shard in a sharded scan (``DEEQU_TPU_SHARD``, set
     by the launcher for each worker), which the pipeline's thread names
     carry so that a stack dump says whose stage thread it is. Empty
     outside sharded runs."""
     return os.environ.get("DEEQU_TPU_SHARD", "")
+
+
+# -- fault containment knobs (data/source.py, ops/fused.py) ---------------------
+
+
+def _env_number(name: str, default, cast):
+    raw = os.environ.get(name, "")
+    if not raw:
+        return default
+    try:
+        return max(cast(0), cast(raw))
+    except ValueError:
+        return default
+
+
+def retry_budget() -> int:
+    """Retries of one transient-IO operation, the C reader's pread of a
+    column chunk (``DEEQU_TPU_RETRIES``, default 3, 0 = none): a failed or
+    short read is issued again with exponential backoff up to this many
+    times before its unit reads through pyarrow. Neither changes a
+    metric; the outcomes count as `engine.retry.*`."""
+    return _env_number("DEEQU_TPU_RETRIES", 3, int)
+
+
+def retry_base_s() -> float:
+    """The first retry's backoff in seconds (``DEEQU_TPU_RETRY_BASE_MS``,
+    default 10 ms): attempt k sleeps ``base * 2**k`` with a deterministic
+    jitter (`core.controller.backoff_s`)."""
+    return _env_number("DEEQU_TPU_RETRY_BASE_MS", 10.0, float) / 1000.0
+
+
+def stall_watchdog_s() -> float:
+    """The stall watchdog's window in seconds
+    (``DEEQU_TPU_STALL_WATCHDOG_S``, default 0 = off): when positive and
+    a RunController is attached, a watchdog thread reads the controller's
+    per-batch beat count every window; one silent window dumps the
+    stages' state to stderr, a second cancels the run with DQ404."""
+    return _env_number("DEEQU_TPU_STALL_WATCHDOG_S", 0.0, float)
 
 
 # -- stream knob (data/source.py, ops/pipeline.py) ------------------------------

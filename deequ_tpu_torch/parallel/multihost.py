@@ -51,6 +51,7 @@ from deequ_tpu_torch.analyzers.state_provider import (
     serialize_state,
 )
 from deequ_tpu_torch.data.table import Table
+from deequ_tpu_torch.testing import faults
 from deequ_tpu_torch.runners.context import AnalyzerContext
 
 
@@ -417,11 +418,15 @@ def run_sharded_analysis(
         envelope = encode_shard_states(
             shard, signature, entries, cancelled=cancelled, reason=cancel_reason
         )
+        lost_directive = faults.fault_point("shard.host_loss")
         with observe.span(
             "shard_allgather", cat="transfer", shard=shard, shards=num_shards,
             envelope_bytes=len(envelope),
         ):
             shard_envelopes = list(gather(envelope))
+        if lost_directive == "lost":
+            # chaos: the next shard's contribution vanishes after the exchange
+            shard_envelopes[(shard + 1) % len(shard_envelopes)] = b""
         merge_bytes = sum(len(e) for e in shard_envelopes)
         decoded = []
         for i, env in enumerate(shard_envelopes):
@@ -469,6 +474,8 @@ def run_sharded_analysis(
                 states = None
                 blob = blob_by_fp.get(fp)
                 if blob is not None:
+                    if faults.fault_point("shard.merge") == "corrupt":
+                        blob = blob[:-1]
                     try:
                         states = decode_states(blob, shareable)
                     except StateDecodeError as e:

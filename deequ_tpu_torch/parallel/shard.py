@@ -26,6 +26,8 @@ import hashlib
 from dataclasses import dataclass
 from typing import Dict, List, Sequence, Tuple
 
+from deequ_tpu_torch.testing import faults
+
 
 def rendezvous_weight(fingerprint: str, shard: int) -> int:
     """The (partition, shard) weight: the first 8 bytes of
@@ -99,6 +101,7 @@ def plan_shards(partitions: Sequence, num_shards: int, exclude: Sequence[int] = 
     alive = [s for s in range(num_shards) if s not in excluded]
     if not alive:
         raise ValueError(f"all {num_shards} shards excluded: nothing can own the data")
+    faults.fault_point("shard.assign")
     owned: Dict[int, List] = {s: [] for s in range(num_shards)}
     order: List[Tuple[str, str, str]] = []
     for part in partitions:

@@ -56,6 +56,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 from deequ_tpu_torch.core.fsio import FileSystem, LocalFileSystem, resolve_filesystem
+from deequ_tpu_torch.testing import faults
 
 #: envelope magic — "DeeQu STate"; bump STATE_FORMAT_VERSION whenever
 #: any per-family payload format in analyzers/state_provider.py changes
@@ -395,6 +396,18 @@ class StateRepository:
     def _exists(self, dataset: str, signature: str, fingerprint: str) -> bool:
         raise NotImplementedError
 
+    # -- raw envelope surface (windows/segments.py and other layered
+    # -- caches store their own self-validated envelopes here) ---------------
+
+    def get_blob(self, dataset: str, signature: str, key: str) -> Optional[bytes]:
+        return self._get(dataset, signature, key)
+
+    def put_blob(self, dataset: str, signature: str, key: str, blob: bytes) -> None:
+        self._put(dataset, signature, key, blob)
+
+    def has_blob(self, dataset: str, signature: str, key: str) -> bool:
+        return self._exists(dataset, signature, key)
+
     # -- the cache surface the fused pass consumes ---------------------------
 
     def has_states(self, dataset: str, fingerprint: str, signature: str) -> bool:
@@ -411,6 +424,7 @@ class StateRepository:
         """One state (or None) per analyzer, or None on any miss or
         decode failure (DQ314 lenient warning) — never a wrong answer."""
         try:
+            faults.fault_point("state.load")
             blob = self._get(dataset, signature, fingerprint)
         except Exception as e:  # noqa: BLE001 — unreadable entry = miss
             _warn_fallback(dataset, fingerprint, f"unreadable: {e}")
@@ -438,6 +452,7 @@ class StateRepository:
         except ValueError:
             return False
         try:
+            faults.fault_point("state.save")
             self._put(dataset, signature, fingerprint, blob)
         except Exception:  # noqa: BLE001 — cache write must never break a run
             return False

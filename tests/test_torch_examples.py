@@ -1,5 +1,6 @@
-"""The observability examples (examples/tracing_example.py,
-forensics_example.py and resume_example.py) run on the port: each
+"""The observability and drift examples (examples/tracing_example.py,
+forensics_example.py, resume_example.py and drift_example.py) run on the
+port: each
 script's `deequ_tpu` imports renamed to `deequ_tpu_torch`, every run on
 the CPU (tests/torch_cpu.py). The tracing example's cross-process demo
 runs too: its two shard workers are separate interpreters (the port's
@@ -45,7 +46,7 @@ def _run(name: str, capsys, monkeypatch) -> str:
 
 
 def test_sources_import_only_the_port():
-    for name in ("tracing_example.py", "forensics_example.py", "resume_example.py"):
+    for name in ("tracing_example.py", "forensics_example.py", "resume_example.py", "drift_example.py"):
         source = _ported_source(name)
         assert not re.search(r"\bdeequ_tpu\b(?=[ .])", source), name
         assert "deequ_tpu_torch" in source
@@ -71,3 +72,17 @@ def test_resume_example_runs_on_the_port(capsys, monkeypatch):
     out = _run("resume_example.py", capsys, monkeypatch)
     assert "first attempt ended early" in out
     assert "rerun: 1 partition(s) from cache, 2 scanned" in out
+
+
+def test_drift_example_runs_on_the_port(capsys, monkeypatch):
+    """Two stable weeks pass the week-over-week gate; after the skewed
+    day lands, the mean and cardinality constraints fail, as they do in
+    the JAX package's run of the script."""
+    out = _run("drift_example.py", capsys, monkeypatch)
+    assert "window plan: sliding(7, step=1) -> 3 segment merges" in out
+    stable, skewed = out.split("week over week after the skewed day landed:")
+    assert "drift status: SUCCESS" in stable and "[FAILURE]" not in stable
+    assert "drift status: ERROR" in skewed
+    failed = {line.split("] ")[1].split(" of ")[0]
+              for line in skewed.splitlines() if line.startswith("\t[FAILURE]")}
+    assert failed == {"mean drift", "cardinality drift"}

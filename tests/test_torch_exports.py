@@ -1,7 +1,7 @@
 """The port's packages export the names the JAX package's export: every
 name of `deequ_tpu.__all__` is importable from `deequ_tpu_torch`, and the
-`analyzers` and `checks` packages re-export what the JAX package's do
-(less its drift checks, which come with the port's drift layer)."""
+`analyzers`, `checks` (its drift checks included) and `windows` packages
+re-export what the JAX package's do."""
 
 from __future__ import annotations
 
@@ -12,9 +12,8 @@ import pytest
 import deequ_tpu
 import deequ_tpu.analyzers
 import deequ_tpu.checks
-
-#: names the JAX `checks` package exports whose module the port lacks yet
-NOT_YET = {"DriftCheck", "DriftCheckResult", "DriftConstraint", "DriftConstraintResult"}
+import deequ_tpu.testing
+import deequ_tpu.windows
 
 
 @pytest.mark.parametrize("name", sorted(deequ_tpu.__all__))
@@ -26,11 +25,41 @@ def test_top_level_name_importable(name):
 
 @pytest.mark.parametrize(
     "package, jax_package",
-    [("deequ_tpu_torch.analyzers", deequ_tpu.analyzers), ("deequ_tpu_torch.checks", deequ_tpu.checks)],
+    [
+        ("deequ_tpu_torch.analyzers", deequ_tpu.analyzers),
+        ("deequ_tpu_torch.checks", deequ_tpu.checks),
+        ("deequ_tpu_torch.windows", deequ_tpu.windows),
+        ("deequ_tpu_torch.testing", deequ_tpu.testing),
+    ],
 )
 def test_subpackage_exports(package, jax_package):
     port = importlib.import_module(package)
-    missing = sorted(set(jax_package.__all__) - NOT_YET - set(port.__all__))
+    missing = sorted(set(jax_package.__all__) - set(port.__all__))
     assert missing == []
     for name in port.__all__:
         assert hasattr(port, name), name
+
+
+@pytest.mark.parametrize(
+    "module",
+    [
+        "checks.drift", "analyzers.drift", "windows.spec", "windows.segments", "windows.query",
+        "testing.faults", "core.controller",
+    ],
+)
+def test_module_all_equals_jax(module):
+    """The fault-containment, drift and window modules export the JAX
+    modules' names."""
+    port = importlib.import_module(f"deequ_tpu_torch.{module}")
+    jax = importlib.import_module(f"deequ_tpu.{module}")
+    assert sorted(port.__all__) == sorted(jax.__all__)
+    for name in port.__all__:
+        assert hasattr(port, name), name
+
+
+def test_drift_checks_reexported_from_checks():
+    import deequ_tpu_torch.checks as checks
+    from deequ_tpu_torch.checks import drift
+
+    for name in ("DriftCheck", "DriftCheckResult", "DriftConstraint", "DriftConstraintResult"):
+        assert getattr(checks, name) is getattr(drift, name)

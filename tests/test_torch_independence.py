@@ -114,6 +114,14 @@ SLICE_MODULES = [
     "deequ_tpu_torch.observe.forensics",
     "deequ_tpu_torch.repository.engine",
     "deequ_tpu_torch.repository.audit",
+    "deequ_tpu_torch.testing",
+    "deequ_tpu_torch.testing.faults",
+    "deequ_tpu_torch.analyzers.drift",
+    "deequ_tpu_torch.checks.drift",
+    "deequ_tpu_torch.windows",
+    "deequ_tpu_torch.windows.spec",
+    "deequ_tpu_torch.windows.segments",
+    "deequ_tpu_torch.windows.query",
 ]
 
 
@@ -220,3 +228,33 @@ def test_the_c_library_builds_from_the_ports_sources_alone():
         n for n in os.listdir(native_dir) if n.endswith(".c")
     )
     assert os.path.dirname(native.library_path()) == os.path.join(PORT, "build")
+
+
+@pytest.mark.parametrize(
+    "name, allowed",
+    [
+        ("deequ_tpu_torch.testing.faults", ()),
+        ("deequ_tpu_torch.windows.spec", ()),
+        ("deequ_tpu_torch.analyzers.drift", ("numpy",)),
+    ],
+)
+def test_stdlib_modules_import_no_engine(name, allowed):
+    """The chaos harness and the window specs are stdlib only, and the
+    drift statistics numpy and the stdlib: none reaches torch or the
+    port's kernels (`ops`), so states compare on any host."""
+    import ast
+    import sys
+
+    path = os.path.join(REPO, *name.split(".")) + ".py"
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for mod in names:
+            top = mod.split(".")[0]
+            assert top in sys.stdlib_module_names or top in allowed, (name, mod)

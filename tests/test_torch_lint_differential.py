@@ -196,15 +196,13 @@ def test_typecheck_and_satisfiability_equal_jax(seed):
 
 
 def _static_lines(text):
-    """The report without the lines the wire bytes enter, without the
-    JAX package's resilience line (its retry budget comes to the port
-    with fault containment), and without the counters line, which
-    `_same_counters` compares."""
+    """The report without the lines the wire bytes enter and without the
+    counters line, which `_same_counters` compares."""
     lines = []
     for line in text.splitlines():
         if line.startswith("  batches:"):
             line = line.split(", first-batch wire")[0]
-        elif "wire" in line or line.startswith(("resilience:", "  per-batch", "predicted counters")):
+        elif "wire" in line or line.startswith(("  per-batch", "predicted counters")):
             continue
         lines.append(line)
     return lines
@@ -301,3 +299,53 @@ def test_explain_renders_the_jax_text_over_a_table(same_knobs):
     want = jexplain(JTable.from_pydict(data), _suite(jan), batch_size=1024)
     assert _static_lines(got.render()) == _static_lines(want.render())
     _same_counters(got.cost, want.cost)
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+def test_window_explain_renders_the_jax_windows_line(tmp_path, same_knobs, monkeypatch, warm):
+    """A window query's admission cost renders the same `windows:` and
+    `resilience:` lines in both packages, cold (every partition to
+    rescan) and after a run has filled the repository and its segments."""
+    import datetime
+
+    import deequ_tpu.analyzers as jan
+    import deequ_tpu_torch.analyzers as an
+    from deequ_tpu import windows as jwin
+    from deequ_tpu.data.table import Table as JTable
+    from deequ_tpu.lint.explain import render_explain as jrender
+    from deequ_tpu.repository.states import FileSystemStateRepository as JRepo
+    from deequ_tpu_torch import windows as win
+    from deequ_tpu_torch.data.table import Table
+    from deequ_tpu_torch.lint.explain import render_explain
+    from deequ_tpu_torch.repository.states import FileSystemStateRepository
+
+    monkeypatch.setenv("DEEQU_TPU_ENCODED_FOLD", "0")
+    monkeypatch.delenv("DEEQU_TPU_STATE_CACHE", raising=False)
+    root = tmp_path / "ds"
+    root.mkdir()
+    rng = np.random.default_rng(8)
+    for d in range(12):
+        day = datetime.date(2026, 3, 1) + datetime.timedelta(days=d)
+        pq.write_table(pa.table({"v": rng.normal(size=300), "q": rng.integers(0, 9, 300)}),
+                       str(root / f"ev-{day.isoformat()}.parquet"))
+
+    def suite(mod):
+        return [mod.Size(), mod.Mean("v"), mod.Maximum("q"), mod.ApproxQuantile("v", 0.5)]
+
+    q = win.WindowQuery(Table.scan_parquet_dataset(str(root)), suite(an),
+                        repository=FileSystemStateRepository(str(tmp_path / "p")), dataset="d", device="cpu")
+    jq = jwin.WindowQuery(JTable.scan_parquet_dataset(str(root)), suite(jan),
+                          repository=JRepo(str(tmp_path / "j")), dataset="d")
+    if warm:
+        q.run(win.Sliding(7))
+        jq.run(jwin.Sliding(7))
+    got = render_explain(q.admission_cost(win.Sliding(7)))
+    want = jrender(jq.admission_cost(jwin.Sliding(7)))
+
+    def lines(text, prefix):
+        return [line for line in text.splitlines() if line.startswith(prefix)]
+
+    assert lines(got, "windows:") == lines(want, "windows:")
+    assert len(lines(got, "windows:")) == 1
+    assert lines(got, "resilience:") == lines(want, "resilience:")
+    assert ("0 partitions rescanned" in lines(got, "windows:")[0]) == warm

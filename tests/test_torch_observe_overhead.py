@@ -18,10 +18,9 @@ A differential companion (test_observe.py::TestTracingIsInert) pins the
 other half of the contract: tracing never changes metric values.
 
 Port-mapped from tests/test_observe_overhead.py: the same cases against deequ_tpu_torch,
-every run on the CPU (tests/torch_cpu.py). The two chaos cases
+every run on the CPU (tests/torch_cpu.py), the two chaos cases
 (`test_disabled_chaos_and_controller_overhead_under_two_percent`,
-`test_disarmed_fault_point_is_cheap`) read the fault-injection harness
-(`testing/faults.py`), which the port does not have yet.
+`test_disarmed_fault_point_is_cheap`) included.
 """
 
 from __future__ import annotations
@@ -219,3 +218,91 @@ def _spans(root):
         sp = stack.pop()
         yield sp
         stack.extend(sp.children)
+
+
+# -- chaos harness + controller disabled path ---------------------------------
+
+
+def _fault_probe_cost(calls=200_000):
+    """Seconds per disarmed `fault_point()` call — one module-global
+    read plus a function call, the entire clean-path cost of a chaos
+    probe site."""
+    from deequ_tpu_torch.testing import faults
+
+    assert faults.active_plan() is None
+    fault_point = faults.fault_point
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fault_point("read.pread")
+        best = min(best, time.perf_counter() - t0)
+    return best / calls
+
+
+def _controller_probe_cost(calls=200_000):
+    """Seconds per `ctl is not None` probe — the per-batch cost of run
+    control when no controller is attached (the overwhelmingly common
+    case: `FusedScanPass` holds `self._controller = None`)."""
+
+    class Holder:
+        __slots__ = ("c",)
+
+        def __init__(self):
+            self.c = None
+
+    holder = Holder()
+    sink = 0
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            if holder.c is not None:
+                sink += 1
+        best = min(best, time.perf_counter() - t0)
+    assert sink == 0
+    return best / calls
+
+
+def test_disabled_chaos_and_controller_overhead_under_two_percent():
+    """Fault injection disarmed + no controller (the clean path every
+    production run takes) must cost <2% of scan wall. Probe sites per
+    batch: a handful of `fault_point` seams in the fetch/decode/stage
+    workers plus one controller probe and one beat in the fold loop —
+    bounded analytically like the guards above: batch count from a
+    traced run (host_fold spans), ×32 headroom to cover every per-unit
+    fetch/decode seam, per-row-group retries, and the per-partition
+    checks."""
+    from deequ_tpu_torch.testing import faults
+
+    assert faults.active_plan() is None
+    table = _medium_table()
+    _run(table)  # warm up
+
+    wall = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        _run(table)
+        wall = min(wall, time.perf_counter() - t0)
+
+    with observe.tracing() as tracer:
+        _run(table)
+    n_batches = sum(
+        1
+        for root in tracer.roots
+        for sp in _spans(root)
+        if sp.name == "host_fold"
+    )
+    probes = max(1, n_batches) * 32
+
+    overhead = probes * (_fault_probe_cost() + _controller_probe_cost())
+    assert overhead < 0.02 * wall, (
+        f"disabled chaos/controller overhead bound {overhead * 1e6:.1f}µs "
+        f"({probes} probes) exceeds 2% of {wall * 1e3:.1f}ms scan wall"
+    )
+
+
+def test_disarmed_fault_point_is_cheap():
+    """The disarmed probe must stay in the nanoseconds class — a global
+    read, a None check, a return."""
+    assert _fault_probe_cost(calls=100_000) < 5e-6

@@ -45,6 +45,7 @@ from deequ_tpu_torch.repository.states import (
     encode_shard_states,
 )
 from deequ_tpu_torch.runners.analysis_runner import AnalysisRunner
+from deequ_tpu_torch.testing import faults
 
 N_PARTS = 9
 
@@ -361,6 +362,86 @@ class TestRecovery:
             )
         assert metric_values(ctx) == want
         assert any("DQ320" in str(w.message) and "partition" in str(w.message) for w in caught)
+
+
+class TestChaosRecovery:
+    """The chaos points: a lost shard envelope or a corrupt partition
+    entry recovers from committed states (or a local rescan) and
+    converges bit-identically — DQ320 warns, nothing silently drops.
+    Port-mapped from tests/test_sharded_scan.py's TestChaosRecovery."""
+
+    def _populate(self, dataset, tmp_path, analyzers):
+        src = PartitionedParquetSource(dataset["paths"])
+        repo = FileSystemStateRepository(str(tmp_path / "cache"))
+        ctxs, errs = run_threads(src, analyzers, [0, 1], 2, state_repository=repo, dataset_name="ds")
+        assert errs == [None, None]
+        return src, repo, metric_values(ctxs[0])
+
+    def test_host_loss_recovers_from_committed_states(self, dataset, tmp_path):
+        analyzers = [Mean("x"), Sum("x"), Minimum("x")]
+        src, repo, expected = self._populate(dataset, tmp_path, analyzers)
+        with faults.install("shard.host_loss:1:1"):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                ctx = run_sharded_analysis(
+                    src, analyzers, shard=0, num_shards=1,
+                    state_repository=repo, dataset_name="ds", device="cpu",
+                )
+        assert metric_values(ctx) == expected
+        assert any("DQ320" in str(w.message) for w in caught)
+
+    def test_host_loss_without_cache_rescans(self, dataset):
+        # no repository: the lost envelope's partitions rescan locally —
+        # slower, never wrong
+        src = PartitionedParquetSource(dataset["paths"])
+        analyzers = [Mean("x"), Maximum("x")]
+        want = metric_values(solo(src, analyzers))
+        with faults.install("shard.host_loss:1:1"):
+            with warnings.catch_warnings(record=True):
+                warnings.simplefilter("always")
+                ctx = run_sharded_analysis(src, analyzers, shard=0, num_shards=1, device="cpu")
+        assert metric_values(ctx) == want
+
+    def test_corrupt_merge_entry_recovers(self, dataset, tmp_path):
+        analyzers = [Mean("x"), StandardDeviation("x")]
+        src, repo, expected = self._populate(dataset, tmp_path, analyzers)
+        with faults.install("shard.merge:1:1"):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                ctx = run_sharded_analysis(
+                    src, analyzers, shard=0, num_shards=1,
+                    state_repository=repo, dataset_name="ds", device="cpu",
+                )
+        assert metric_values(ctx) == expected
+        assert any("DQ320" in str(w.message) for w in caught)
+
+    def test_two_shard_mesh_survives_host_loss_fault(self, dataset, tmp_path):
+        # the fault fires inside a live 2-shard mesh (budget 1: one
+        # shard drops its neighbour's envelope post-gather); both still
+        # converge on solo
+        analyzers = [Mean("x"), Sum("x")]
+        src, repo, expected = self._populate(dataset, tmp_path, analyzers)
+        with faults.install("shard.host_loss:1:1"):
+            with warnings.catch_warnings(record=True):
+                warnings.simplefilter("always")
+                ctxs, errs = run_threads(
+                    src, analyzers, [0, 1], 2, state_repository=repo, dataset_name="ds",
+                )
+        assert errs == [None, None]
+        for ctx in ctxs:
+            assert metric_values(ctx) == expected
+
+    def test_shard_assign_fault_raises_before_any_scan(self, dataset):
+        """`shard.assign` is raise-kind with no containment: the planner
+        fails before a partition is read, as the reference's does."""
+        from deequ_tpu_torch.testing.faults import InjectedFaultError
+
+        src = PartitionedParquetSource(dataset["paths"])
+        with runtime.monitored() as stats, faults.install("shard.assign:1:1") as plan:
+            with pytest.raises(InjectedFaultError):
+                run_sharded_analysis(src, [Mean("x")], shard=0, num_shards=1, device="cpu")
+        assert plan.injected == {"shard.assign": 1}
+        assert stats.partitions_scanned == 0
 
 
 class TestShardEnvelope:

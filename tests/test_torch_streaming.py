@@ -480,6 +480,19 @@ def test_staged_reraises_a_failing_stage_after_cleanup():
     assert _wait_no_threads("deequ-pipe-prep")
 
 
+def test_injected_stage_fault_contained_in_staged():
+    """A stage fn raising once mid-batch redoes in place — the stream
+    sees every item exactly once and the stage thread still joins
+    (port-mapped from tests/test_pipeline_shutdown.py)."""
+    from deequ_tpu_torch.testing import faults
+
+    with faults.install("seed=1,pipeline.stage:1.0:1") as plan:
+        got = list(pipeline.staged(iter(range(50)), lambda x: x * 2, name="t-chaos"))
+    assert plan.injected.get("pipeline.stage", 0) == 1
+    assert got == [x * 2 for x in range(50)]
+    assert _wait_no_threads("deequ-pipe-t-chaos")
+
+
 def test_source_reraises_a_failing_decode(tmp_path):
     class Failing(psource.DataSource):
         def _schema(self):
