@@ -211,6 +211,29 @@ Phases, one JSON line each:
               102 (x + 1.0, rescanned by the query) against its week
               failing on mean and quantile drift; a state.segment fault
               with the same bits; examples/drift_example.py on the card.
+ 10c. service  the data-quality service over phase 10's 101 partitions
+              (`service_phase`), four tenants' suites (SERVICE_TENANTS:
+              scan-shareable analyzers of phase 10's check, no group-by):
+              each run solo on the card; then one DQService (one worker,
+              a fresh FileSystemStateRepository) runs the four as one
+              shared scan while an in-memory blocker holds the worker:
+              every handle done with a CONTAINED proof and zero drift,
+              each tenant's metric bits and verdicts its solo run's, the
+              pro-rata charges summing to the union's predicted bytes,
+              K1-K4 launched as one run of the union plan
+              (incremental_launches), fewer than the solo runs together;
+              each tenant again with DEEQU_TPU_SCAN_SHARING=0 loads all
+              101 partitions from the entries the shared scan fanned out,
+              scans none and launches nothing; a heavy run of all four
+              suites (SERVICE_TIERS: the tier thresholds lowered) preempted by an
+              interactive submission once 10 partitions committed (DQ405)
+              resumes to the solo bits, launching across its attempts
+              what one run launches and scanning each partition once;
+              close() with a heavy run in flight and one queued: DQ414
+              for the queued one, DQ407 or done for the running one, no
+              service thread left; submit_window of Sliding(7) over the
+              heavy tenant's entries equals phase 10b's answer bit for
+              bit, reading no row and launching nothing.
  11. mesh     BASELINE.json config 4 ("ApproxCountDistinct(HLL) +
               ApproxQuantile(KLL) on 1B-row clickstream, v5e-8 psum State
               merge"), its 1B rows cut to --mesh-rows (33,554,432) for the
@@ -251,9 +274,10 @@ as `launches_stream`, on the incremental append run as
 `launches_placement`, on one mesh run as `launches_mesh`, on the
 workers' first sharded runs as `launches_sharded`, on the pruned run A
 as `launches_prune`, on phase `observe`'s traced run as
-`launches_observe`, on the clean chaos run as `launches_chaos` and in
-the window queries' own rescans as `launches_windows`) and, last, the
-device line. Any failed
+`launches_observe`, on the clean chaos run as `launches_chaos`, in
+the window queries' own rescans as `launches_windows` and in the
+service's shared round as `launches_service`) and, last, the device
+line. Any failed
 check raises: the script exits non-zero and prints no result. Without
 CUDA it exits non-zero at once.
 """
@@ -3147,9 +3171,11 @@ def incremental_phase(torch, ck, days: int, rows: int, seed: int, card: str, pow
             "daily_runs": {k: v for k, v in daily.items() if k != "repository"},
             "anomaly": anomaly,
         })
-        window_launches = windows_phase(torch, ck, data_dir, paths, shifted, shareable, states,
-                                        rows, card, power_limit)
-    return append["launches"], window_launches
+        window_launches, window_answer = windows_phase(
+            torch, ck, data_dir, paths, shifted, shareable, states, rows, card, power_limit)
+        service_launches = service_phase(torch, ck, data_dir, paths, window_answer, tmp, rows,
+                                         card, power_limit)
+    return append["launches"], window_launches, service_launches
 
 
 WINDOW_SEGMENT_FAULT = "seed=112,state.segment:1.0:1"  # the first segment load fails
@@ -3310,7 +3336,323 @@ def windows_phase(torch, ck, data_dir: str, paths, shifted: str, shareable, stat
         "drift_example": example,
         "launches": launches,
     })
-    return launches
+    return launches, answers[repr(Sliding(7))]
+
+
+SERVICE_PREEMPT_AFTER = 10  # partitions the heavy run commits before the interactive arrives
+# the tier thresholds of the preemption and drain steps: a scan of more
+# than 1 MiB is heavy, the 1,000-row interactive probe stays interactive
+SERVICE_TIERS = {"DEEQU_TPU_TIER_INTERACTIVE_BYTES": str(1 << 20), "DEEQU_TPU_TIER_HEAVY_BYTES": "1"}
+
+
+def service_tenants():
+    """The service phase's four tenants: incremental_check()'s
+    scan-shareable analyzers split into overlapping suites (no group-by:
+    is_unique("id") reads the whole source on every run). Together they
+    launch K1-K4; every one reads x."""
+    from deequ_tpu_torch import Check, CheckLevel
+
+    return {
+        "billing": (Check(CheckLevel.ERROR, "billing")
+                    .has_size(lambda n: n > 0)
+                    .is_complete("x")  # fails: every 11th x is null
+                    .has_mean("x", lambda v: 2.9 < v < 3.1)
+                    .has_standard_deviation("x", lambda v: 1.9 < v < 2.1)),
+        "growth": (Check(CheckLevel.ERROR, "growth")
+                   .has_approx_count_distinct("id", lambda v: v > 0)
+                   .has_mean("x", lambda v: 2.9 < v < 3.1)),
+        "latency": (Check(CheckLevel.ERROR, "latency")
+                    .has_approx_quantile("x", 0.5, lambda m: 2.9 < m < 3.1)
+                    .has_min("x", lambda v: v < 0)
+                    .has_max("x", lambda v: v > 6)),
+        "audit": (Check(CheckLevel.ERROR, "audit")
+                  .has_correlation("x", "y", lambda r: r > 0.5)
+                  .satisfies("x > 0 OR x IS NULL", "x positive or null", lambda r: r > 0.9)
+                  .has_sum("x", lambda v: v > 0)
+                  .has_pattern("cat", "^(ok|warn)$", lambda r: 0.35 < r < 0.45)),
+    }
+
+
+def heavy_check(tenants):
+    """One check with every constraint of the four tenants: the heavy
+    run of the preemption and drain steps."""
+    from deequ_tpu_torch import Check, CheckLevel
+
+    return Check(CheckLevel.ERROR, "heavy", [c for t in tenants.values() for c in t.constraints])
+
+
+def state_files(directory: str) -> int:
+    return sum(name.endswith(".dqstate") for _, _, names in os.walk(directory) for name in names)
+
+
+def wait_for(predicate, label: str, timeout_s: float = 120.0, poll_s: float = 0.005) -> None:
+    deadline = time.monotonic() + timeout_s
+    while not predicate():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{label}: timed out after {timeout_s} s")
+        time.sleep(poll_s)
+
+
+def service_phase(torch, ck, data_dir: str, paths, window_answer, tmp: str, rows: int,
+                  card: str, power_limit: str):
+    """The data-quality service on the card over phase 10's 101 daily
+    partitions (`paths`, in `data_dir`), in six steps (the module
+    docstring's phase 10c). Every handle that ends `failed` raises: the
+    service contains a worker's failure, the phase does not. Returns the
+    shared round's launches (the blocker's taken off)."""
+    import threading
+
+    from deequ_tpu_torch import Check, CheckLevel, Table, VerificationSuite
+    from deequ_tpu_torch.ops import fused
+    from deequ_tpu_torch.repository import FileSystemStateRepository
+    from deequ_tpu_torch.repository.states import StateRepository
+    from deequ_tpu_torch.service import DQ_DRAINED, DQService
+    from deequ_tpu_torch.service import sharing
+    from deequ_tpu_torch.windows import Sliding
+
+    tenants = service_tenants()
+    source = Table.scan_parquet_dataset(data_dir)
+    if [p.path for p in source.partitions()] != list(paths):
+        raise AssertionError("service: the source's partitions are not the incremental phase's")
+    parts = len(paths)
+    union_launches = incremental_launches(parts, rows)
+
+    def factory():
+        return Table.scan_parquet_dataset(data_dir)
+
+    def launched(fn):
+        ck.reset_launch_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - start, ck.launch_counts()
+
+    def ended(handle, label):
+        if not handle.wait(600):
+            raise AssertionError(f"service {label}: no end after 600 s ({handle.status})")
+        if handle.status == "failed":
+            raise AssertionError(f"service {label}: failed: {handle.reason}") from handle.error
+        if handle.status != "done":
+            raise AssertionError(f"service {label}: {handle.status} {handle.code} {handle.reason}")
+        return handle
+
+    def same_run(result, want, label):
+        # a shared run lists its metrics in the constraints' order, a solo
+        # run in its check's analyzer set's
+        assert_same_values(dict(sorted(metric_values(result).items())),
+                           dict(sorted(want["values"].items())), label)
+        if verdicts(result) != want["verdicts"] or result.status != want["status"]:
+            raise AssertionError(f"{label}: verdicts differ from the solo run's")
+
+    def scans_and_loads():
+        totals, calls = {}, {"scan_partition": [], "load_states": []}
+        stack = contextlib.ExitStack()
+        stack.enter_context(timed_calls(fused, "scan_partition", totals, calls["scan_partition"]))
+        stack.enter_context(timed_calls(StateRepository, "load_states", totals,
+                                        calls["load_states"]))
+        return stack, calls
+
+    phase_start = time.perf_counter()
+    # 1. each tenant alone on the card
+    solo = {}
+    for name, check in tenants.items():
+        result, wall, counts = launched(
+            lambda: VerificationSuite.on_data(factory(), device="cuda").add_check(check)
+            .with_engine("single").run())
+        solo[name] = {"values": metric_values(result), "verdicts": verdicts(result),
+                      "status": result.status, "wall_s": wall, "launches": counts}
+    solo_launches = {k: sum(t["launches"][k] for t in solo.values()) for k in union_launches}
+
+    # 2. the four as one shared scan behind a blocker that holds the worker
+    blocker_table = Table.from_pydict({"k": ["a", "b", "c"]})
+    holding, release = threading.Event(), threading.Event()
+
+    def hold(n):
+        holding.set()
+        return release.wait(120) and n >= 0
+
+    blocker_check = Check(CheckLevel.ERROR, "blocker").has_size(hold)
+    release.set()
+    _, _, blocker_launches = launched(
+        lambda: VerificationSuite.on_data(blocker_table, device="cuda").add_check(blocker_check).run())
+    release.clear()
+    holding.clear()
+    shared_repo = FileSystemStateRepository(os.path.join(tmp, "service_shared"))
+    with DQService(workers=1, state_repository=shared_repo) as svc:
+        ck.reset_launch_counts()
+        blocker = svc.submit("blocker", "other", lambda: blocker_table, checks=[blocker_check])
+        wait_for(holding.is_set, "service blocker")
+        handles, admission_s = {}, {}
+        for t, c in tenants.items():
+            start = time.perf_counter()
+            handles[t] = svc.submit(t, "ds", factory, checks=[c])  # admission runs here
+            admission_s[t] = time.perf_counter() - start
+        if [h.status for h in handles.values()] != ["queued"] * len(tenants):
+            raise AssertionError(f"service: {[h.status for h in handles.values()]} behind the blocker")
+        torch.cuda.synchronize()
+        released = time.perf_counter()
+        release.set()
+        for name, handle in handles.items():
+            ended(handle, f"shared {name}")
+        torch.cuda.synchronize()
+        shared_wall = time.perf_counter() - released
+        ended(blocker, "blocker")
+        counts = ck.launch_counts()
+        round_launches = {k: counts[k] - blocker_launches[k] for k in counts}
+        predicted = {t: h.cost.predicted_scan_bytes for t, h in handles.items()}
+        charges = {t: svc.ledger.bytes_total(t) for t in tenants}
+        telemetry = {k: svc.telemetry.value(k) for k in ("shared_scans", "shared_participants",
+                                                         "sharing_declined", "completed")}
+        for name, handle in handles.items():
+            info = handle.sharing or {}
+            if not (info.get("shared") and info["participants"] == len(tenants)
+                    and info["proof"]["verdict"] == "CONTAINED"
+                    and not any(info["drift"].values())):
+                raise AssertionError(f"service shared {name}: sharing {info}")
+            same_run(handle.result, solo[name], f"service shared {name}")
+    wait_no_engine_threads("service shared round")
+    if (telemetry["shared_scans"], telemetry["shared_participants"]) != (1, len(tenants)):
+        raise AssertionError(f"service: telemetry {telemetry}")
+    # the probe charges at each partition boundary the partitions before
+    # it, so the last partition is never charged (the JAX package's
+    # accounting): the group pays (P - 1) / P of one union scan
+    union_bytes = max(predicted.values())
+    if not close(sum(charges.values()), union_bytes * (parts - 1) / parts, 1e-9):
+        raise AssertionError(f"service: pro-rata charges {charges} against the union's "
+                             f"predicted {union_bytes} bytes")
+    if round_launches != union_launches or (
+            sum(round_launches.values()) >= sum(solo_launches.values())
+            and sum(union_launches.values()) > 0):
+        raise AssertionError(f"service: the shared round launched {round_launches}, one run of "
+                             f"the union {union_launches}, the solo runs {solo_launches}")
+
+    # 3. solo reruns off the entries the shared scan fanned out
+    warm = {}
+    with env(DEEQU_TPU_SCAN_SHARING="0"), DQService(workers=1, state_repository=shared_repo) as svc:
+        for name, check in tenants.items():
+            stack, calls = scans_and_loads()
+            with stack:
+                handle, wall, counts = launched(
+                    lambda: ended(svc.submit(name, "ds", factory, checks=[check]), f"warm {name}"))
+            scanned, loaded = len(calls["scan_partition"]), len(calls["load_states"])
+            if handle.sharing is not None or (scanned, loaded) != (0, parts) or any(counts.values()):
+                raise AssertionError(f"service warm {name}: scanned {scanned}, loaded {loaded}, "
+                                     f"launched {counts}, sharing {handle.sharing}")
+            same_run(handle.result, solo[name], f"service warm {name}")
+            warm[name] = wall
+    wait_no_engine_threads("service warm reruns")
+
+    # 4. a heavy run preempted by an interactive one, resumed from its partitions
+    heavy = heavy_check(tenants)
+    ping_table = Table.from_pydict({"x": [float(i) for i in range(1000)]})
+    ping_check = Check(CheckLevel.ERROR, "ping").has_size(lambda n: n == 1000).is_complete("x")
+    _, _, ping_launches = launched(
+        lambda: VerificationSuite.on_data(ping_table, device="cuda").add_check(ping_check).run())
+    preempt_dir = os.path.join(tmp, "service_preempt")
+    preempt_repo = FileSystemStateRepository(preempt_dir)
+    with env(**SERVICE_TIERS), DQService(workers=1, state_repository=preempt_repo) as svc:
+        stack, calls = scans_and_loads()
+        with stack:
+            ck.reset_launch_counts()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            big = svc.submit("heavy", "ds", factory, checks=[heavy])
+            if big.tier != "heavy":
+                raise AssertionError(f"service: the heavy run was admitted as {big.tier}")
+            wait_for(lambda: state_files(preempt_dir) >= SERVICE_PREEMPT_AFTER or big.done(),
+                     "service heavy run's partitions")
+            ping_start = time.perf_counter()
+            ping = svc.submit("ops", "ping", ping_table, checks=[ping_check])
+            ended(ping, "interactive")
+            ping_s = time.perf_counter() - ping_start
+            ended(big, "heavy")
+            torch.cuda.synchronize()
+            heavy_wall = time.perf_counter() - start
+            counts = ck.launch_counts()
+        preempted = svc.telemetry.value("preempted")
+    wait_no_engine_threads("service preemption")
+    heavy_launches = {k: counts[k] - ping_launches[k] for k in counts}
+    scanned, loaded = len(calls["scan_partition"]), len(calls["load_states"])
+    cached_on_resume = loaded - parts
+    if ping.tier != "interactive" or big.preemptions < 1 or big.attempts < 2 or preempted < 1:
+        raise AssertionError(f"service: the heavy run was not preempted (tier {ping.tier}, "
+                             f"preemptions {big.preemptions}, attempts {big.attempts})")
+    if scanned != parts or cached_on_resume < SERVICE_PREEMPT_AFTER or heavy_launches != union_launches:
+        raise AssertionError(f"service heavy: scanned {scanned}, cached on resume "
+                             f"{cached_on_resume}, launched {heavy_launches}, one run "
+                             f"{union_launches}")
+    want = {}
+    for t in solo.values():
+        want.update(t["values"])
+    got = metric_values(big.result)
+    assert_same_values(got, {k: want[k] for k in got}, "service heavy against the solo runs")
+
+    # 5. close() with a heavy run in flight and one queued
+    drain_dir = os.path.join(tmp, "service_drain")
+    with env(**SERVICE_TIERS):
+        svc = DQService(workers=1, state_repository=FileSystemStateRepository(drain_dir))
+        try:
+            running = svc.submit("heavy", "ds", factory, checks=[heavy])
+            wait_for(lambda: state_files(drain_dir) >= 1 or running.done(), "service drain's run")
+            queued = svc.submit("billing", "ds", factory, checks=[tenants["billing"]])
+            queued_status = queued.status
+            start = time.perf_counter()
+        finally:
+            svc.close()
+        drain_s = time.perf_counter() - start
+    wait_no_engine_threads("service drain")
+    if queued_status != "queued" or (queued.status, queued.code) != ("drained", DQ_DRAINED):
+        raise AssertionError(f"service drain: the queued run {queued_status} -> {queued.status} "
+                             f"{queued.code}")
+    if running.status == "failed" or (running.status, running.code) not in (
+            ("drained", "DQ407"), ("done", None)):
+        raise AssertionError(f"service drain: the running run {running.status} {running.code} "
+                             f"{running.reason}")
+
+    # 6. a window over the heavy tenant's partition states
+    shareable = sharing.scan_shareable_subset(sharing._solo_order([heavy], []), source)
+    with DQService(workers=1, state_repository=preempt_repo) as svc:
+        handle, window_s, window_counts = launched(
+            lambda: ended(svc.submit_window("heavy", "ds", factory, window=Sliding(7),
+                                            analyzers=shareable), "window"))
+    wait_no_engine_threads("service window")
+    ctx = handle.result
+    window_scanned = ctx.run_trace.counters.get("partitions_scanned", 0)
+    if ctx.window_plan.partitions_rescanned or window_scanned or any(window_counts.values()):
+        raise AssertionError(f"service window: rescanned {ctx.window_plan.partitions_rescanned}, "
+                             f"scanned {window_scanned}, launched {window_counts}")
+    assert_same_values(context_values(ctx.metric_map),
+                       {repr(a): window_answer[repr(a)] for a in shareable},
+                       "service window against phase 10b's")
+
+    emit({
+        "phase": "service",
+        "card": card,
+        "power_limit": power_limit,
+        "partitions": parts,
+        "rows_per_partition": rows,
+        "phase_s": time.perf_counter() - phase_start,
+        "solo_s": {name: t["wall_s"] for name, t in solo.items()},
+        "solo_sum_s": sum(t["wall_s"] for t in solo.values()),
+        "solo_max_s": max(t["wall_s"] for t in solo.values()),
+        "admission_s": admission_s,
+        "shared_round_s": shared_wall,
+        "shared_launches": round_launches,
+        "solo_launches_sum": solo_launches,
+        "blocker_launches": blocker_launches,
+        "predicted_scan_bytes": predicted,
+        "prorata_charges": charges,
+        "warm_rerun_s": warm,
+        "preemption": {"attempts": big.attempts, "preemptions": big.preemptions,
+                       "wall_s": heavy_wall, "interactive_submit_to_done_s": ping_s, "partitions_cached_on_resume": cached_on_resume,
+                       "partitions_scanned": scanned, "launches": heavy_launches},
+        "drain": {"running": [running.status, running.code], "queued": [queued.status, queued.code],
+                  "close_s": drain_s},
+        "window": {"wall_s": window_s, "segments_merged": ctx.window_plan.segments_merged,
+                   "analyzers": len(shareable)},
+    })
+    return round_launches
 
 
 def drift_example_on_the_card():
@@ -4056,7 +4398,7 @@ def main() -> int:
         power_limit, main_run)
     prune_launches = prune_phase(torch, ck, lineitem, card, power_limit)
     del lineitem
-    append_launches, window_launches = incremental_phase(
+    append_launches, window_launches, service_launches = incremental_phase(
         torch, ck, INCREMENTAL_DAYS, INCREMENTAL_ROWS, args.seed, card, power_limit)
     mesh_launches = mesh_phase(torch, ck, MESH_ROWS, args.seed, card, power_limit)
     sharded_launches = sharded_phase(torch, ck, args.seed, card, power_limit)
@@ -4073,15 +4415,16 @@ def main() -> int:
         row["launches_observe"] = observe_launches[row["name"]]
         row["launches_chaos"] = chaos_launches[row["name"]]
         row["launches_windows"] = window_launches[row["name"]]
+        row["launches_service"] = service_launches[row["name"]]
         if not (row["launches"] and row["launches_profile"] and row["launches_stream"]
                 and row["launches_incremental"] and row["launches_mesh"]
                 and row["launches_sharded"] and row["launches_prune"]
                 and row["launches_observe"] and row["launches_chaos"]
-                and row["launches_windows"]):
+                and row["launches_windows"] and row["launches_service"]):
             raise AssertionError(f"{row['name']} never launched on the main path, the profile, "
                                  "the streamed path, the incremental path, the mesh, the "
                                  "sharded scan, the pruned scan, the traced run, the chaos "
-                                 "runs or the window queries")
+                                 "runs, the window queries or the service's shared round")
     emit({"kernels": summary})
     emit({
         "ok": True,

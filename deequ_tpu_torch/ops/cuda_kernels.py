@@ -6,7 +6,7 @@ its hand-written kernel (`csrc/kernels.cu`, built by `cuda_build`) or
 raises. There is no shape gate and no fallback: the kernels take any
 length, 0 and ragged tails included.
 
-Each wrapper counts its kernel launches in a plain integer attribute
+Each wrapper counts its kernel launches in an integer attribute
 (`masked_moments.launches`, ...), so a run can show that its main path
 went through the kernels; `reset_launch_counts()` zeroes them.
 
@@ -204,7 +204,7 @@ def masked_moments(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
         out.data_ptr(), stream,
     )
     _raise_on(err, "masked_moments")
-    masked_moments.launches += 1
+    count_launch(masked_moments)
     return out
 
 
@@ -257,7 +257,7 @@ def masked_centered_sumsq(
         _tickets(x.device, stream).data_ptr(), out.data_ptr(), stream,
     )
     _raise_on(err, "masked_centered_sumsq")
-    masked_centered_sumsq.launches += 1
+    count_launch(masked_centered_sumsq)
     return out
 
 
@@ -375,7 +375,7 @@ def hll_register_max(codes: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
         out.data_ptr(), _stream(codes),
     )
     _raise_on(err, "hll_register_max")
-    hll_register_max.launches += 1
+    count_launch(hll_register_max)
     return out
 
 
@@ -419,7 +419,7 @@ def hist16(x: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
         out.data_ptr(), _stream(x),
     )
     _raise_on(err, "hist16")
-    hist16.launches += 1
+    count_launch(hist16)
     return out
 
 
@@ -427,11 +427,24 @@ hist16.launches = 0
 
 KERNELS = (masked_moments, masked_centered_sumsq, hll_register_max, hist16)
 
+# the service's workers, a pass's prep thread and the sharded scan launch
+# from several threads at once; `kernel.launches += 1` is a read, an add
+# and a write, which two threads can interleave and lose a count
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(kernel) -> None:
+    """Add one to `kernel.launches`, atomically across threads."""
+    with _LAUNCH_LOCK:
+        kernel.launches += 1
+
 
 def launch_counts() -> Dict[str, int]:
-    return {k.__name__: k.launches for k in KERNELS}
+    with _LAUNCH_LOCK:
+        return {k.__name__: k.launches for k in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+    with _LAUNCH_LOCK:
+        for k in KERNELS:
+            k.launches = 0

@@ -821,6 +821,39 @@ def plan_scan_members(analyzers: Sequence[Any], mode: str = "device") -> ScanMem
     return plan
 
 
+def build_union_plan(
+    plans: Sequence[Sequence[Any]],
+) -> Tuple[List[Any], List[List[int]]]:
+    """The union plan of a shared scan (service/sharing.py): several
+    suites' analyzer lists merged into one superset, pure and data-free.
+
+    Analyzers dedupe by engine identity (the equality the runner and the
+    plan signature use), in first-appearance order, so the union's pass
+    order follows the submission order. Returns ``(union, memberships)``:
+    ``memberships[i]`` indexes plan i's deduplicated analyzers, in its own
+    order, into ``union``. Each analyzer's fold state does not depend on
+    which other members ride the pass, so selecting a plan's rows of the
+    union's results gives its solo run's bits. Where clauses spelled
+    differently stay separate members, so the fan-out stays exact."""
+    union: List[Any] = []
+    index: Dict[Any, int] = {}
+    memberships: List[List[int]] = []
+    for plan in plans:
+        rows: List[int] = []
+        seen: set = set()
+        for analyzer in plan:
+            if analyzer in seen:
+                continue
+            seen.add(analyzer)
+            pos = index.get(analyzer)
+            if pos is None:
+                pos = index[analyzer] = len(union)
+                union.append(analyzer)
+            rows.append(pos)
+        memberships.append(rows)
+    return union, memberships
+
+
 @dataclass(frozen=True)
 class FamilyJobPlan:
     """One family-kernel job: the (column, where) family whose moments,

@@ -631,6 +631,59 @@ def state_cache_enabled() -> bool:
     return os.environ.get("DEEQU_TPU_STATE_CACHE", "") not in ("0", "off")
 
 
+# -- service knobs (service/service.py, service/sharing.py) ---------------------
+
+
+def scan_sharing_enabled() -> bool:
+    """Whether the DQService may run co-tenant submissions over the same
+    dataset fingerprint as ONE superset fused scan (service/sharing.py)
+    once the subsumption prover (lint/subsume.py) proves every
+    participant contained. ``DEEQU_TPU_SCAN_SHARING=0`` (or ``off``) scans
+    every submission solo; the fan-out selects states of the same
+    semigroup, so both give the same bits."""
+    return os.environ.get("DEEQU_TPU_SCAN_SHARING", "") not in ("0", "off")
+
+
+def share_group_max() -> int:
+    """The most participants of one shared scan
+    (``DEEQU_TPU_SHARE_GROUP_MAX``, default 8, at least 1): it bounds one
+    worker's fan-out and what one preemption re-queues."""
+    raw = os.environ.get("DEEQU_TPU_SHARE_GROUP_MAX", "")
+    try:
+        n = int(raw) if raw else 8
+    except ValueError:
+        return 8
+    return max(1, n)
+
+
+def service_workers() -> int:
+    """The DQService's worker threads (``DEEQU_TPU_SERVICE_WORKERS``,
+    default 2, at least 1): how many suites run at once. On one card each
+    worker's fused pass launches on its own thread's current stream."""
+    raw = os.environ.get("DEEQU_TPU_SERVICE_WORKERS", "")
+    if not raw:
+        return 2
+    try:
+        return max(1, int(raw))
+    except ValueError:
+        return 2
+
+
+def service_drain_s() -> float:
+    """The DQService's graceful-drain window in seconds
+    (``DEEQU_TPU_SERVICE_DRAIN_S``, default 30): on SIGTERM or close(),
+    running suites get this long to commit their in-flight partition and
+    end at a boundary (DQ407) before the drain cancels them outright.
+    Queued work is returned with DQ414 at once either way."""
+    raw = os.environ.get("DEEQU_TPU_SERVICE_DRAIN_S", "")
+    if not raw:
+        return 30.0
+    try:
+        return max(0.0, float(raw))
+    except ValueError:
+        return 30.0
+
+
 def pushdown_enabled() -> bool:
     """Whether a Parquet scan may skip the row groups that the pruning
     interpreter (lint/pushdown.py) proves hold no row for ANY fused

@@ -458,6 +458,15 @@ class StateRepository:
             return False
         return True
 
+    # -- accounting ----------------------------------------------------------
+
+    def disk_usage(self, dataset: str) -> Optional[int]:
+        """Bytes of state envelopes stored for `dataset`, or None when the
+        backend cannot account for them (an opaque object store). The
+        DQService holds a tenant's state-disk budget against this at
+        admission and at every partition boundary."""
+        return None
+
     # -- zero-scan range queries ---------------------------------------------
 
     def merge_range(
@@ -525,6 +534,10 @@ class InMemoryStateRepository(StateRepository):
     def _exists(self, dataset: str, signature: str, fingerprint: str) -> bool:
         with self._lock:
             return (dataset, signature, fingerprint) in self._blobs
+
+    def disk_usage(self, dataset: str) -> Optional[int]:
+        with self._lock:
+            return sum(len(blob) for (ds, _sig, _fp), blob in self._blobs.items() if ds == dataset)
 
 
 def _safe_component(name: str) -> str:
@@ -598,6 +611,26 @@ class FileSystemStateRepository(StateRepository):
 
     def _exists(self, dataset: str, signature: str, fingerprint: str) -> bool:
         return self.fs.exists(self._path(dataset, signature, fingerprint))
+
+    def disk_usage(self, dataset: str) -> Optional[int]:
+        """The sizes of the `.dqstate` envelopes under the dataset's
+        directory, every signature summed. The local filesystem only:
+        other backends give None (unknown), which the disk budget treats
+        as within budget."""
+        if not isinstance(self.fs, LocalFileSystem):
+            return None
+        root = os.path.join(self.base_path, _safe_component(dataset))
+        if not os.path.isdir(root):
+            return 0
+        total = 0
+        for dirpath, _dirnames, filenames in os.walk(root):
+            for name in filenames:
+                if name.endswith(".dqstate"):
+                    try:
+                        total += os.path.getsize(os.path.join(dirpath, name))
+                    except OSError:  # fault-ok: a file deleted meanwhile counts 0
+                        pass
+        return total
 
 
 @dataclass

@@ -1,8 +1,8 @@
-"""The observability and drift examples (examples/tracing_example.py,
-forensics_example.py, resume_example.py and drift_example.py) run on the
-port: each
-script's `deequ_tpu` imports renamed to `deequ_tpu_torch`, every run on
-the CPU (tests/torch_cpu.py). The tracing example's cross-process demo
+"""The observability, drift and service examples
+(examples/tracing_example.py, forensics_example.py, resume_example.py,
+drift_example.py, service_example.py and sharing_example.py) run on the
+port: each script's `deequ_tpu` imports renamed to `deequ_tpu_torch`,
+every run on the CPU (tests/torch_cpu.py). The tracing example's cross-process demo
 runs too: its two shard workers are separate interpreters (the port's
 `procspawn`), each put on the CPU the way `cpu_default` puts this
 process, exchanging their state envelopes through files; their traces
@@ -46,7 +46,8 @@ def _run(name: str, capsys, monkeypatch) -> str:
 
 
 def test_sources_import_only_the_port():
-    for name in ("tracing_example.py", "forensics_example.py", "resume_example.py", "drift_example.py"):
+    for name in ("tracing_example.py", "forensics_example.py", "resume_example.py", "drift_example.py",
+                 "service_example.py", "sharing_example.py"):
         source = _ported_source(name)
         assert not re.search(r"\bdeequ_tpu\b(?=[ .])", source), name
         assert "deequ_tpu_torch" in source
@@ -86,3 +87,37 @@ def test_drift_example_runs_on_the_port(capsys, monkeypatch):
     failed = {line.split("] ")[1].split(" of ")[0]
               for line in skewed.splitlines() if line.startswith("\t[FAILURE]")}
     assert failed == {"mean drift", "cardinality drift"}
+
+
+def test_service_example_runs_on_the_port(capsys, monkeypatch):
+    """The heavy run resumes to done after its preemptions, the corrupt
+    dataset fails twice and is then turned away with DQ413, and its
+    breaker is open, as in the JAX package's run of the script (how many
+    probes preempt the heavy run depends on timing there too)."""
+    out = _run("service_example.py", capsys, monkeypatch)
+    assert "heavy admitted: tier=heavy" in out
+    for i in range(3):
+        assert f"probe-{i}: done (tier=interactive)" in out
+    heavy = re.search(r"heavy: (\w+) after (\d+) preemption\(s\), (\d+) attempt\(s\)", out)
+    assert heavy, out
+    status, preemptions, attempts = heavy.group(1), int(heavy.group(2)), int(heavy.group(3))
+    assert status == "done" and attempts == preemptions + 1
+    codes = re.findall(r"corrupt submit \d: (\w+) code=(\S+)", out)
+    assert codes == [("failed", "-"), ("failed", "-"), ("rejected", "DQ413")]
+    assert "breaker for (flaky-tenant, corrupt): open" in out
+    assert "engine.service.tenant.batch-tenant.bytes_scanned = 24800000.0" in out
+
+
+def test_sharing_example_runs_on_the_port(capsys, monkeypatch):
+    """One shared scan; every tenant in it carries a CONTAINED proof with
+    zero drift (a tenant the worker took before the others queued runs
+    solo, as one did in a JAX run of the script)."""
+    out = _run("sharing_example.py", capsys, monkeypatch)
+    assert "shared scans run: 1" in out
+    lines = [line for line in out.splitlines() if line.startswith("  ")]
+    assert len(lines) == 3
+    shared = [line for line in lines if "shared with" in line]
+    assert len(shared) >= 2
+    for line in lines:
+        assert "SUCCESS" in line
+        assert line.endswith("proof CONTAINED, drift 0") or line.endswith("solo (no group formed)"), line

@@ -1,7 +1,7 @@
 """The port's packages export the names the JAX package's export: every
 name of `deequ_tpu.__all__` is importable from `deequ_tpu_torch`, and the
-`analyzers`, `checks` (its drift checks included) and `windows` packages
-re-export what the JAX package's do."""
+`analyzers`, `checks` (its drift checks included), `windows`, `testing`
+and `service` packages re-export what the JAX package's do."""
 
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ import pytest
 import deequ_tpu
 import deequ_tpu.analyzers
 import deequ_tpu.checks
+import deequ_tpu.service
 import deequ_tpu.testing
 import deequ_tpu.windows
 
@@ -30,6 +31,7 @@ def test_top_level_name_importable(name):
         ("deequ_tpu_torch.checks", deequ_tpu.checks),
         ("deequ_tpu_torch.windows", deequ_tpu.windows),
         ("deequ_tpu_torch.testing", deequ_tpu.testing),
+        ("deequ_tpu_torch.service", deequ_tpu.service),
     ],
 )
 def test_subpackage_exports(package, jax_package):
@@ -44,12 +46,14 @@ def test_subpackage_exports(package, jax_package):
     "module",
     [
         "checks.drift", "analyzers.drift", "windows.spec", "windows.segments", "windows.query",
-        "testing.faults", "core.controller",
+        "testing.faults", "core.controller", "service", "service.codes", "service.quotas",
+        "service.breaker", "service.telemetry", "service.admission", "service.sharing",
+        "service.service",
     ],
 )
 def test_module_all_equals_jax(module):
-    """The fault-containment, drift and window modules export the JAX
-    modules' names."""
+    """The fault-containment, drift, window and service modules export
+    the JAX modules' names."""
     port = importlib.import_module(f"deequ_tpu_torch.{module}")
     jax = importlib.import_module(f"deequ_tpu.{module}")
     assert sorted(port.__all__) == sorted(jax.__all__)

@@ -571,8 +571,8 @@ def test_every_fault_point_literal_in_the_port_is_registered():
                 assert point in faults.FAULT_POINTS, (path, node.lineno, point)
                 seen.add(point)
     # the points with a call site in the port: all but the parallel
-    # decode's worker and the service's
-    unplaced = {p for p in faults.FAULT_POINTS if p == "decode.worker" or p.startswith("service.")}
+    # decode's worker
+    unplaced = {"decode.worker"}
     assert seen == faults.FAULT_POINTS - unplaced
 
 

@@ -122,6 +122,14 @@ SLICE_MODULES = [
     "deequ_tpu_torch.windows.spec",
     "deequ_tpu_torch.windows.segments",
     "deequ_tpu_torch.windows.query",
+    "deequ_tpu_torch.service",
+    "deequ_tpu_torch.service.codes",
+    "deequ_tpu_torch.service.quotas",
+    "deequ_tpu_torch.service.breaker",
+    "deequ_tpu_torch.service.telemetry",
+    "deequ_tpu_torch.service.admission",
+    "deequ_tpu_torch.service.sharing",
+    "deequ_tpu_torch.service.service",
 ]
 
 

@@ -8,9 +8,9 @@ O(log n) invalidation on a late partition), DQ323 diagnostics and the
 EXPLAIN/admission surfaces.
 
 Port-mapped from tests/test_windows.py: the same cases against
-deequ_tpu_torch, every run on the CPU (tests/torch_cpu.py), but for its
-two `DQService.submit_window` cases, which wait for the service
-(ROADMAP item 8f). The cases at the end hold the port to the JAX
+deequ_tpu_torch, every run on the CPU (tests/torch_cpu.py), its two
+`DQService.submit_window` cases included (`TestServiceSubmitWindow`,
+over the port's service). The cases at the end hold the port to the JAX
 package: a window's metrics against the JAX `WindowQuery`'s over the
 same partitions, and the DQSG bytes of equal states.
 """
@@ -624,6 +624,42 @@ class TestWindowExplainAndPins:
 # ---------------------------------------------------------------------------
 # telemetry: the window series the sentinel watches
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# the service: submit_window
+# ---------------------------------------------------------------------------
+
+
+class TestServiceSubmitWindow:
+    def test_submit_window_happy_path(self, daily):
+        from deequ_tpu_torch.service.service import DQService
+
+        tmp_path, repo, _ = daily
+        source = Table.scan_parquet_dataset(str(tmp_path / "ds"))
+        with DQService(workers=1, state_repository=repo) as svc:
+            handle = svc.submit_window("tenant-a", "t", source, window=Sliding(7), analyzers=_ANALYZERS)
+            assert handle.wait(120)
+            assert handle.status == "done", (handle.reason, handle.error)
+            plan = handle.result.window_plan
+            assert plan.segments_merged > 0
+        # the second submission is warm: interactive, no rescan
+        with DQService(workers=1, state_repository=repo) as svc:
+            handle = svc.submit_window("tenant-a", "t", source, window=Sliding(7), analyzers=_ANALYZERS)
+            assert handle.wait(120)
+            assert handle.status == "done", (handle.reason, handle.error)
+            assert handle.result.window_plan.partitions_rescanned == ()
+
+    def test_submit_window_requires_a_repository(self, daily):
+        from deequ_tpu_torch.service.codes import DQ_REJECTED
+        from deequ_tpu_torch.service.service import DQService
+
+        tmp_path, _, _ = daily
+        source = Table.scan_parquet_dataset(str(tmp_path / "ds"))
+        with DQService(workers=1) as svc:
+            handle = svc.submit_window("tenant-a", "t", source, window=Sliding(7), analyzers=_ANALYZERS)
+            assert handle.status == "rejected"
+            assert handle.code == DQ_REJECTED
 
 
 class TestWindowTelemetry:
