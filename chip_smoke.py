@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke run of deequ_tpu_torch's main paths: verification under each
 placement, traced, with forensics and telemetry, column profiling,
-constraint suggestion, streamed Parquet with its host fast paths,
+constraint suggestion, streamed Parquet with its host fast paths and
+its decode workers,
 row-group pruning and EXPLAIN, fault containment under injected faults,
 incremental runs, window queries and drift checks, anomaly detection, the
 mesh-sharded scan and the sharded scan across processes.
@@ -84,7 +85,12 @@ Phases, one JSON line each:
               folds the table as one batch), K1-K4 launch as on the main
               path under "device", K3 not under "host-discrete", nothing
               under "host-all"; wall times split into the host fold and
-              the device program;
+              the device program; then a profile of a boolean, a string
+              and a float column (`memo_profile_runs`) under each
+              placement: on the host fold the profiler's memos serve
+              the boolean and string columns' HLL registers, K3 launches
+              under "device" alone, and the distinct counts and
+              completeness agree bit for bit;
   5. basic_example  the README's example (examples/basic_example.py's
               checks) on the card, with BASELINE.md's outcome;
   6. profile  ColumnProfilerRunner over the TPC-H lineitem table of
@@ -121,7 +127,15 @@ Phases, one JSON line each:
               wall time split into the consumer's wait for batches, the
               fused pass's host work, host_finish_batch and the device
               fold, and the decode and prep threads' times into the C
-              reader, its assembly and the HLL hashing. Then phase 4's
+              reader, its assembly and the HLL hashing; the warm profile
+              on one decode worker beside the default, in mirrored order
+              (default, one, one, default: the same bits and launches;
+              the four walls and the decode threads' seconds printed);
+              the stall pair (`stall_pair`): the chaos check
+              over the UNCOMPRESSED copy on one decode worker and on the
+              default, unstalled and under DEEQU_TPU_SOURCE_STALL_MS=500,
+              the same bits, each run's wall and read-ahead hits and
+              misses printed. Then phase 4's
               checks over --stream-rows rows of its table written in row
               groups of 262,144 rows (16 coalesce into each batch),
               streamed on CUDA: equal to the in-memory CUDA run of the
@@ -139,7 +153,8 @@ Phases, one JSON line each:
               (the flagship scan analyzers on its numeric columns and
               one quantile; the first warms up), then one run under each
               CHAOS_SPECS fault spec
-              (the JAX package's chaos matrix less decode.worker) and
+              (the JAX package's chaos matrix; its decode.worker case on
+              two decode workers, as the JAX test runs it) and
               under CHAOS_EXHAUST (every pread fails, each chunk spends
               its retries and reads through pyarrow): each the clean
               run's bits, verdicts and K1-K4 launches, its trace's
@@ -291,6 +306,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import types
 
@@ -819,6 +835,9 @@ def same_bits(a, b) -> bool:
     return np.float64(a).tobytes() == np.float64(b).tobytes()
 
 
+_TIMING_LOCK = threading.Lock()
+
+
 @contextlib.contextmanager
 def timed_calls(owner, name, totals, calls=None):
     """Accumulate the wall time of every call of owner.<name> in
@@ -833,9 +852,10 @@ def timed_calls(owner, name, totals, calls=None):
             return original(*args, **kwargs)
         finally:
             elapsed = time.perf_counter() - start
-            totals[name] = totals.get(name, 0.0) + elapsed
-            if calls is not None:
-                calls.append(elapsed)
+            with _TIMING_LOCK:  # decode workers and read-ahead slots add at once
+                totals[name] = totals.get(name, 0.0) + elapsed
+                if calls is not None:
+                    calls.append(elapsed)
 
     setattr(owner, name, wrapper)
     try:
@@ -1497,6 +1517,62 @@ def probe_check(device):
     }
 
 
+MEMO_ROWS = 1 << 20  # rows of the placement phase's memo profile
+
+
+def memo_profile_runs(torch, ck, seed: int):
+    """A profile of a MEMO_ROWS-row table with a boolean and a string
+    column (both with nulls) and a float column, under "device",
+    "host-discrete" and "host-all". On the host fold `_LowCardCounts`'
+    memos serve ApproxCountDistinct's registers of the boolean and string
+    columns (counted at sketch._memo_registers) and their Completeness;
+    hll_register_max launches under "device" alone, with the memos as
+    without them. Every column's distinct count and completeness equal
+    across placements, bit for bit. Returns per placement the K3
+    launches, the registers the memos served and the wall time."""
+    import numpy as np
+
+    from deequ_tpu_torch import ColumnProfilerRunner, Table
+    from deequ_tpu_torch.analyzers import sketch
+
+    rng = np.random.default_rng(seed)
+    flag = np.where(rng.random(MEMO_ROWS) < 0.1, None, rng.random(MEMO_ROWS) < 0.3)
+    cat = np.array(["ok", "warn", "fail", "skip"], dtype=object)[rng.integers(0, 4, MEMO_ROWS)]
+    cat[rng.random(MEMO_ROWS) < 0.05] = None
+    table = Table.from_numpy({"flag": flag, "cat": cat, "x": rng.normal(size=MEMO_ROWS)})
+    real = sketch._memo_registers
+    out, want = {}, None
+    for mode in ("device", "host-discrete", "host-all"):
+        served = []
+
+        def counting(inputs, column):
+            registers = real(inputs, column)
+            served.append(registers is not None)
+            return registers
+
+        sketch._memo_registers = counting
+        try:
+            with env(DEEQU_TPU_PLACEMENT=mode):
+                ck.reset_launch_counts()
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                profile = ColumnProfilerRunner.on_data(table, device="cuda").run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - start
+        finally:
+            sketch._memo_registers = real
+        got = {name: (p.approximate_num_distinct_values, p.completeness.hex())
+               for name, p in profile.profiles.items()}
+        want = got if want is None else want
+        k3 = ck.launch_counts()["hll_register_max"]
+        memo = served.count(True)
+        if got != want or (mode == "device") != (k3 > 0) or (mode == "device") == (memo == 2):
+            raise AssertionError(f"memo profile {mode}: {got} vs {want}, K3 {k3}, "
+                                 f"memo registers {memo}")
+        out[mode] = {"hll_register_max": k3, "memo_registers_served": memo, "wall_s": wall}
+    return out
+
+
 def placement_phase(torch, ck, rows: int, seed: int, card: str, power_limit: str):
     """The bandwidth probe on the card, cold and then served from its disk
     cache with no copy (it must choose "device"); then placement_check()
@@ -1570,12 +1646,14 @@ def placement_phase(torch, ck, rows: int, seed: int, card: str, power_limit: str
         if runs[mode]["verdicts"] != base["verdicts"]:
             raise AssertionError(f"placement {mode}: verdicts {runs[mode]['verdicts']} "
                                  f"vs {base['verdicts']}")
+    memo_profile = memo_profile_runs(torch, ck, seed)
     emit({
         "phase": "placement",
         "rows": rows,
         "card": card,
         "power_limit": power_limit,
         "probe": probe,
+        "memo_profile": {"rows": MEMO_ROWS, "runs": memo_profile},
         "runs": {mode: {k: v for k, v in run.items() if k not in ("metrics", "verdicts")}
                  for mode, run in runs.items()},
         "launches": launches,
@@ -2392,7 +2470,8 @@ def stream_phase(torch, ck, lineitem, memory_profiles, memory_launches, stream_r
                     stack.enter_context(timed_calls(source.Table, "from_arrow", split))
                     stack.enter_context(timed_calls(fused._BatchScan, "prep", split))
                     stack.enter_context(timed_calls(hll, "pack_codes", split))
-                    stack.enter_context(timed_calls(ParquetSource, "_read_native", split))
+                    stack.enter_context(timed_calls(ParquetSource, "_fetch_unit", split))
+                    stack.enter_context(timed_calls(ParquetSource, "_decode_fetched", split))
                     stack.enter_context(timed_calls(native_reader, "assemble_column", split))
                     stack.enter_context(timed_calls(_QuantileAnalyzerBase, "host_finish_batch", split))
                     stack.enter_context(timed_calls(fused.PipelinedAggFold, "_fold", split))
@@ -2409,6 +2488,15 @@ def stream_phase(torch, ck, lineitem, memory_profiles, memory_launches, stream_r
         split, serial_split = {}, {}
         snappy_read, plain_read = set(), set()
         runs = [profile(), profile(split, read=snappy_read)]
+        # the warm profile on one decode worker beside the default's
+        # runtime.decode_workers(), in mirrored order (default, one, one,
+        # default) so that run order weighs on neither: the same bits and
+        # launches, each run's wall and decode threads' seconds
+        worker_splits = [split, {}, {}, {}]
+        worker_runs = [runs[1]]
+        for knob, worker_split in zip(("1", "1", None), worker_splits[1:]):
+            with env(**({"DEEQU_TPU_DECODE_WORKERS": knob} if knob else {})):
+                worker_runs.append(profile(worker_split))
         # the pyarrow route: no C reader, no C decode
         with env(DEEQU_TPU_NATIVE_READER="0", DEEQU_TPU_DECODE_FASTPATH="0"):
             runs.append(profile())
@@ -2426,13 +2514,24 @@ def stream_phase(torch, ck, lineitem, memory_profiles, memory_launches, stream_r
         if plain_read != numeric:
             raise AssertionError(f"stream profile: the C reader took {sorted(plain_read)} of the "
                                  f"UNCOMPRESSED file, not every numeric column {sorted(numeric)}")
-        for result, _wall, launches, passes in runs:
+        for result, _wall, launches, passes in runs + worker_runs[1:]:
             if launches != memory_launches or passes != 1:
                 raise AssertionError(f"stream profile: launches {launches}, passes {passes}; "
                                      f"in memory {memory_launches}")
             if result.to_json() != runs[0][0].to_json():
                 raise AssertionError("stream profile: the streamed runs differ (pipeline on and "
-                                     "off, C reader and pyarrow, Snappy and UNCOMPRESSED)")
+                                     "off, C reader and pyarrow, Snappy and UNCOMPRESSED, "
+                                     "default decode workers and one)")
+        stall_line = stall_pair(torch, ck, plain_path, lineitem.num_rows)
+
+        def decode_thread_s(times):
+            # summed over the threads that ran them; the unit decode is
+            # every route's (the C reader's or pyarrow's) and holds the
+            # Arrow-to-Table seconds of its batches
+            return {"arrow_to_table": times.get("from_arrow", 0.0),
+                    "c_reader_fetch": times.get("_fetch_unit", 0.0),
+                    "unit_decode": times.get("_decode_fetched", 0.0)}
+
         sum_differences = compare_stream_profile(runs[1][0], memory_profiles)
         warm = runs[1][1]
         fused_pass = split.get("run", 0.0)
@@ -2448,6 +2547,17 @@ def stream_phase(torch, ck, lineitem, memory_profiles, memory_launches, stream_r
             "pyarrow_route_run_s": runs[2][1],
             "uncompressed_file_write_s": plain_write_s,
             "uncompressed_file_serial_run_s": runs[3][1],
+            "workers": {
+                "order": ["default", "one", "one", "default"],
+                "default": {"decode_workers": runtime.decode_workers(),
+                            "warm_run_s": [worker_runs[0][1], worker_runs[3][1]],
+                            "decode_thread_s": [decode_thread_s(worker_splits[0]),
+                                                decode_thread_s(worker_splits[3])]},
+                "one": {"decode_workers": 1,
+                        "warm_run_s": [worker_runs[1][1], worker_runs[2][1]],
+                        "decode_thread_s": [decode_thread_s(worker_splits[1]),
+                                            decode_thread_s(worker_splits[2])]},
+            },
             "c_reader_columns_snappy_file": sorted(snappy_read),
             "c_reader_columns_uncompressed_file": sorted(plain_read),
             "warm_run_split_s": {
@@ -2458,7 +2568,8 @@ def stream_phase(torch, ck, lineitem, memory_profiles, memory_launches, stream_r
                 "device_fold": fold - split.get("host_finish_batch", 0.0),
                 "device_fold_event_wait": split.get("synchronize", 0.0),
                 "decode_thread_s_arrow_to_table": split.get("from_arrow", 0.0),
-                "decode_thread_s_c_reader": split.get("_read_native", 0.0),
+                "read_ahead_s_c_reader_fetch": split.get("_fetch_unit", 0.0),
+                "decode_workers_s_unit_decode": split.get("_decode_fetched", 0.0),
                 "decode_thread_s_c_assembly": split.get("assemble_column", 0.0),
                 "prep_thread_s": split.get("prep", 0.0),
                 "prep_thread_s_hll_codes": split.get("pack_codes", 0.0),
@@ -2468,7 +2579,8 @@ def stream_phase(torch, ck, lineitem, memory_profiles, memory_launches, stream_r
                 "fused_pass": serial_split.get("run", 0.0),
                 "read_and_decode": serial_split.get("batches", 0.0),
                 "arrow_to_table": serial_split.get("from_arrow", 0.0),
-                "c_reader": serial_split.get("_read_native", 0.0),
+                "c_reader_fetch": serial_split.get("_fetch_unit", 0.0),
+                "unit_decode": serial_split.get("_decode_fetched", 0.0),
                 "c_assembly": serial_split.get("assemble_column", 0.0),
                 "prep": serial_split.get("prep", 0.0),
                 "hll_codes": serial_split.get("pack_codes", 0.0),
@@ -2527,8 +2639,9 @@ def stream_phase(torch, ck, lineitem, memory_profiles, memory_launches, stream_r
             "phase": "stream",
             "card": card,
             "power_limit": power_limit,
-            "pipeline_depth": fused.pipeline.DEPTH,
+            "pipeline_depth": runtime.pipeline_depth(),
             "profile": profile_line,
+            "stall_pair": stall_line,
             "fusion": fusion_line,
             "verify": {
                 "rows": stream_rows,
@@ -2720,13 +2833,13 @@ def write_daily_partition(directory: str, day: int, rows: int, seed: int,
 
 
 #: the chaos phase's fault specs: the JAX package's chaos matrix
-#: (tests/test_suite_differential_fuzz.py, CHAOS_MATRIX) less its
-#: decode.worker spec, which waits for a parallel decode (ROADMAP item 9)
+#: (tests/test_suite_differential_fuzz.py, CHAOS_MATRIX)
 CHAOS_SPECS = (
     "seed=101,read.pread:0.4:4",
     "seed=102,read.short:0.5:3",
     "seed=103,read.corrupt:0.5:2",
     "seed=104,decode.chunk:0.6:3",
+    "seed=105,decode.worker:1.0:1",
     "seed=106,pipeline.stage:1.0:1",
     "seed=107,stall=0.005,pipeline.stall:1.0:2",
     "seed=108,stall=0.005,read.latency:1.0:3",
@@ -2737,6 +2850,8 @@ WATCHDOG_S = 0.2  # the stall watchdog's window in the watchdog case
 WATCHDOG_STALL = "seed=110,stall=0.8,pipeline.stall:1.0:1"  # 4 windows on the first batch
 SAVE_FAULT = "seed=111,state.save:1.0:3"  # the first three partition saves fail
 CHAOS_DAYS = 12  # daily partitions of the state.save case (the incremental layout)
+CHAOS_WORKER_DECODE = "2"  # decode workers of the decode.worker case, as the JAX test takes
+STALL_MS = "500"  # the stall pair's modelled latency of one ranged GET round
 CHAOS_COUNTERS = ("retry.attempts", "retry.recovered", "retry.exhausted", "fault.observed",
                   "fault.fallback_units")
 
@@ -2791,7 +2906,8 @@ def chaos_counters_expected(spec: str, injected: int, got):
                 and got["fault.fallback_units"] == 0 and recovered_ok)
     if point == "read.corrupt":
         return got == {**dict.fromkeys(CHAOS_COUNTERS, 0), "fault.observed": injected}
-    if point == "pipeline.stage":
+    if point in ("pipeline.stage", "decode.worker"):
+        # a failed stage item or a dead decode worker: one redo in place
         return got == {"retry.attempts": 1, "retry.recovered": 1, "retry.exhausted": 0,
                        "fault.observed": 1, "fault.fallback_units": 0}
     return got == dict.fromkeys(CHAOS_COUNTERS, 0)
@@ -2871,7 +2987,11 @@ def chaos_phase(torch, ck, path: str, rows: int, seed: int, card: str, power_lim
             raise AssertionError(f"chaos clean: retry or fault counters {clean_counters}")
         want, want_verdicts = metric_values(clean), verdicts(clean)
         for spec in CHAOS_SPECS + (CHAOS_EXHAUST,):
-            result, wall, launches, counters, injected = run(spec)
+            # the decode.worker case kills a worker of a pool of two, as
+            # the JAX test does; the clean run's bits hold at any count
+            workers = CHAOS_WORKER_DECODE if "decode.worker" in spec else None
+            with env(**({"DEEQU_TPU_DECODE_WORKERS": workers} if workers else {})):
+                result, wall, launches, counters, injected = run(spec)
             label = f"chaos {spec}"
             if not injected or sum(injected.values()) < 1:
                 raise AssertionError(f"{label}: the plan never fired")
@@ -2890,6 +3010,8 @@ def chaos_phase(torch, ck, path: str, rows: int, seed: int, card: str, power_lim
                 raise AssertionError(f"{label}: counters {counters} disagree with {injected}")
             runs[spec] = {"wall_s": wall, "clean_wall_s": clean_s, "injected": injected,
                           "counters": counters}
+            if workers:
+                runs[spec]["decode_workers"] = int(workers)
 
         # the stall watchdog: a controller, and a stall of four windows
         ctl = RunController()
@@ -2965,6 +3087,69 @@ def chaos_phase(torch, ck, path: str, rows: int, seed: int, card: str, power_lim
                        "rerun_cached_scanned": list(rerun_split)},
     })
     return clean_launches
+
+
+def stall_pair(torch, ck, path: str, rows: int):
+    """The modelled remote store over the UNCOMPRESSED lineitem copy (the
+    C reader's file): chaos_check() streamed and traced on one decode
+    worker and on the default runtime.decode_workers(), without a stall
+    and then with DEEQU_TPU_SOURCE_STALL_MS=STALL_MS, each stalled pair
+    in mirrored order (one, default, default, one). One worker keeps two
+    read-ahead slots, the default min(units, workers) of them; each slot
+    pays the stall once per unit (a unit of at most READER_INFLIGHT_GETS
+    row groups is one round of GETs). Every run gives the
+    same bits and the chaos phase's launches, its trace's report folds a
+    "read" stage with one read-ahead hit or miss per unit, and no engine
+    thread stays. Returns each run's wall time, hits and misses."""
+    from deequ_tpu_torch import Table, VerificationSuite, observe
+    from deequ_tpu_torch.observe.report import pipeline_occupancy
+    from deequ_tpu_torch.ops import runtime
+
+    import pyarrow.parquet as pq
+
+    check = chaos_check()
+    row_groups = pq.ParquetFile(path).metadata.num_row_groups
+    units = None
+    default = runtime.decode_workers()
+    out, want = [], None
+    plan = [("1", None), (None, None), ("1", STALL_MS), (None, STALL_MS), (None, STALL_MS),
+            ("1", STALL_MS)]
+    for workers, stall in plan:
+        knobs = {"DEEQU_TPU_PLACEMENT": "device", "DEEQU_TPU_PIPELINE": "1"}
+        if workers:
+            knobs["DEEQU_TPU_DECODE_WORKERS"] = workers
+        if stall:
+            knobs["DEEQU_TPU_SOURCE_STALL_MS"] = stall
+        with env(**knobs):
+            ck.reset_launch_counts()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            result = (VerificationSuite.on_data(Table.scan_parquet(path), device="cuda")
+                      .add_check(check).with_tracing(True).run())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+        label = f"stall pair (workers {workers or default}, stall {stall or 0} ms)"
+        wait_no_engine_threads(label)
+        if ck.launch_counts() != chaos_launches(rows):
+            raise AssertionError(f"{label}: launches {ck.launch_counts()}")
+        values = metric_values(result)
+        if want is None:
+            want = values
+        assert_same_values(values, want, label)
+        stages = {row["stage"]: row for row in pipeline_occupancy(result.run_trace.root)}
+        spans = observe.span_name_counts(result.run_trace, ["page_read", "page_decode"])
+        read = stages.get("read")
+        units = spans.get("page_decode", 0) if units is None else units
+        if (not units or read is None or read["readahead_hits"] + read["readahead_misses"] != units
+                or spans != {"page_read": units, "page_decode": units}):
+            raise AssertionError(f"{label}: read stage {read}, spans {spans}, {units} units")
+        w = int(workers or default)
+        out.append({"decode_workers": w, "fetch_slots": min(units, max(2, w)),
+                    "stall_ms": float(stall or 0), "wall_s": wall,
+                    "readahead_hits": read["readahead_hits"],
+                    "readahead_misses": read["readahead_misses"],
+                    "read_stage_busy_s": read["busy_s"]})
+    return {"units": units, "row_groups": row_groups, "runs": out}
 
 
 def scan_shareable(check):
@@ -4349,6 +4534,7 @@ def main() -> int:
 
     from deequ_tpu_torch.ops import cuda_build
     from deequ_tpu_torch.ops import cuda_kernels as ck
+    from deequ_tpu_torch.ops import runtime
     from deequ_tpu_torch.ops.sketches import hll
 
     smi = nvidia_smi_line()
@@ -4365,6 +4551,11 @@ def main() -> int:
         # whether the streamed-Parquet slice could run on this machine
         "pyarrow_imports": imports("pyarrow"),
         "pandas_imports": imports("pandas"),
+        # the streamed source's concurrency as this machine resolves it
+        "cpu_count": os.cpu_count(),
+        "decode_workers": runtime.decode_workers(),
+        "pipeline_depth": runtime.pipeline_depth(),
+        "source_stall_s": runtime.source_stall_s(),
     })
 
     start = time.perf_counter()

@@ -244,6 +244,13 @@ class Completeness(_RatioAnalyzer):
             return to_f64(
                 {"matches": mom["count"], "count": mom["n_where"], "guard": mom["n_rows"]}
             )
+        if self.where is None:
+            # a string or boolean column `_LowCardCounts` counted this
+            # batch: its null count is known
+            nulls = inputs.get(f"__lccnulls:{self.column}")
+            if nulls is not None:
+                null_count, n = nulls
+                return to_f64({"matches": n - null_count, "count": n, "guard": n})
         return super().host_reduce(inputs)
 
     def __repr__(self) -> str:

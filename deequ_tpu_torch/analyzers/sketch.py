@@ -84,6 +84,55 @@ class ApproxCountDistinctState(DoubleValuedState):
         return hash(self.registers.tobytes())
 
 
+_BOOL_HLL = None
+
+
+def _bool_hll_identities():
+    """(idx, rank) of the two boolean identities (canonical int64 0 and
+    1), computed once: the registers `_LowCardCounts`' presence memo
+    gives a boolean column."""
+    global _BOOL_HLL
+    if _BOOL_HLL is None:
+        _BOOL_HLL = hll.registers_from_hashes(hll.xxhash64_u64(np.array([0, 1], dtype=np.int64)))
+    return _BOOL_HLL
+
+
+def _memo_registers(inputs: Dict[str, Any], column: str) -> Optional[np.ndarray]:
+    """A column's registers from `_LowCardCounts`' memos of this batch,
+    or None: a boolean column's from its present identities, a string
+    column's from its present dictionary entries (hashed through the
+    cross-batch dictionary memo where the batch is at hand). Either
+    equals the full-row scatter's registers: every present value occurs
+    in a valid row, and a null row packs to a no-op."""
+    present_bool = inputs.get(f"__lccbool:{column}")
+    if present_bool is not None:
+        idx, rank = _bool_hll_identities()
+        registers = np.zeros(hll.M, dtype=np.int32)
+        for value, present in enumerate(present_bool):
+            if present:
+                registers[idx[value]] = max(registers[idx[value]], int(rank[value]))
+        return registers
+    presence = inputs.get(f"__lccpresence:{column}")
+    if presence is None:
+        return None
+    present, uniques = presence
+    present = np.asarray(present)
+    batch = getattr(inputs, "batch", None)
+    hashes = None
+    if batch is not None:
+        full = hashed_dictionary(batch.column(column))
+        if len(full) == len(present):
+            hashes = full[present]
+    if hashes is None:
+        from deequ_tpu_torch.ops.strings import hash_strings
+
+        hashes = hash_strings(np.asarray(uniques, dtype=object)[present])
+    idx, rank = hll.registers_from_hashes(hashes)
+    registers = np.zeros(hll.M, dtype=np.int32)
+    np.maximum.at(registers, idx, rank.astype(np.int32))
+    return registers
+
+
 def _packed_codes(col) -> np.ndarray:
     """One int32 per row packing (register idx << 6 | rank); null rows
     pack to 0 (idx 0, rank 0 — a no-op for the register max)."""
@@ -134,8 +183,11 @@ class ApproxCountDistinct(ScanShareableAnalyzer):
 
     def host_reduce(self, inputs: Dict[str, Any]) -> Dict[str, np.ndarray]:
         # a family kernel's registers for this (column, where), if one ran
-        # this batch: then the packed codes are never built
+        # this batch, else with no filter those of `_LowCardCounts`' memos:
+        # then the packed codes are never built
         regs = inputs.get(f"__hllregs:{self.column}:{where_key(self.where)}")
+        if regs is None and self.where is None:
+            regs = _memo_registers(inputs, self.column)
         if regs is None:
             packed = np.asarray(inputs[f"hll:{self.column}"])
             where = np.asarray(inputs[where_key(self.where)], dtype=bool)

@@ -9,9 +9,13 @@ O(batch + groups), never O(rows).
 
 `ParquetSource` reads row group by row group, with string columns as
 Arrow dictionaries (their codes are the analyzers' `dict_encode`), on a
-prefetch thread; with `DEEQU_TPU_PIPELINE=0` on the caller's thread,
-which gives the same batches. Numeric and boolean columns the planner
-approves skip pyarrow's read (the C reader, data/native_reader.py) or
+prefetch thread (with `DEEQU_TPU_PIPELINE=0` on the caller's thread),
+which fans the row groups out to `DEEQU_TPU_DECODE_WORKERS` host
+threads and merges their batches back in file order; the C reader's
+route adds read-ahead slots that pread the next units' chunks while the
+current ones decode. `DEEQU_TPU_SOURCE_STALL_MS` models a remote
+store's latency per read. Every worker count gives the same batches.
+Numeric and boolean columns the planner approves skip pyarrow's read (the C reader, data/native_reader.py) or
 its conversion to numpy (the C Arrow-buffer decode,
 data/arrow_decode.py); of those, a column the device program alone
 reads may decode straight to its wire rows (the batch's `wire_rows`),
@@ -32,7 +36,8 @@ import os
 import queue
 import struct
 import threading
-from collections import OrderedDict
+import time
+from collections import OrderedDict, deque
 from typing import TYPE_CHECKING, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -58,9 +63,125 @@ JOIN_TIMEOUT_S = 10.0
 _READ_TALLY = ("retries", "recovered", "exhausted", "observed")
 
 
+#: ranged GETs a C-reader read-ahead slot keeps in flight under the
+#: `DEEQU_TPU_SOURCE_STALL_MS` latency model, the usual range-request
+#: concurrency of an object-store client. Only the model reads it: local
+#: preads are issued back to back either way.
+READER_INFLIGHT_GETS = 8
+
+
 class _FetchFailed(Exception):
     """A chunk's fetch failed with an error no retry covers: its decode
     unit reads through pyarrow."""
+
+
+def _resolve_quietly_fallback(fut) -> None:
+    """Resolve a read-ahead future to None (its unit reads through
+    pyarrow), where a slot may resolve it at the same moment: losing that
+    race is the success case."""
+    try:
+        fut.set_result(None)
+    except Exception:  # noqa: BLE001 - the racing slot resolved it first
+        pass
+
+
+def _close_all_fallback(handles) -> None:
+    """Close every reader handle at a scan's end, best effort: a failed
+    close during an unwind must not hide the error that caused it."""
+    for handle in handles:
+        try:
+            handle.close()
+        except Exception:  # noqa: BLE001 - teardown is best effort
+            pass
+
+
+class _ThreadFiles:
+    """One ParquetFile per decode thread (a handle is not thread-safe),
+    opened at the thread's first unit; `close` closes them all."""
+
+    def __init__(self, path: str, string_columns: Optional[List[str]]):
+        self.path = path
+        self.string_columns = string_columns
+        self._local = threading.local()
+        self._lock = threading.Lock()
+        self._open: List = []
+
+    def get(self):
+        pf = getattr(self._local, "pf", None)
+        if pf is None:
+            import pyarrow.parquet as pq
+
+            pf = self._local.pf = pq.ParquetFile(self.path, read_dictionary=self.string_columns)
+            with self._lock:
+                self._open.append(pf)
+        return pf
+
+    def close(self) -> None:
+        with self._lock:
+            handles, self._open = self._open, []
+        _close_all_fallback(handles)
+
+
+class _WorkerContext:
+    """The creating thread's `monitored()` blocks and trace context
+    (tracer and innermost span), for the scan's worker threads to adopt
+    (`with context():`). A block the adopting thread counts into already
+    is not attached twice: an inline redo runs on the scan's own thread."""
+
+    def __init__(self):
+        self.sinks = runtime.current_sinks()
+        self.tracer = _spans.current_tracer()
+        self.parent = _spans.current_span()
+
+    @contextlib.contextmanager
+    def __call__(self) -> Iterator[None]:
+        have = runtime.current_sinks()
+        sinks = [s for s in self.sinks if not any(s is h for h in have)]
+        with runtime.attached_sinks(sinks), _spans.attached(self.tracer, self.parent):
+            yield
+
+
+def _stall_groups(unit, stall_s: float) -> None:
+    """The modelled latency of a remote store on the pyarrow routes: one
+    GET of `stall_s` before each row group's read, on the decoding
+    thread, where a range GET would block."""
+    if stall_s > 0.0:
+        for _ in unit:
+            time.sleep(stall_s)
+
+
+def _ordered_decode(count: int, workers: int, decode, release=None) -> Iterator[Table]:
+    """The batches of `decode(i)` for units 0..count-1, decoded on
+    `workers` host threads (`deequ-decode-worker`) with at most workers +
+    1 units in flight, yielded in unit order. A unit whose worker died
+    decodes once more inline on the calling thread (a unit is a pure
+    function of the file, so the redo gives the same bits), counted as a
+    contained fault and a recovered retry; a second failure propagates.
+    On close, `release` runs before the pool is joined."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    pool = ThreadPoolExecutor(max_workers=workers, thread_name_prefix="deequ-decode-worker")
+    pending: "deque" = deque()
+    next_unit = 0
+    try:
+        while next_unit < count or pending:
+            while next_unit < count and len(pending) < workers + 1:
+                pending.append((next_unit, pool.submit(decode, next_unit)))
+                next_unit += 1
+            i, fut = pending.popleft()
+            try:
+                tables = fut.result()
+            except Exception:  # noqa: BLE001 - contained: one inline redo
+                runtime.record_fault(injected=1)
+                tables = decode(i)
+                runtime.record_retry(1, 1, 0)
+            yield from tables
+    finally:
+        for _, fut in pending:
+            fut.cancel()
+        if release is not None:
+            release()
+        pool.shutdown(wait=True)
 
 
 def _arrow_ctype(t) -> ColumnType:
@@ -615,36 +736,194 @@ class ParquetSource(DataSource):
         return units
 
     def _iter_tables(self, batch_size: int) -> Iterator[Table]:
-        """Decode unit by decode unit (`_plan_decode_units`): each unit's
-        row groups are read with `read_row_group`, which frees each group
-        (pyarrow's batch iterators keep every decoded batch for the
-        reader's life), so memory is O(unit + batch). String columns read
-        as DictionaryArrays, whose codes are the analyzers' dictionary
-        encode. The columns with a reader recipe skip pyarrow: their
-        chunks are pread and decoded by the C reader, the rest of the
-        unit read by pyarrow, and each batch assembled from both."""
-        import pyarrow.parquet as pq
+        """Decode unit by decode unit (`_plan_decode_units`) on one of
+        three routes, each giving the serial route's batches bit for bit
+        at any worker count (`runtime.decode_workers()`):
 
-        size = min(batch_size, self.batch_rows)
-        fastpath = self._decode_fastpath_set()
-        wire = self._wire_fusion_active()
+        - the C reader's (`_iter_tables_native`) when a column has reader
+          recipes: read-ahead slots pread the units' chunks, decode
+          workers decode them and read the other columns through pyarrow;
+        - the worker pool's (`_iter_tables_parallel`) when more than one
+          worker is asked for: whole units read by pyarrow on host
+          threads, merged back in file order;
+        - the serial route (`_iter_tables_serial`) otherwise.
+
+        Row groups are read with `read_row_group`, which frees each group
+        (pyarrow's batch iterators keep every decoded batch for the
+        reader's life), so memory is O(units in flight + batch). String
+        columns read as DictionaryArrays, whose codes are the analyzers'
+        dictionary encode. The workers are host threads: none touches the
+        device."""
+        workers = runtime.decode_workers()
         native_cols = self._native_reader_active()
         metas = {}
         if native_cols:
             metas = self._reader_chunks
             if metas is None:
                 metas = self._reader_chunk_meta(native_cols)
-        enc_specs = self._encoded_fold_active(native_cols) or {}
-        with contextlib.ExitStack() as stack:
-            pf = stack.enter_context(
-                pq.ParquetFile(self.path, read_dictionary=self._string_columns())
-            )
-            fd = None
-            if metas:
-                fd = os.open(self.path, os.O_RDONLY)
-                stack.callback(os.close, fd)
+        if metas:
+            yield from self._iter_tables_native(batch_size, workers, metas)
+        else:
+            yield from self._iter_tables_arrow(batch_size, workers)
+
+    def _iter_tables_arrow(self, batch_size: int, workers: int) -> Iterator[Table]:
+        """The pyarrow routes: the worker pool's, or with one worker the
+        serial one."""
+        if workers > 1:
+            return self._iter_tables_parallel(batch_size, workers)
+        return self._iter_tables_serial(batch_size)
+
+    def _iter_tables_serial(self, batch_size: int) -> Iterator[Table]:
+        import pyarrow.parquet as pq
+
+        size = min(batch_size, self.batch_rows)
+        fastpath = self._decode_fastpath_set()
+        wire = self._wire_fusion_active()
+        stall_s = runtime.source_stall_s()
+        with pq.ParquetFile(self.path, read_dictionary=self._string_columns()) as pf:
             for unit in self._plan_decode_units(size):
-                yield from self._decode_unit(pf, fd, unit, size, metas, fastpath, wire, enc_specs)
+                _stall_groups(unit, stall_s)
+                yield from self._decode_fetched(pf, unit, [], None, size, fastpath, wire, {}, None)
+
+    def _iter_tables_parallel(self, batch_size: int, workers: int) -> Iterator[Table]:
+        """The units decoded by `workers` host threads (`_ordered_decode`),
+        each thread with a ParquetFile of its own (a handle is not
+        thread-safe), one `decode_unit` span each."""
+        size = min(batch_size, self.batch_rows)
+        units = self._plan_decode_units(size)
+        if not units:
+            return
+        fastpath = self._decode_fastpath_set()
+        wire = self._wire_fusion_active()
+        stall_s = runtime.source_stall_s()
+        files = _ThreadFiles(self.path, self._string_columns())
+        context = _WorkerContext()
+
+        def decode_unit(i: int) -> List[Table]:
+            faults.fault_point("decode.worker")
+            unit = units[i]
+            with context(), _spans.span("decode_unit", cat="decode", groups=len(unit)) as sp:
+                _stall_groups(unit, stall_s)
+                tables = self._decode_fetched(files.get(), unit, [], None, size, fastpath, wire, {}, None)
+                if sp:
+                    sp.set(rows=sum(int(t.num_rows) for t in tables))
+                return tables
+
+        try:
+            yield from _ordered_decode(len(units), workers, decode_unit)
+        finally:
+            files.close()
+
+    def _iter_tables_native(self, batch_size: int, workers: int, metas) -> Iterator[Table]:
+        """The C reader's route. A pool of read-ahead slots preads the
+        units' reader chunks (`_fetch_unit`), `min(units, max(2,
+        workers))` units at once, and `workers` decode threads decode
+        them and read the units' other columns through pyarrow
+        (`_decode_fetched`); the batches merge back in file order
+        (`_ordered_decode`).
+
+        A slot starts unit i only once fewer than workers + 2 units lie
+        between i and the decode cursor. The gate is by unit index, not a
+        counting semaphore: with a semaphore a slot starting unit i+3 can
+        take the permit a waiting slot for unit i was woken for, and once
+        the window is full of units ahead of the cursor the scan
+        deadlocks (decode waits for unit i, unit i waits for decode). The
+        index test cannot starve: decode waiting on unit i means every
+        unit before i was consumed, so i passes the gate."""
+        from concurrent.futures import Future, ThreadPoolExecutor
+
+        size = min(batch_size, self.batch_rows)
+        units = self._plan_decode_units(size)
+        if not units:
+            return
+        try:
+            fd = os.open(self.path, os.O_RDONLY)
+        except OSError:
+            yield from self._iter_tables_arrow(batch_size, workers)
+            return
+        fastpath = self._decode_fastpath_set()
+        wire = self._wire_fusion_active()
+        enc_specs = self._encoded_fold_active(self._native_reader_active()) or {}
+        stall_s = runtime.source_stall_s()
+        scanned = [n for n, _ in self._schema_cache]
+        unit_chunks = [
+            [(g, name, metas[(g, name)]) for g in unit for name in scanned if (g, name) in metas]
+            for unit in units
+        ]
+        fetched: List[Future] = [Future() for _ in units]
+        stop = threading.Event()
+        window = threading.Condition()
+        consumed = [0]
+        context = _WorkerContext()
+        files = _ThreadFiles(self.path, self._string_columns())
+
+        def fetch_unit(i: int) -> None:
+            try:
+                with window:
+                    while i >= consumed[0] + workers + 2 and not stop.is_set():
+                        window.wait(1.0)
+                if not stop.is_set():
+                    with context():
+                        fetched[i].set_result(
+                            self._fetch_unit(fd, units[i], unit_chunks[i], stall_s)
+                        )
+            except Exception:  # noqa: BLE001 - contained: the unit reads through pyarrow
+                # a failed slot is contained, never silent: the fault
+                # telemetry counts the unit it sent to pyarrow. A slot the
+                # close overtook (its future resolved by `release`) failed
+                # at nothing, and sent no unit anywhere
+                if not stop.is_set():
+                    with context():
+                        runtime.record_fault(injected=1, fallback_units=1)
+            finally:
+                if not fetched[i].done():
+                    _resolve_quietly_fallback(fetched[i])
+
+        def decode_unit(i: int) -> List[Table]:
+            faults.fault_point("decode.worker")
+            hit = fetched[i].done()
+            heartbeat.current().note_readahead(hit)
+            raw = fetched[i].result()
+            with window:
+                consumed[0] += 1
+                window.notify_all()
+            unit = units[i]
+            with context(), _spans.span("page_decode", cat="decode", groups=len(unit)) as sp:
+                tables = self._decode_fetched(
+                    files.get(), unit, unit_chunks[i], raw, size, fastpath, wire, enc_specs, sp
+                )
+                if sp:
+                    sp.set(readahead_hit=bool(hit))
+                return tables
+
+        # object stores serve overlapping range requests, so a few slots
+        # hide one unit's GET behind another's decode; the window still
+        # bounds the fetched but undecoded units at workers + 2
+        fetch_pool = ThreadPoolExecutor(
+            max_workers=min(len(units), max(2, workers)), thread_name_prefix="deequ-read-ahead"
+        )
+
+        def release() -> None:
+            # wake every slot, drop the units not started, and resolve the
+            # rest, so that no decode worker waits on a fetch that never
+            # comes (it reads its unit through pyarrow)
+            stop.set()
+            with window:
+                window.notify_all()
+            fetch_pool.shutdown(wait=False, cancel_futures=True)
+            for fut in fetched:
+                if not fut.done():
+                    _resolve_quietly_fallback(fut)
+
+        try:
+            for i in range(len(units)):
+                fetch_pool.submit(fetch_unit, i)
+            yield from _ordered_decode(len(units), workers, decode_unit, release)
+        finally:
+            release()
+            fetch_pool.shutdown(wait=True)  # no slot outlives the descriptor
+            os.close(fd)
+            files.close()
 
     def _fetch_native(self, fd: int, meta: "ChunkMeta", key: str, tally: Dict[str, int]):
         """One chunk's bytes through the C reader's pread, with bounded
@@ -669,7 +948,7 @@ class ParquetSource(DataSource):
             raw, retries, recovered = retry_call(
                 fetch, attempts=runtime.retry_budget(), base_s=runtime.retry_base_s(), key=key
             )
-        except Exception as e:  # noqa: BLE001 - the unit degrades (`_decode_unit`)
+        except Exception as e:  # noqa: BLE001 - the unit degrades (`_fetch_unit`)
             raise _FetchFailed(meta.column) from e
         tally["retries"] += retries
         tally["observed"] += retries
@@ -683,24 +962,54 @@ class ParquetSource(DataSource):
             raw = raw[: max(1, len(raw) // 2)]
         return raw
 
-    def _read_native(self, fd: int, meta: "ChunkMeta", runs: bool = False, tally=None, key: str = ""):
-        """One chunk through the C reader (`_fetch_native`): as run
-        streams (a RunChunk) when `runs` and they decode, else at row
-        width; None when its bytes stay short or do not decode."""
+    def _fetch_unit(self, fd: int, unit, chunks, stall_s: float):
+        """One unit's reader chunks, pread under a `page_read` span on a
+        read-ahead slot: {(group, column): bytes, or None where the
+        retries ran dry}, or None when a fetch failed with an error no
+        retry covers (the whole unit then reads through pyarrow, counted
+        as a fallback unit). The chunks' ranges are hinted to the kernel
+        first (posix_fadvise), so its page cache fills during the
+        modelled latency: `stall_s` per round of READER_INFLIGHT_GETS
+        concurrent GETs, one GET a row group."""
         from deequ_tpu_torch.data import native_reader
 
-        if tally is None:
-            tally = dict.fromkeys(_READ_TALLY, 0)
-        raw = self._fetch_native(fd, meta, key or f"{self.path}:{meta.column}", tally)
-        if raw is None:
+        for _, _, meta in chunks:
+            native_reader.fadvise_chunk(fd, meta)
+        raw: Dict[Tuple[int, str], Optional[np.ndarray]] = {}
+        tally = dict.fromkeys(_READ_TALLY, 0)
+        lost = False
+        sp = _spans.span("page_read", cat="read")
+        with sp, heartbeat.current().timed("read"):
+            faults.fault_point("read.latency")
+            if stall_s > 0.0:
+                time.sleep(stall_s * -(-len(unit) // READER_INFLIGHT_GETS))
+            try:
+                for g, name, meta in chunks:
+                    raw[(g, name)] = self._fetch_native(fd, meta, f"{self.path}:{unit[0]}:{name}", tally)
+            except _FetchFailed:
+                lost = True
+            if sp:
+                sp.set(
+                    groups=len(unit),
+                    chunks=len(chunks),
+                    bytes_read=sum(len(data) for data in raw.values() if data is not None),
+                )
+        if tally["retries"] or tally["exhausted"]:
+            runtime.record_retry(tally["retries"], tally["recovered"], tally["exhausted"])
+        if tally["observed"]:
+            runtime.record_fault(injected=tally["observed"])
+        if lost:
+            runtime.record_fault(injected=1, fallback_units=1)
             return None
-        if runs:
-            decoded = native_reader.decode_chunk_runs(raw, meta)
-            if decoded is not None:
-                return decoded
-        return native_reader.decode_chunk(raw, meta)
+        return raw
 
-    def _decode_unit(self, pf, fd, unit, size, metas, fastpath, wire, enc_specs) -> Iterator[Table]:
+    def _decode_fetched(self, pf, unit, chunks, raw, size, fastpath, wire, enc_specs, sp) -> List[Table]:
+        """One unit's batches from its fetched chunks (`_fetch_unit`; no
+        chunks, or None, reads every column through pyarrow, as the serial
+        and pool routes do): each chunk decoded by the C reader, as run
+        streams for an encoded-fold column, the columns not covered read
+        through pyarrow, and each batch assembled from both. `sp` (the
+        unit's `page_decode` span) gets its counts."""
         import pyarrow as pa
 
         from deequ_tpu_torch.data import encfold, native_reader
@@ -711,45 +1020,26 @@ class ParquetSource(DataSource):
         failed = set()
         enc_off = set()  # columns a chunk of which refused the runs mode
         enc_fallback = 0
-        unit_metas = [(g, name, metas.get((g, name))) for g in unit for name in scanned]
-        unit_metas = [(g, name, meta) for g, name, meta in unit_metas if meta is not None]
-        sp = (
-            _spans.span("page_read", cat="read", groups=len(unit), chunks=len(unit_metas))
-            if unit_metas
-            else contextlib.nullcontext()
-        )
-        tally = dict.fromkeys(_READ_TALLY, 0)
-        unit_lost = False
-        with sp, heartbeat.current().timed("read"):
-            if unit_metas:
-                faults.fault_point("read.latency")
-            try:
-                for g, name, meta in unit_metas:
-                    runs = name in enc_specs and name not in enc_off
-                    key = f"{self.path}:{unit[0]}:{name}"
-                    decoded = self._read_native(fd, meta, runs, tally, key)
-                    if runs and decoded is not None and not isinstance(decoded, native_reader.RunChunk):
+        tokens = {}
+        for g, name, meta in chunks:
+            tokens[name] = meta.token
+            data = raw.get((g, name)) if raw is not None else None
+            decoded = None
+            if data is not None:
+                runs = name in enc_specs and name not in enc_off
+                if runs:
+                    decoded = native_reader.decode_chunk_runs(data, meta)
+                if decoded is None:
+                    decoded = native_reader.decode_chunk(data, meta)
+                    if runs and decoded is not None:
                         # a chunk the runs mode refused decodes at row
                         # width: it fails closed, never to wrong values
                         enc_off.add(name)
                         enc_fallback += 1
-                    if decoded is None:
-                        failed.add(name)
-                    else:
-                        segments.setdefault(name, []).append(decoded)
-            except _FetchFailed:
-                # a fetch that fails past its retries is contained, never
-                # silent: the whole unit reads through pyarrow and the
-                # fault telemetry counts it
-                unit_lost = True
-                segments.clear()
-                failed.update(name for _, name, _ in unit_metas)
-        if tally["retries"] or tally["exhausted"]:
-            runtime.record_retry(tally["retries"], tally["recovered"], tally["exhausted"])
-        if tally["observed"]:
-            runtime.record_fault(injected=tally["observed"])
-        if unit_lost:
-            runtime.record_fault(injected=1, fallback_units=1)
+            if decoded is None:
+                failed.add(name)
+            else:
+                segments.setdefault(name, []).append(decoded)
         # a column is the reader's in this unit only when every group's
         # chunk decoded; the rest of the unit reads through pyarrow
         covered = {n for n, segs in segments.items() if n not in failed and len(segs) == len(unit)}
@@ -781,7 +1071,7 @@ class ParquetSource(DataSource):
                     0, 9 * rc.num_values - 12 * len(rc.run_len) - rc.dict_values.nbytes
                 )
         merged = None
-        if len(covered) < len(scanned):
+        if not covered or len(covered) < len(scanned):
             columns = self.columns if not covered else [n for n in scanned if n not in covered]
             parts = [pf.read_row_group(g, columns=columns) for g in unit]
             merged = parts[0] if len(parts) == 1 else pa.concat_tables(parts)
@@ -789,8 +1079,8 @@ class ParquetSource(DataSource):
             total = merged.num_rows
         else:
             total = sum(seg.num_values for seg in segments[scanned[0]])
-        tokens = {name: metas[(unit[0], name)].token for name in covered}
         wire_cols = wire.columns if wire is not None else {}
+        tables = []
         for start in range(0, total, size):
             rest = (
                 _decode_table(merged.slice(start, size), fastpath, wire)
@@ -798,7 +1088,7 @@ class ParquetSource(DataSource):
                 else None
             )
             if not covered:
-                yield rest
+                tables.append(rest)
                 continue
             stop = min(start + size, total)
             shared: Dict[str, np.ndarray] = {}
@@ -835,7 +1125,16 @@ class ParquetSource(DataSource):
                 table.wire_rows = wire_rows
             if payloads:
                 table.encfold = payloads
-            yield table
+            tables.append(table)
+        if sp:
+            chunks_native = len(unit) * len(covered)
+            sp.set(
+                rows=int(total),
+                chunks_native=chunks_native,
+                chunks_fallback=len(unit) * len(scanned) - chunks_native,
+                runs_native=int(enc_runs),
+                chunks_runs=len(unit) * len(run_cols),
+            )
         if enc_specs and (run_cols or enc_fallback):
             runtime.record_encfold(
                 chunks=len(unit) * len(run_cols),
@@ -845,6 +1144,7 @@ class ParquetSource(DataSource):
                 codes=enc_codes,
                 bytes_saved=enc_saved,
             )
+        return tables
 
     def __repr__(self) -> str:
         return f"ParquetSource({self.path!r}, rows={self._num_rows})"

@@ -598,6 +598,7 @@ def _decode_verdicts(
     live specs read. `member_plan` None is the mesh pass, which plans
     neither decode-to-wire nor the encoded fold. Fills `scan_pass`
     and returns the wire columns' specs (None when nothing planned)."""
+    from deequ_tpu_torch.ops import runtime
     from deequ_tpu_torch.ops.fused import plan_decode_fastpath, prune_table_columns
 
     view = source
@@ -616,7 +617,7 @@ def _decode_verdicts(
     scan_pass.decode_cols_total = dplan.total
     scan_pass.decode_cols_fast = len(dplan.fast)
     scan_pass.decode_fallbacks = dplan.fallbacks
-    scan_pass.decode_workers = 1  # the port decodes on one thread
+    scan_pass.decode_workers = runtime.decode_workers()
     scan_pass.saved_decode_bytes = per_rows(_token_bytes_per_row(dplan.fast, col_types))
     if dplan.wire_planned:
         scan_pass.wire_fused_cols = len(dplan.wire_specs)
@@ -713,7 +714,7 @@ def analyze_plan(
     )
     from deequ_tpu_torch.analyzers.freq_spill import default_max_groups_in_memory
     from deequ_tpu_torch.analyzers.grouping import GroupingAnalyzer
-    from deequ_tpu_torch.ops import pipeline, runtime
+    from deequ_tpu_torch.ops import runtime
     from deequ_tpu_torch.ops.fused import (
         DEFAULT_BATCH_SIZE,
         elide_where_specs,
@@ -927,7 +928,7 @@ def analyze_plan(
         cost.passes.append(scan_pass)
 
         if streaming:
-            depth = pipeline_depth if pipeline_depth is not None else pipeline.DEPTH
+            depth = pipeline_depth if pipeline_depth is not None else runtime.pipeline_depth()
             bw = link_bandwidth
             if bw is None and use_device and device is not None:
                 resolved = runtime.resolve_device(device)

@@ -697,10 +697,11 @@ def apply_decode_plan(table, plan: DecodePlan):
     """The source with the plan's fast set, wire columns, reader chunks
     and encoded-fold columns attached. The plan is recorded: a
     `decode_fastpath` span and the tracer's decode and reader counters
-    (the port decodes on one thread), and the wire and encoded-fold
-    verdicts (`runtime.monitored()` and the tracer) even when they take
-    no column."""
+    with `runtime.decode_workers()` workers, and the wire and
+    encoded-fold verdicts (`runtime.monitored()` and the tracer) even
+    when they take no column."""
     reader_groups = len({g for g, _ in plan.reader_chunks})
+    workers = runtime.decode_workers()
     with observe.span(
         "decode_fastpath",
         cat="plan",
@@ -711,10 +712,10 @@ def apply_decode_plan(table, plan: DecodePlan):
         cols_reader=len(plan.reader_cols),
         reader_groups=reader_groups,
         cols_encfold=len(plan.enc_specs),
-        workers=1,
+        workers=workers,
     ):
         pass
-    runtime.record_decode_fastpath(len(plan.fast), plan.total, 1)
+    runtime.record_decode_fastpath(len(plan.fast), plan.total, workers)
     if plan.reader_planned:
         # chunks are static: the scanned columns of every row group the
         # scan reads

@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Any, Callable, Iterable, Iterator, List
+from typing import Any, Callable, Iterable, Iterator, List, Optional
 
 from deequ_tpu_torch import observe
 from deequ_tpu_torch.ops import runtime
@@ -38,21 +38,24 @@ from deequ_tpu_torch.testing import faults
 
 _SENTINEL = object()
 
-#: prepped batches that may wait between the prep stage and the fold
-DEPTH = 2
-
 #: how long shutdown waits for a stage thread (as data/source.py waits
 #: for its decode thread)
 JOIN_TIMEOUT_S = 10.0
 
 
 def staged(
-    iterable: Iterable[Any], fn: Callable[[Any], Any], *, name: str = "prep", progress: Any = None
+    iterable: Iterable[Any],
+    fn: Callable[[Any], Any],
+    *,
+    name: str = "prep",
+    depth: Optional[int] = None,
+    progress: Any = None,
 ) -> Iterator[Any]:
     """Run `fn` over `iterable`'s items on a stage thread, yielding the
-    results in input order through a queue of `DEPTH` items: at most
-    `DEPTH` + 1 prepped batches are resident however far the consumer
-    falls behind.
+    results in input order through a queue of `depth` items
+    (`runtime.pipeline_depth()`, ``DEEQU_TPU_PIPELINE_DEPTH``, when
+    None): at most `depth` + 1 prepped batches are resident however far
+    the consumer falls behind.
 
     Shutdown: when the consumer closes or abandons the generator, the
     stage thread is signalled, the queue is drained so a blocked put
@@ -68,9 +71,11 @@ def staged(
     `progress` is a live heartbeat handle (`observe.heartbeat`): the
     stage times its wait for upstream items as the `decode` stage and
     `fn`'s work as its own; the no-op handle by default."""
+    if depth is None:
+        depth = runtime.pipeline_depth()
     if progress is None:
         progress = observe.heartbeat.NOOP_PROGRESS
-    q: "queue.Queue[Any]" = queue.Queue(maxsize=DEPTH)
+    q: "queue.Queue[Any]" = queue.Queue(maxsize=max(1, depth))
     stop = threading.Event()
     error: List[BaseException] = []
 

@@ -448,18 +448,23 @@ def record_encfold_plan(cols: Sequence[str], total: int, falloffs=()) -> None:
     _counters.record_encfold_plan(len(cols), total)
 
 
+_ENCFOLD_LOCK = threading.Lock()
+
+
 def record_encfold(
     chunks: int, fallback: int, runs: int, values: int, codes: int, bytes_saved: int
 ) -> None:
     """One decode unit's encoded fold (the counts the JAX package keeps as
-    its `encfold_*` trace counters)."""
-    for sink in _sinks():
-        sink.encfold_chunks += int(chunks)
-        sink.encfold_chunks_fallback += int(fallback)
-        sink.encfold_runs += int(runs)
-        sink.encfold_values += int(values)
-        sink.encfold_codes_folded += int(codes)
-        sink.encfold_bytes_saved += int(bytes_saved)
+    its `encfold_*` trace counters). Decode workers record at once, so
+    the sinks are added to under a lock."""
+    with _ENCFOLD_LOCK:
+        for sink in _sinks():
+            sink.encfold_chunks += int(chunks)
+            sink.encfold_chunks_fallback += int(fallback)
+            sink.encfold_runs += int(runs)
+            sink.encfold_values += int(values)
+            sink.encfold_codes_folded += int(codes)
+            sink.encfold_bytes_saved += int(bytes_saved)
     _counters.record_encfold(chunks, fallback, runs, values, codes, bytes_saved)
 
 
@@ -619,6 +624,57 @@ def pipeline_enabled() -> bool:
     caller in batch order. ``DEEQU_TPU_PIPELINE=0`` (or ``off``) runs it
     all on the caller; both give the same bits."""
     return os.environ.get("DEEQU_TPU_PIPELINE", "") not in ("0", "off")
+
+
+#: prepped batches that may wait between the prep stage and the fold
+#: when `DEEQU_TPU_PIPELINE_DEPTH` is unset or not a number
+DEFAULT_PIPELINE_DEPTH = 2
+
+
+def pipeline_depth() -> int:
+    """The staged pipeline's queue depth between prep and fold
+    (``DEEQU_TPU_PIPELINE_DEPTH``, default 2, held to 1-64): at most this
+    many prepped batches, their buffers already copied to the device,
+    wait for the fold. Depth 1 is double buffering; a deeper queue
+    smooths decode jitter for one resident batch more each."""
+    raw = os.environ.get("DEEQU_TPU_PIPELINE_DEPTH", "")
+    try:
+        depth = int(raw)
+    except ValueError:
+        return DEFAULT_PIPELINE_DEPTH
+    return max(1, min(depth, 64))
+
+
+def decode_workers() -> int:
+    """Host threads that decode a Parquet scan's row groups
+    (``DEEQU_TPU_DECODE_WORKERS``, default ``min(cores, 4)``; 1 is the
+    serial decode). pyarrow and the C decode release the GIL, so workers
+    overlap; their batches merge back in file order, so every count
+    gives the same bits. The workers never touch the device."""
+    try:
+        workers = int(os.environ.get("DEEQU_TPU_DECODE_WORKERS", ""))
+    except ValueError:
+        workers = 0
+    if workers < 1:
+        workers = min(os.cpu_count() or 1, 4)
+    return workers
+
+
+def source_stall_s() -> float:
+    """A modelled per-read latency of the source in seconds
+    (``DEEQU_TPU_SOURCE_STALL_MS``, default 0, negative or malformed
+    values off): each row-group read sleeps this long on the thread that
+    reads it, as a remote store's ranged GET would block, so that a
+    measurement can see how much source wait the decode workers, the C
+    reader's read-ahead and the pipeline hide. It changes no result;
+    never set it for a throughput number of a local file."""
+    raw = os.environ.get("DEEQU_TPU_SOURCE_STALL_MS", "")
+    if not raw:
+        return 0.0
+    try:
+        return max(0.0, float(raw)) / 1000.0
+    except ValueError:
+        return 0.0
 
 
 def state_cache_enabled() -> bool:

@@ -145,6 +145,10 @@ class _LowCardCounts(ScanShareableAnalyzer):
             counts = np.asarray(
                 [len(codes) - n_valid, n_valid - n_true, n_true], dtype=np.int64
             )
+            # memos for this batch: ApproxCountDistinct's registers from
+            # the present identities, Completeness's counts
+            inputs[f"__lccbool:{self.column}"] = (n_valid - n_true > 0, n_true > 0)
+            inputs[f"__lccnulls:{self.column}"] = (int(counts[0]), len(codes))
             return {"counts": counts, "uniques": np.asarray([False, True], dtype=object)}
         aborted = len(uniques) > self.cap
         if aborted and len(uniques) > (1 << 16):
@@ -152,8 +156,14 @@ class _LowCardCounts(ScanShareableAnalyzer):
         counts = native.bincount(codes, len(uniques) + 1, base=1)
         if counts is None:
             counts = np.bincount(codes + 1, minlength=len(uniques) + 1).astype(np.int64)
-        # the per-entry counts serve _OptimisticNumericStats on this batch:
-        # it derives the numeric family from them in O(#uniques)
+        # memos for this batch: which dictionary entries occur
+        # (ApproxCountDistinct hashes the present ones instead of
+        # scattering every row), the null count (Completeness), and the
+        # per-entry counts (DataType classifies the dictionary weighed by
+        # them; _OptimisticNumericStats derives the numeric family from
+        # them), each in O(#uniques) instead of O(rows)
+        inputs[f"__lccpresence:{self.column}"] = (counts[1:] > 0, uniques)
+        inputs[f"__lccnulls:{self.column}"] = (int(counts[0]), len(codes))
         inputs[f"__lcccounts:{self.column}"] = (counts, uniques, len(codes))
         if aborted:
             return {"aborted": True}

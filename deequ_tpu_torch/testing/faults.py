@@ -28,8 +28,7 @@ Every point name is registered in `FAULT_POINTS`; a test
 (tests/test_torch_faults.py) rejects a `fault_point("...")` call site in
 the package whose literal is not registered here, so the harness cannot
 drift from the product code it exercises. The registry equals the JAX
-package's, `decode.worker` and the `service.*` points included, though
-the port has no call site for them yet.
+package's, and every point has a call site in the port.
 
 Injection behavior is keyed by the point's kind:
 
@@ -79,7 +78,7 @@ FAULT_KINDS: Dict[str, str] = {
     # native page decode (data/native_reader.py)
     "decode.chunk": "data",    # one column chunk fails to decode
     "decode.runs": "data",     # a run-length stream corrupts mid-chunk
-    "decode.worker": "raise",  # a decode worker dies mid-unit (no port call site yet)
+    "decode.worker": "raise",  # a decode worker dies mid-unit (data/source.py)
     # staged stream pipeline (ops/pipeline.py)
     "pipeline.stage": "raise",  # the stage worker raises mid-batch
     "pipeline.stall": "sleep",  # the stage worker wedges on one batch
@@ -87,7 +86,7 @@ FAULT_KINDS: Dict[str, str] = {
     "state.save": "raise",     # the per-partition state commit fails
     "state.load": "raise",     # a cached-state read fails
     "state.segment": "raise",  # a DQSG segment envelope read/write fails
-    # DQ service: the fleet-scale execution layer (no port call site yet)
+    # DQ service: the fleet-scale execution layer (service/)
     "service.worker": "raise",     # a pool worker dies executing a run
     "service.scheduler": "sleep",  # the scheduler housekeeping tick wedges
     "service.admission": "raise",  # admission bookkeeping fails mid-submit

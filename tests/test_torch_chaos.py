@@ -7,11 +7,11 @@ decode failures, stage faults and stalls into a streamed scan must give
 exactly the clean run's snapshot on both placements. Every containment
 path (retry, in-place redo, pyarrow fallback) degrades to the same bits.
 
-The matrix is the reference's less `seed=105,decode.worker:1.0:1`: the
-port decodes on one thread and has no decode worker to kill (ROADMAP
-item 9), so that spec waits for the parallel decode. Every run is on the
-CPU; the checks are the reference fuzzer's, bound to the port's Check
-DSL (`port_random_check`).
+The matrix is the reference's, `seed=105,decode.worker:1.0:1` included:
+as in the reference, every run takes two decode workers, so that the
+worker the spec kills exists on any box. Every run is on the CPU; the
+checks are the reference fuzzer's, bound to the port's Check DSL
+(`port_random_check`).
 """
 
 from __future__ import annotations
@@ -26,13 +26,15 @@ from deequ_tpu_torch.testing import faults
 from deequ_tpu_torch.verification.suite import VerificationSuite as PSuite
 from torch_stream_helpers import assert_metric_equal, bits, port_random_check
 
-#: the reference's CHAOS_MATRIX without its decode.worker spec
-CHAOS_MATRIX = [spec for spec in fuzz.CHAOS_MATRIX if "decode.worker" not in spec]
+#: the reference's CHAOS_MATRIX
+CHAOS_MATRIX = list(fuzz.CHAOS_MATRIX)
 
 
 def test_matrix_is_the_reference_less_the_decode_worker():
-    assert len(fuzz.CHAOS_MATRIX) == 8 and len(CHAOS_MATRIX) == 7
-    assert set(fuzz.CHAOS_MATRIX) - set(CHAOS_MATRIX) == {"seed=105,decode.worker:1.0:1"}
+    """The matrix is the reference's whole, its decode.worker spec too
+    (the name is kept from when the port had no worker to kill)."""
+    assert CHAOS_MATRIX == fuzz.CHAOS_MATRIX and len(CHAOS_MATRIX) == 8
+    assert "seed=105,decode.worker:1.0:1" in CHAOS_MATRIX
 
 
 @pytest.fixture(scope="module")
@@ -52,6 +54,8 @@ def _run(chaos_file, monkeypatch, placement, tracing=False):
     monkeypatch.setenv("DEEQU_TPU_PLACEMENT", placement)
     monkeypatch.setenv("DEEQU_TPU_PIPELINE", "1")
     monkeypatch.setenv("DEEQU_TPU_RETRY_BASE_MS", "0.1")
+    # the worker pool needs more than one worker, on a one-core box too
+    monkeypatch.setenv("DEEQU_TPU_DECODE_WORKERS", "2")
     builder = PSuite.on_data(PTable.scan_parquet(path, batch_rows=max(64, rows // 5)), device="cpu")
     for check in checks:
         builder = builder.add_check(check)
@@ -78,7 +82,8 @@ def test_chaos_faults_bit_identical_both_placements(spec, placement, chaos_file,
         assert counters.get("retry.exhausted", 0) == 0
         if "read.corrupt" not in spec:
             assert counters.get("retry.attempts", 0) == injected
-    elif "pipeline.stage" in spec:
+    elif "pipeline.stage" in spec or "decode.worker" in spec:
+        # a failed stage item or a dead decode worker: one redo in place
         assert counters.get("fault.observed", 0) == injected == 1
         assert (counters.get("retry.attempts", 0), counters.get("retry.recovered", 0)) == (1, 1)
     else:
@@ -129,7 +134,7 @@ def test_a_fetch_that_raises_degrades_its_unit(chaos_file, monkeypatch):
 @pytest.mark.parametrize("spec", CHAOS_MATRIX)
 def test_faulted_port_run_equals_the_jax_clean_run(spec, chaos_file, monkeypatch):
     """The faulted port run against the JAX package's clean run of the
-    same file and checks (its plain pyarrow route, one decode worker, the
+    same file and checks (its plain pyarrow route, the
     device placement): float sums within 1e-12 relative, the rest exact
     (ROADMAP section 3)."""
     from deequ_tpu.data.table import Table as JTable

@@ -26,8 +26,9 @@ pytestmark = pytest.mark.usefixtures("cpu_default")
 
 class TestObservability:
     def test_telemetry_derivations_and_sentinel_watch(self, tmp_path, monkeypatch):
-        # the port decodes on one thread; the JAX package's default is
-        # min(cores, 4) workers, so its copy of this case pins the knob
+        # pinned: the reference case holds the telemetry to one worker
+        # (a one-core box's default); unpinned, both packages resolve
+        # min(cores, 4) workers (tests/test_torch_decode_workers.py)
         monkeypatch.setenv("DEEQU_TPU_DECODE_WORKERS", "1")
         from deequ_tpu_torch.analyzers import Completeness, Mean
         from deequ_tpu_torch.observe.runtrace import traced_run

@@ -44,7 +44,6 @@ pytestmark = pytest.mark.usefixtures("_host_placement")
 @pytest.fixture
 def _host_placement(monkeypatch):
     monkeypatch.setenv("DEEQU_TPU_PLACEMENT", "host")
-    monkeypatch.setenv("DEEQU_TPU_DECODE_WORKERS", "1")
     monkeypatch.delenv("DEEQU_TPU_NO_NATIVE", raising=False)
     monkeypatch.delenv("DEEQU_TPU_ENCODED_FOLD", raising=False)
     native.reset()

@@ -570,10 +570,8 @@ def test_every_fault_point_literal_in_the_port_is_registered():
                 point = node.args[0].value
                 assert point in faults.FAULT_POINTS, (path, node.lineno, point)
                 seen.add(point)
-    # the points with a call site in the port: all but the parallel
-    # decode's worker
-    unplaced = {"decode.worker"}
-    assert seen == faults.FAULT_POINTS - unplaced
+    # every registered point has a call site in the port
+    assert seen == faults.FAULT_POINTS
 
 
 @pytest.mark.parametrize("value", [None, "", "0", "5", "-2", "2.5", "x", "0.25"])

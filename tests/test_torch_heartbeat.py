@@ -10,12 +10,10 @@ analytically, like test_observe_overhead.py), and produce bit-identical
 metrics (differential test).
 
 Port-mapped from tests/test_heartbeat.py: the same cases against deequ_tpu_torch,
-every run on the CPU (tests/torch_cpu.py). The port has no
-`DEEQU_TPU_SOURCE_STALL_MS` (the JAX package's model of a remote store's
-latency, ROADMAP item 9), so where the reference stalls the decode by
-10 ms a row group with it, this copy stalls the source's decode by the
-same 10 ms a batch (`_stall_decode`), so that the scan outlives a few
-beats here too.
+every run on the CPU (tests/torch_cpu.py). As the reference does, the
+scans that must outlive a few beats stall each row-group read by 10 ms
+through `DEEQU_TPU_SOURCE_STALL_MS` (the model of a remote store's
+latency).
 """
 
 from __future__ import annotations
@@ -56,21 +54,6 @@ def parquet_path(tmp_path_factory):
     return path
 
 
-def _stall_decode(monkeypatch, ms):
-    """Sleep `ms` milliseconds before each decoded batch, on the decode
-    thread: the stall the reference takes from DEEQU_TPU_SOURCE_STALL_MS."""
-    from deequ_tpu_torch.data.source import ParquetSource
-
-    iter_tables = ParquetSource._iter_tables
-
-    def stalled(self, batch_size):
-        for table in iter_tables(self, batch_size):
-            time.sleep(ms / 1e3)
-            yield table
-
-    monkeypatch.setattr(ParquetSource, "_iter_tables", stalled)
-
-
 def _scan(path):
     source = Table.scan_parquet(path, batch_rows=BATCH_ROWS)
     return AnalysisRunner.on_data(source).add_analyzers(ANALYZERS).run()
@@ -80,7 +63,7 @@ class TestHeartbeatOnStreamedScan:
     def test_emits_converging_snapshots(self, parquet_path, monkeypatch):
         monkeypatch.setenv("DEEQU_TPU_HEARTBEAT_S", "0.02")
         # stall decode 10ms/row-group so the scan outlives a few beats
-        _stall_decode(monkeypatch, 10)
+        monkeypatch.setenv("DEEQU_TPU_SOURCE_STALL_MS", "10")
         monkeypatch.setenv("DEEQU_TPU_PIPELINE", "1")
         snaps = []
         cb = snaps.append
@@ -125,7 +108,7 @@ class TestHeartbeatOnStreamedScan:
         out = str(tmp_path / "beats.jsonl")
         monkeypatch.setenv("DEEQU_TPU_HEARTBEAT_S", "0.02")
         monkeypatch.setenv("DEEQU_TPU_HEARTBEAT_OUT", out)
-        _stall_decode(monkeypatch, 10)
+        monkeypatch.setenv("DEEQU_TPU_SOURCE_STALL_MS", "10")
         _scan(parquet_path)
         with open(out, encoding="utf-8") as fh:
             lines = [json.loads(line) for line in fh if line.strip()]

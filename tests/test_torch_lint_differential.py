@@ -220,9 +220,8 @@ def _same_counters(got, want):
 
 @pytest.fixture
 def same_knobs(monkeypatch):
-    """Both packages on the same placement, one decode worker."""
+    """Both packages on the same placement."""
     monkeypatch.setenv("DEEQU_TPU_PLACEMENT", "device")
-    monkeypatch.setenv("DEEQU_TPU_DECODE_WORKERS", "1")
 
 
 def _sorted_file(tmp_path, rows=6000, group=1000):

@@ -15,7 +15,7 @@ encoded-fold and pruning cases of both files are not ported either.
 Then the whole route: streamed verification and profiles through the
 C reader equal the pyarrow route (`DEEQU_TPU_NATIVE_READER=0`,
 `DEEQU_TPU_DECODE_FASTPATH=0`) bit for bit, and the JAX package's
-reader route (one decode worker) within the repo's parity rules.
+reader route within the repo's parity rules.
 """
 
 from __future__ import annotations
@@ -801,7 +801,8 @@ def test_a_short_read_reads_through_pyarrow(tmp_path, monkeypatch):
     fd = os.open(path, os.O_RDONLY)
     try:
         assert nr.fetch_chunk(fd, dataclasses.replace(meta, offset=os.fstat(fd).st_size - 4)) is None
-        assert src._read_native(fd, meta) is not None
+        tally = dict.fromkeys(("retries", "recovered", "exhausted", "observed"), 0)
+        assert nr.decode_chunk(src._fetch_native(fd, meta, path, tally), meta) is not None
     finally:
         os.close(fd)
     monkeypatch.setattr(nr, "fetch_chunk", lambda fd, meta: None)
@@ -818,8 +819,7 @@ def test_streamed_run_equals_the_jax_reader_route(tmp_path, monkeypatch):
     from deequ_tpu_torch import VerificationSuite
     from torch_stream_helpers import assert_metric_equal
 
-    for key, value in {"DEEQU_TPU_PLACEMENT": "device", "DEEQU_TPU_DECODE_WORKERS": "1",
-                       "DEEQU_TPU_ENCODED_FOLD": "0"}.items():
+    for key, value in {"DEEQU_TPU_PLACEMENT": "device", "DEEQU_TPU_ENCODED_FOLD": "0"}.items():
         monkeypatch.setenv(key, value)
     path = str(tmp_path / "jax.parquet")
     pq.write_table(_stream_table(5_000, 6), path, row_group_size=1_000)

@@ -401,7 +401,6 @@ def test_dispatch_times_the_launch_where_jax_times_the_pack(tmp_path, monkeypatc
     from deequ_tpu.data.table import Table as JT
 
     monkeypatch.setenv("DEEQU_TPU_PLACEMENT", "device")
-    monkeypatch.setenv("DEEQU_TPU_DECODE_WORKERS", "1")
     cols = _columns(n=6000, seed=11)
     path = str(tmp_path / "t.parquet")
     pq.write_table(pa.table(cols), path, row_group_size=1000)

@@ -218,7 +218,6 @@ def test_pruned_run_equals_jax(clustered, monkeypatch, device_placement):
     path, k7, _ = clustered
     where = f"key >= {k7}"
     monkeypatch.setenv("DEEQU_TPU_PUSHDOWN", "1")
-    monkeypatch.setenv("DEEQU_TPU_DECODE_WORKERS", "1")
     got = values(
         AnalysisRunner.on_data(Table.scan_parquet(path, batch_rows=1 << 20), device="cpu")
         .add_analyzers(skip_members(an, where, f"{where} and discount >= 0.0"))

@@ -5,11 +5,7 @@ scheduling, and the preempt-then-resume bit-identity contract.
 Port-mapped from tests/test_service.py: the same cases against
 deequ_tpu_torch, every run on the CPU (tests/torch_cpu.py), the suites
 drawn by the JAX fuzzer's `random_check` bound to the port's Check DSL.
-One case differs in how it widens its preemption window: the JAX case
-sets `DEEQU_TPU_SOURCE_STALL_MS`, a knob of the source latency model
-that the port has not (ROADMAP item 9); here a `pipeline.stall` fault
-plan sleeps before each streamed batch's prep instead. Then the SIGTERM
-drain case of tests/test_pipeline_shutdown.py.
+Then the SIGTERM drain case of tests/test_pipeline_shutdown.py.
 
 The cases at the end hold the port to the JAX package: the four service
 knobs; admission's tier, code and quota headroom over the same schema,
@@ -54,7 +50,6 @@ from deequ_tpu_torch.service import (
     TenantQuota,
 )
 from deequ_tpu_torch.service.admission import AdmissionController
-from deequ_tpu_torch.testing import faults
 from torch_stream_helpers import port_random_check, port_table
 
 pytestmark = pytest.mark.usefixtures("cpu_default")
@@ -522,9 +517,7 @@ def test_service_preempts_heavy_for_interactive_then_resumes(monkeypatch, tmp_pa
     """Preemptive scheduling on one worker: a running heavy run is
     soft-cancelled when interactive work arrives, the interactive check
     runs first, and the heavy run resumes from its committed partition
-    states to its solo run's bits. A `pipeline.stall` fault plan sleeps
-    before each streamed batch's prep of the heavy run, so the preemption
-    window is wide."""
+    states to its solo run's bits."""
     from deequ_tpu_torch.lint import cost as cost_mod
 
     rng = np.random.default_rng(31_337)
@@ -542,28 +535,29 @@ def test_service_preempts_heavy_for_interactive_then_resumes(monkeypatch, tmp_pa
         VerificationSuite().on_data(heavy_data()).add_check(check).with_engine("single").run()
     )
 
+    # slow each row-group read so the preemption window is wide
+    monkeypatch.setenv("DEEQU_TPU_SOURCE_STALL_MS", "150")
     repo = FileSystemStateRepository(str(tmp_path / "states"))
     with DQService(workers=1, state_repository=repo) as svc:
-        with faults.install("seed=1,stall=0.15,pipeline.stall:1.0"):
-            # classify the submission as heavy whatever its size
-            monkeypatch.setattr(cost_mod, "ADMISSION_INTERACTIVE_BYTES", 0.0)
-            monkeypatch.setattr(cost_mod, "ADMISSION_HEAVY_BYTES", 1.0)
-            heavy = svc.submit("works", "big", heavy_data, checks=[check])
-            assert heavy.tier == "heavy"
-            monkeypatch.setattr(cost_mod, "ADMISSION_INTERACTIVE_BYTES", 64 << 20)
-            monkeypatch.setattr(cost_mod, "ADMISSION_HEAVY_BYTES", 1 << 30)
+        # classify the submission as heavy whatever its size
+        monkeypatch.setattr(cost_mod, "ADMISSION_INTERACTIVE_BYTES", 0.0)
+        monkeypatch.setattr(cost_mod, "ADMISSION_HEAVY_BYTES", 1.0)
+        heavy = svc.submit("works", "big", heavy_data, checks=[check])
+        assert heavy.tier == "heavy"
+        monkeypatch.setattr(cost_mod, "ADMISSION_INTERACTIVE_BYTES", 64 << 20)
+        monkeypatch.setattr(cost_mod, "ADMISSION_HEAVY_BYTES", 1 << 30)
 
-            for _ in range(500):
-                if heavy.status == "running":
-                    break
-                time.sleep(0.01)
-            assert heavy.status == "running"
+        for _ in range(500):
+            if heavy.status == "running":
+                break
+            time.sleep(0.01)
+        assert heavy.status == "running"
 
-            # the in-memory interactive run streams no batch: no stall
-            inter = svc.submit("ops", "ping", _small_table(), checks=[_basic_check()])
-            assert inter.tier == "interactive"
-            assert inter.wait(timeout=120) and inter.status == "done"
-            assert heavy.wait(timeout=180)
+        monkeypatch.delenv("DEEQU_TPU_SOURCE_STALL_MS")
+        inter = svc.submit("ops", "ping", _small_table(), checks=[_basic_check()])
+        assert inter.tier == "interactive"
+        assert inter.wait(timeout=120) and inter.status == "done"
+        assert heavy.wait(timeout=180)
         assert heavy.status == "done", (heavy.status, heavy.reason)
         if heavy.preemptions:
             # the interactive check finished BEFORE the preempted heavy

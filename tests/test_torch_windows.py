@@ -718,7 +718,6 @@ class TestWindowTelemetry:
 _JAX_KNOBS = {
     "DEEQU_TPU_PLACEMENT": "device",
     "DEEQU_TPU_ENCODED_FOLD": "0",
-    "DEEQU_TPU_DECODE_WORKERS": "1",
 }
 
 

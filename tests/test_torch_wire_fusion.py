@@ -406,7 +406,6 @@ def test_fused_run_equals_jax(tmp_path, monkeypatch):
     from deequ_tpu.runners import AnalysisRunner as JRunner
 
     monkeypatch.setenv("DEEQU_TPU_PLACEMENT", "device")
-    monkeypatch.setenv("DEEQU_TPU_DECODE_WORKERS", "1")
     path = _write_numeric_parquet(tmp_path)
     got, _ = _run(path)
     jctx = JRunner.do_analysis_run(JSource(path, batch_rows=1400), _analyzers(J), engine="single")

@@ -19,7 +19,6 @@ PLAIN_ROUTE_ENV = {
     "DEEQU_TPU_NATIVE_READER": "0",
     "DEEQU_TPU_ENCODED_FOLD": "0",
     "DEEQU_TPU_PLACEMENT": "device",
-    "DEEQU_TPU_DECODE_WORKERS": "1",
 }
 
 # metrics folded as float sums: torch and XLA add in other orders
@@ -28,8 +27,8 @@ INEXACT = ("Mean", "Sum", "StandardDeviation", "Correlation", "Entropy", "Mutual
 
 def plain_route(monkeypatch) -> None:
     """Pin both packages to the pyarrow route and the device placement,
-    the JAX package to one decode worker, and take the JAX package's C
-    host library away (it sums string statistics in long double)."""
+    and take the JAX package's C host library away (it sums string
+    statistics in long double)."""
     from deequ_tpu.ops import native
 
     for key, value in PLAIN_ROUTE_ENV.items():
