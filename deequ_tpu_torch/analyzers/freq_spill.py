@@ -36,6 +36,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from deequ_tpu_torch import observe
 from deequ_tpu_torch.analyzers.states import State
 
 
@@ -83,6 +84,14 @@ class _SpillWriter:
             self.num_rows += partial.num_rows
         if partial.num_groups == 0:
             return
+        with observe.span("spill_write", cat="group", rows=partial.num_groups) as sp:
+            written = self._write(partial)
+            if sp:
+                sp.set(bytes=written)
+
+    def _write(self, partial) -> int:
+        """`append`'s routing and writes; -> the bytes written."""
+        written = 0
         key_columns = partial.key_columns
         if partial.columns != self.columns:
             key_columns = [partial.key_columns[partial.columns.index(c)] for c in self.columns]
@@ -116,10 +125,21 @@ class _SpillWriter:
             path = os.path.join(self.directory, f"p{p:03d}_{self._seq:06d}.pkl")
             with open(path, "wb") as f:
                 pickle.dump(chunk, f, protocol=pickle.HIGHEST_PROTOCOL)
+                written += f.tell()
+        return written
 
     def finalize(self) -> "SpilledFrequencies":
         """Compact each partition to one file and count the groups
         exactly; the directory passes to the returned state."""
+        with observe.span("spill_finalize", cat="group", partitions=self.n_partitions):
+            num_groups = self._compact()
+        self._cleanup.detach()
+        return SpilledFrequencies(
+            self.columns, self.directory, self.n_partitions, self.num_rows, num_groups
+        )
+
+    def _compact(self) -> int:
+        """`finalize`'s per-partition compaction; -> the groups counted."""
         from deequ_tpu_torch.analyzers.frequency import FrequenciesAndNumRows
 
         num_groups = 0
@@ -151,10 +171,7 @@ class _SpillWriter:
                 pickle.dump((merged.key_columns, merged.counts), f, protocol=pickle.HIGHEST_PROTOCOL)
             for fn in chunk_files:
                 os.unlink(os.path.join(self.directory, fn))
-        self._cleanup.detach()
-        return SpilledFrequencies(
-            self.columns, self.directory, self.n_partitions, self.num_rows, num_groups
-        )
+        return num_groups
 
 
 class SpilledFrequencies(State):
@@ -184,8 +201,11 @@ class SpilledFrequencies(State):
             path = os.path.join(self.directory, f"part{p:03d}.pkl")
             if not os.path.exists(path):
                 continue
-            with open(path, "rb") as f:
-                key_columns, counts = pickle.load(f)
+            with observe.span("spill_read", cat="group", partition=p) as sp:
+                with open(path, "rb") as f:
+                    key_columns, counts = pickle.load(f)
+                if sp:
+                    sp.set(rows=len(counts))
             yield FrequenciesAndNumRows(self.columns, key_columns, counts, 0)
 
     def top_n(self, n: int) -> Tuple[List[np.ndarray], np.ndarray]:

@@ -164,10 +164,15 @@ def compute_frequencies(
     batch through `GroupCountAccumulator`, so host memory is O(groups)
     below the cap and bounded above it (the disk spill). With a `mesh`
     (parallel/distributed.py) a code space of at most _MAX_DEVICE_BINS
-    groups is counted row-sharded on its devices (`sharded_bincount`)."""
-    with observe.span("group_pass", cat="group", columns=",".join(grouping_columns)):
+    groups is counted row-sharded on its devices (`sharded_bincount`).
+    Traced, the `group_pass` span says whether the groups `spilled`."""
+    with observe.span("group_pass", cat="group", columns=",".join(grouping_columns)) as sp:
         runtime.record_group_pass(",".join(grouping_columns))
-        return _compute_frequencies(data, grouping_columns, num_rows, mesh)
+        state = _compute_frequencies(data, grouping_columns, num_rows, mesh)
+        if sp:
+            # whether the disk spill (its `spill_*` spans) holds the groups
+            sp.set(spilled=not isinstance(state, FrequenciesAndNumRows))
+        return state
 
 
 def _compute_frequencies(

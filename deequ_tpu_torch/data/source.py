@@ -46,6 +46,7 @@ from deequ_tpu_torch.data.table import NUMPY_BACKING, Column, ColumnType, Table
 from deequ_tpu_torch.observe import heartbeat
 from deequ_tpu_torch.observe import spans as _spans
 from deequ_tpu_torch.ops import runtime
+from deequ_tpu_torch.ops.pipeline import put_blocking
 from deequ_tpu_torch.testing import faults
 
 if TYPE_CHECKING:
@@ -282,6 +283,10 @@ class DataSource:
         thread closes its `_iter_tables` iterator on its own thread before
         it exits, so open files close then, not at garbage collection.
 
+        With tracing on, the consumer's every wait for a batch is a
+        `pipe_wait` leaf span on "decode", and a put that finds the queue
+        full one on the consumer's stage with `blocked=True`.
+
         `DEEQU_TPU_PIPELINE=0` decodes on the caller's thread instead
         (`_batches_serial`): the same batches in the same order. A source
         with no rows yields one empty batch, so every analyzer sees the
@@ -293,18 +298,11 @@ class DataSource:
         stop = threading.Event()
         error: List[BaseException] = []
 
-        def _put(item) -> bool:
-            while not stop.is_set():
-                try:
-                    q.put(item, timeout=0.1)
-                    return True
-                except queue.Full:
-                    continue
-            return False
-
         sinks = runtime.current_sinks()
         tracer = _spans.current_tracer()
         parent = _spans.current_span()
+        # the stage that takes the batches: the consumer's innermost span
+        consumer = parent.attrs.get("stage", parent.name) if parent is not None else "consumer"
 
         def producer() -> None:
             with runtime.attached_sinks(sinks), _spans.attached(tracer, parent):
@@ -326,7 +324,7 @@ class DataSource:
                                     sp.set(eos=True)
                                 else:
                                     sp.set(rows=int(table.num_rows))
-                        if table is _SENTINEL or not _put(table):
+                        if table is _SENTINEL or not put_blocking(q, table, stop, consumer):
                             break
                         items += 1
                     if stage_sp:
@@ -339,14 +337,15 @@ class DataSource:
                 except BaseException as e:  # noqa: BLE001
                     if not error:
                         error.append(e)
-                _put(_SENTINEL)
+                put_blocking(q, _SENTINEL, stop, consumer)
 
         thread = threading.Thread(target=producer, daemon=True, name="deequ-decode")
         thread.start()
         produced_any = False
         try:
             while True:
-                item = q.get()
+                with _spans.waiting("decode"):
+                    item = q.get()
                 if item is _SENTINEL:
                     break
                 produced_any = True

@@ -32,11 +32,13 @@ from deequ_tpu_torch.observe.spans import (
     span,
     timed_call,
     tracing,
+    waiting,
 )
 from deequ_tpu_torch.observe import counters
 from deequ_tpu_torch.observe.export import (
     chrome_trace,
     merge_chrome_traces,
+    on_span_clock,
     write_chrome_trace,
 )
 from deequ_tpu_torch.observe.compare import (
@@ -77,6 +79,8 @@ from deequ_tpu_torch.observe.telemetry import (
     proc_resources,
 )
 
+# `__all__` is the JAX package's list; the port's own names (`waiting`,
+# `on_span_clock`) are attributes outside it
 __all__ = [
     "Span",
     "Tracer",

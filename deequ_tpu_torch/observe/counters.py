@@ -51,7 +51,7 @@ def record_pass(label: str) -> None:
         sink.pass_labels.append(label)
     tracer = spans.current_tracer()
     if tracer is not None:
-        tracer.count("device_passes", 1, label)
+        tracer.count("device_passes", 1)
 
 
 def record_launch() -> None:
@@ -70,7 +70,7 @@ def record_group_pass(label: str) -> None:
         sink.pass_labels.append(f"group:{label}")
     tracer = spans.current_tracer()
     if tracer is not None:
-        tracer.count("group_passes", 1, f"group:{label}")
+        tracer.count("group_passes", 1)
 
 
 def record_pruned_groups(skipped: int, total: int) -> None:

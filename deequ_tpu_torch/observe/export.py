@@ -12,14 +12,21 @@ properly by construction regardless of clock granularity. Multihost
 runs write one file per process; `merge_chrome_traces` concatenates
 them keyed by each file's recorded process index so one Perfetto view
 shows every host.
+
+A torch.profiler trace joins a span trace on one clock: a tracer made
+while a profiler records opens a zero-length `deequ.trace_epoch`
+record_function at its epoch (observe/spans.py), and `on_span_clock`
+shifts the profiler's events so that the marker's end falls at the
+span trace's 0. `chrome_trace(..., device_trace=...)` appends them, so
+one view shows the host spans beside the CUDA kernels.
 """
 
 from __future__ import annotations
 
 import json
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Union
 
-from deequ_tpu_torch.observe.spans import Span
+from deequ_tpu_torch.observe.spans import EPOCH_MARKER, Span
 
 
 def process_index() -> int:
@@ -85,19 +92,57 @@ def _events_for(
     )
 
 
+def on_span_clock(device_trace: Union[str, dict]) -> List[dict]:
+    """The events of a torch.profiler Chrome trace (its document, or the
+    path `export_chrome_trace` wrote) with `ts` in microseconds on the
+    span clock of the first tracer made while the profiler recorded.
+    Raises ValueError when the trace holds no epoch marker."""
+    if isinstance(device_trace, str):
+        with open(device_trace, encoding="utf-8") as f:
+            device_trace = json.load(f)
+    events = device_trace.get("traceEvents", [])
+    markers = [e for e in events if e.get("name") == EPOCH_MARKER and e.get("ph") == "X"]
+    if not markers:
+        raise ValueError(
+            f"the device trace holds no {EPOCH_MARKER} marker: make the tracer while "
+            "the profiler records"
+        )
+    first = min(markers, key=lambda e: e["ts"])
+    # the tracer read its epoch last thing inside the marker
+    anchor = float(first["ts"]) + float(first.get("dur", 0.0))
+    out = []
+    for event in events:
+        event = dict(event)
+        if "ts" in event:
+            event["ts"] = float(event["ts"]) - anchor
+        out.append(event)
+    return out
+
+
 def chrome_trace(
     roots: Sequence[Span],
     epoch: float = 0.0,
     pid: Optional[int] = None,
     metadata: Optional[dict] = None,
+    device_trace: Union[str, dict, None] = None,
 ) -> dict:
-    """The trace document for a span forest: `{"traceEvents": [...]}`."""
+    """The trace document for a span forest: `{"traceEvents": [...]}`.
+    `device_trace`, a torch.profiler Chrome trace of the same run, joins
+    it on the span clock (`on_span_clock`), its processes renumbered."""
     if pid is None:
         pid = process_index()
     events: List[dict] = []
     tid_map: Dict[int, int] = {}
     for root in roots:
         _events_for(root, epoch, pid, tid_map, events)
+    if device_trace is not None:
+        # the profiler's processes move to 1000 * (pid + 1) + n, apart
+        # from every span process (a rank, below 1000)
+        pid_map: Dict[object, int] = {}
+        for event in on_span_clock(device_trace):
+            if "pid" in event:
+                event["pid"] = pid_map.setdefault(event["pid"], 1000 * (pid + 1) + len(pid_map))
+            events.append(event)
     meta = {"process_index": pid}
     if metadata:
         meta.update(metadata)

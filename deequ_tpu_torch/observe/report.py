@@ -1,9 +1,12 @@
 """Human-readable run reports and per-phase accounting.
 
-`phase_seconds` buckets SELF time (a span's duration minus its
-children's) by span category, so the buckets are disjoint and sum to
-~the run's wall time — the per-operator accounting LaraDB
-(arXiv:1703.07342) argues fused kernels need. `render_report` draws
+`phase_seconds` buckets SELF time (a span's duration minus what its
+own thread's children cover) by span category, so the buckets of one
+thread are disjoint and sum to ~its wall time; stage and pool threads
+add their busy thread-seconds — the per-operator accounting LaraDB
+(arXiv:1703.07342) argues fused kernels need. `wait_seconds` sums the
+queue waits (`pipe_wait` leaves) by the stage waited for, and
+`build_seconds` the input builds by spec key. `render_report` draws
 the span tree with durations, categories and attributes; repeated
 siblings (per-batch dispatches, per-family kernels) aggregate into one
 `×N` line so streaming runs stay readable.
@@ -16,7 +19,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
-from deequ_tpu_torch.observe.spans import Span, Tracer
+from deequ_tpu_torch.observe.spans import WAIT_SPAN, Span, Tracer
 
 # The headline buckets (always present in phase_seconds, even at 0.0):
 # fuse-group planning, kernel dispatch, device<->host transfer, state
@@ -33,6 +36,9 @@ PIPE_ITEM_SPAN = "pipe_item"
 
 Roots = Union[Span, Tracer, Sequence[Span]]
 
+#: input builds the run report lists
+TOP_BUILDS = 5
+
 
 def _roots_of(roots: Roots) -> Sequence[Span]:
     if isinstance(roots, Span):
@@ -42,13 +48,30 @@ def _roots_of(roots: Roots) -> Sequence[Span]:
     return list(roots)
 
 
+def _covered_s(span: Span) -> float:
+    """The part of `span`'s interval that its children on its own thread
+    cover (the union of their intervals, clipped to the span). A child of
+    another thread (a stage or pool thread that adopted the span) runs
+    beside the span, not inside its time."""
+    intervals = sorted(
+        (max(c.t0, span.t0), min(c.t1, span.t1)) for c in span.children if c.tid == span.tid
+    )
+    covered, end = 0.0, span.t0
+    for t0, t1 in intervals:
+        t0 = max(t0, end)
+        if t1 > t0:
+            covered += t1 - t0
+            end = t1
+    return covered
+
+
 def phase_seconds(roots: Roots) -> Dict[str, float]:
-    """Disjoint self-time per span category, in seconds."""
+    """Disjoint self-time per span category, in seconds: a span's
+    duration less what its own thread's children cover."""
     buckets: Dict[str, float] = {phase: 0.0 for phase in PHASES}
 
     def visit(span: Span) -> None:
-        child_total = sum(c.duration_s for c in span.children)
-        self_time = max(span.duration_s - child_total, 0.0)
+        self_time = max(span.duration_s - _covered_s(span), 0.0)
         cat = span.cat or "other"
         buckets[cat] = buckets.get(cat, 0.0) + self_time
         for child in span.children:
@@ -57,6 +80,36 @@ def phase_seconds(roots: Roots) -> Dict[str, float]:
     for root in _roots_of(roots):
         visit(root)
     return buckets
+
+
+def _spans_of(roots: Roots):
+    for root in _roots_of(roots):
+        yield from root.walk()
+
+
+def wait_seconds(roots: Roots) -> Dict[str, float]:
+    """Seconds of the queue waits by the stage waited for (`on`); a put
+    that found its queue full counts under "<on> (blocked)"."""
+    out: Dict[str, float] = {}
+    for span in _spans_of(roots):
+        if span.name == WAIT_SPAN:
+            key = str(span.attrs.get("on"))
+            if span.attrs.get("blocked"):
+                key += " (blocked)"
+            out[key] = out.get(key, 0.0) + span.duration_s
+    return out
+
+
+def build_seconds(roots: Roots) -> Dict[str, float]:
+    """Seconds of the input builds by spec key, from the `build_s:<key>`
+    attributes the builds add to the span open around them."""
+    out: Dict[str, float] = {}
+    for span in _spans_of(roots):
+        for attr, value in span.attrs.items():
+            if attr.startswith("build_s:"):
+                key = attr[len("build_s:"):]
+                out[key] = out.get(key, 0.0) + value
+    return out
 
 
 def pipeline_occupancy(roots: Roots) -> List[Dict[str, Any]]:
@@ -252,7 +305,8 @@ def render_report(
                 child, n, secs, "", i == len(grouped) - 1, lines, 1, max_depth
             )
     occupancy = pipeline_occupancy(root_list)
-    if occupancy:
+    waits = wait_seconds(root_list)
+    if occupancy or waits:
         lines.append("pipeline occupancy (busy/wall per stage):")
         for i, row in enumerate(occupancy):
             marker = "  <- bottleneck" if i == 0 else ""
@@ -268,6 +322,16 @@ def render_report(
                 f"  stall {row['stall_s']:.3f}s"
                 f"  items {row['items']}{ra}{marker}"
             )
+        if waits:
+            # the stalls' measured split, by the stage waited for
+            lines.append("  waits on: " + " | ".join(
+                f"{key} {waits[key]:.3f}s" for key in sorted(waits, key=lambda k: (-waits[k], k))
+            ))
+    builds = build_seconds(root_list)
+    if builds:
+        lines.append(f"input builds (top {TOP_BUILDS} of {len(builds)}):")
+        for key in sorted(builds, key=lambda k: (-builds[k], k))[:TOP_BUILDS]:
+            lines.append(f"  {builds[key]:.3f}s  {key}")
     phases = phase_seconds(root_list)
     phase_text = " | ".join(
         f"{name} {phases[name]:.3f}s"

@@ -16,11 +16,17 @@ tracer is active.
 Worker-pool threads see an empty stack by construction (thread-local);
 a dispatcher that fans work out to a pool captures `current_tracer()` /
 `current_span()` and has workers adopt them with `attached()`.
+
+`waiting()` records a thread's wait at a queue hand-off as a leaf span
+(`pipe_wait`, cat `wait`): it hangs under the innermost open span but
+never becomes the innermost itself, so a thread or generator started
+during the wait never hangs under it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import sys
 import threading
 import time
 from typing import Any, Dict, Iterator, List, Optional, Tuple
@@ -53,7 +59,9 @@ def current_span() -> Optional["Span"]:
 class Span:
     """One timed region of a traced run. Context manager: times the
     block, attaches itself under the innermost open span (or as a
-    tracer root), and is the innermost span for the duration."""
+    tracer root), and is the innermost span for the duration, unless it
+    is a `leaf`: a leaf is never pushed, so nothing opened during it
+    hangs under it."""
 
     __slots__ = (
         "name",
@@ -65,9 +73,10 @@ class Span:
         "tid",
         "attrs",
         "children",
+        "leaf",
     )
 
-    def __init__(self, name: str, cat: Optional[str] = None, attrs=None):
+    def __init__(self, name: str, cat: Optional[str] = None, attrs=None, leaf: bool = False):
         self.name = name
         self.cat = cat
         self.t0 = self.t1 = 0.0
@@ -75,6 +84,7 @@ class Span:
         self.tid = 0
         self.attrs: Dict[str, Any] = dict(attrs) if attrs else {}
         self.children: List[Span] = []
+        self.leaf = leaf
 
     @property
     def duration_s(self) -> float:
@@ -108,7 +118,8 @@ class Span:
             with tracer.lock:
                 sink = parent.children if parent is not None else tracer.roots
                 sink.append(self)
-            st.append((tracer, self))
+            if not self.leaf:
+                st.append((tracer, self))
         self.cpu0 = _process_time()
         self.t0 = _perf_counter()
         return self
@@ -119,7 +130,7 @@ class Span:
         if exc_type is not None:
             self.attrs.setdefault("error", exc_type.__name__)
         st = getattr(_local, "stack", None)
-        if st:
+        if st and not self.leaf:
             if st[-1][1] is self:
                 st.pop()
             else:  # unbalanced exit (span closed on another thread/path)
@@ -160,6 +171,10 @@ class _NoopSpan:
 
 _NOOP = _NoopSpan()
 
+#: the wait leaf's name and category
+WAIT_SPAN = "pipe_wait"
+WAIT_CAT = "wait"
+
 
 def span(name: str, cat: Optional[str] = None, **attrs: Any):
     """Open a span under the current thread's trace context. Returns
@@ -170,6 +185,17 @@ def span(name: str, cat: Optional[str] = None, **attrs: Any):
     return Span(name, cat, attrs)
 
 
+def waiting(on: str, **attrs: Any):
+    """A leaf span over a wait for another stage (`on`: the stage waited
+    for, e.g. "decode" or "prep"). Returns the inert singleton when
+    tracing is off."""
+    st = getattr(_local, "stack", None)
+    if not st:
+        return _NOOP
+    attrs["on"] = on
+    return Span(WAIT_SPAN, WAIT_CAT, attrs, leaf=True)
+
+
 def annotate(**attrs: Any) -> None:
     """Set attributes on the innermost open span; no-op when untraced."""
     s = current_span()
@@ -177,26 +203,48 @@ def annotate(**attrs: Any) -> None:
         s.attrs.update(attrs)
 
 
+#: the torch.profiler event a tracer opens at its epoch, when a profiler
+#: records as the tracer is made (observe/export.py aligns by it)
+EPOCH_MARKER = "deequ.trace_epoch"
+
+
+def _profiler_recording() -> bool:
+    """Whether a torch.profiler records this thread's ops; False when
+    torch was never imported (no profiler can run then)."""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch._C._autograd._profiler_enabled()
+
+
+def _marked_epoch() -> float:
+    """The tracer's epoch: a perf_counter reading, taken inside a
+    zero-length `EPOCH_MARKER` record_function when a torch.profiler is
+    recording, so that the profiler's trace can be put on the span clock
+    by the marker's end."""
+    if not _profiler_recording():
+        return _perf_counter()
+    from torch.profiler import record_function
+
+    with record_function(EPOCH_MARKER):
+        return _perf_counter()
+
+
 class Tracer:
     """Owns one trace: a forest of root spans, a monotonic epoch the
     exporter subtracts timestamps from, and run-level counters kept
     bit-identical to `ExecutionStats` (observe.counters feeds both)."""
 
-    __slots__ = ("lock", "roots", "epoch", "epoch_unix", "counters", "labels")
+    __slots__ = ("lock", "roots", "epoch", "epoch_unix", "counters")
 
     def __init__(self) -> None:
         self.lock = threading.Lock()
         self.roots: List[Span] = []
-        self.epoch = _perf_counter()
+        self.epoch = _marked_epoch()
         self.epoch_unix = time.time()
         self.counters: Dict[str, int] = {}
-        self.labels: List[str] = []
 
-    def count(self, name: str, n: int = 1, label: Optional[str] = None) -> None:
+    def count(self, name: str, n: int = 1) -> None:
         with self.lock:
             self.counters[name] = self.counters.get(name, 0) + n
-            if label is not None:
-                self.labels.append(label)
         s = current_span()
         if s is not None:
             s.add(name, n)
@@ -242,3 +290,4 @@ def timed_call(fn) -> float:
     t0 = _perf_counter()
     fn()
     return _perf_counter() - t0
+

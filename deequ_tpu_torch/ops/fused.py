@@ -66,6 +66,7 @@ from __future__ import annotations
 import contextlib
 import os
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
@@ -934,7 +935,9 @@ class HostInputs(dict):
     """One batch's inputs by key. A key builds on its first access, so a
     member that answers from another's memo never pays for the inputs
     it skipped. A build failure is remembered and raised again on every
-    access: it fails exactly the members that read the key."""
+    access: it fails exactly the members that read the key. Traced, a
+    build adds its seconds to the innermost open span's `build_s` and
+    `build_s:<key>` attributes."""
 
     def __init__(self, specs: Dict[str, Any], batch: Table):
         super().__init__()
@@ -949,8 +952,14 @@ class HostInputs(dict):
         spec = self._specs.get(key)
         if spec is None:
             raise KeyError(key)
+        sp = observe.current_span()
         try:
+            t0 = 0.0 if sp is None else time.perf_counter()
             value = np.asarray(spec.build(self.batch))
+            if sp is not None:
+                # the build's seconds by key, on the span open around it
+                seconds = time.perf_counter() - t0
+                sp.add("build_s", seconds).add(f"build_s:{key}", seconds)
         except Exception as e:  # noqa: BLE001
             self.build_errors[key] = e
             raise
@@ -1499,7 +1508,10 @@ class PipelinedAggFold:
         meta,
         host_ctx: Optional[Dict[str, np.ndarray]] = None,
         shard_bounds: Optional[Sequence[Tuple[int, int]]] = None,
+        timing: Optional[Tuple[Any, Any]] = None,
     ) -> None:
+        """`timing`: the (start, end) CUDA events around the batch's
+        program, read once its partials have landed."""
         if self.device.type == "cuda":
             host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
             host.copy_(flat, non_blocking=True)
@@ -1509,16 +1521,21 @@ class PipelinedAggFold:
             host, landed = flat, None
         if self._pending is not None:
             self._fold(self._pending)
-        self._pending = (host, landed, meta, host_ctx, shard_bounds)
+        self._pending = (host, landed, meta, host_ctx, shard_bounds, timing)
 
     def _fold(self, pending) -> None:
         """Wait for a batch's packed partials to land on the host (the
         `transfer` span: under asynchronous launches this is where the
-        host waits for the device) and fold them (the `merge` span)."""
-        host, landed, meta, host_ctx, shard_bounds = pending
-        with observe.span("transfer", cat="transfer", bytes=int(host.nbytes)):
+        host waits for the device) and fold them (the `merge` span). A
+        timed batch's program time goes on the transfer span as
+        `device_ms`: its end event came before the copy's, so reading it
+        waits for nothing more."""
+        host, landed, meta, host_ctx, shard_bounds, timing = pending
+        with observe.span("transfer", cat="transfer", bytes=int(host.nbytes)) as sp:
             if landed is not None:
                 landed.synchronize()
+            if timing is not None and sp:
+                sp.set(device_ms=timing[0].elapsed_time(timing[1]))
             rows = host.numpy().reshape(self.n_dev, -1)
         with observe.span("merge", cat="merge"):
             self._merge(rows, meta, host_ctx, shard_bounds)
@@ -1880,6 +1897,15 @@ class _Prepped:
     wire_bytes: int = 0  # the packed host buffers' bytes, for the dispatch span
 
 
+def program_timer(device: torch.device) -> Optional[Tuple[Any, Any]]:
+    """Two timing events for one launch of the fused program, only under a
+    live span (the `dispatch` span) on a CUDA device: untraced, no event
+    is made."""
+    if observe.current_span() is None or device.type != "cuda":
+        return None
+    return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+
 class _BatchScan:
     """One pass's per-batch loop: `prep` builds a batch's device inputs,
     packs them (splicing in the rows the decode wrote straight to the
@@ -1988,14 +2014,20 @@ class _BatchScan:
 
     def _launch(self, item: _Prepped) -> None:
         """Run the device program on the batch's wire and submit its
-        partials to the fold."""
+        partials to the fold; traced on a CUDA device, between two timing
+        events on the program's stream."""
         self._await_copy(item.wire, item.copied, self.device)
         program = get_fused_fn(self.analyzers, item.layout, self.device, self.assisted)
         runtime.record_launch()
+        timing = program_timer(self.device)
+        if timing is not None:
+            stream = torch.cuda.current_stream(self.device)
+            timing[0].record(stream)
+        flat, meta = program(item.wire, item.batch.num_rows)
+        if timing is not None:
+            timing[1].record(stream)
         # assisted members finish against the batch's host inputs
-        self.fold.submit(
-            *program(item.wire, item.batch.num_rows), item.built if self.assisted else None
-        )
+        self.fold.submit(flat, meta, item.built if self.assisted else None, timing=timing)
 
     def fold_item(self, item: _Prepped) -> bool:
         """Fold one prepped batch; False once every member has failed."""

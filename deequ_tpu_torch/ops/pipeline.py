@@ -20,8 +20,9 @@ gives the same bits.
 The stage thread adopts the consumer's `monitored()` blocks and its
 trace context (tracer and innermost span) in one hook, and reports a
 `pipe_stage` span with one `pipe_item` child per batch: what the run
-report's pipeline occupancy reads. With tracing off the spans are the
-no-op singleton.
+report's pipeline occupancy reads. The waits at both ends of the queue
+are `pipe_wait` leaves (`observe.waiting`), so a stage's items and waits
+cover its wall. With tracing off the spans are the no-op singleton.
 
 The JAX counterpart is deequ_tpu/ops/pipeline.py.
 """
@@ -41,6 +42,27 @@ _SENTINEL = object()
 #: how long shutdown waits for a stage thread (as data/source.py waits
 #: for its decode thread)
 JOIN_TIMEOUT_S = 10.0
+
+
+def put_blocking(q: "queue.Queue[Any]", item: Any, stop: threading.Event, on: str) -> bool:
+    """Put `item` on `q`, polling until it fits or `stop` is set; -> whether
+    it went in. A put that finds the queue full is a `pipe_wait` leaf on
+    `on` (the consumer's stage) with `blocked=True`."""
+    if stop.is_set():
+        return False
+    try:
+        q.put_nowait(item)
+        return True
+    except queue.Full:
+        pass
+    with observe.waiting(on, blocked=True):
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+    return False
 
 
 def staged(
@@ -68,6 +90,10 @@ def staged(
     per-batch prep, so the redo gives the same bits), and only a second
     failure ends the stage.
 
+    With tracing on, the consumer's every wait for an item is a
+    `pipe_wait` leaf span on `name`, and a put that finds the queue full
+    one on "fold" (the consumer) with `blocked=True`.
+
     `progress` is a live heartbeat handle (`observe.heartbeat`): the
     stage times its wait for upstream items as the `decode` stage and
     `fn`'s work as its own; the no-op handle by default."""
@@ -78,15 +104,6 @@ def staged(
     q: "queue.Queue[Any]" = queue.Queue(maxsize=max(1, depth))
     stop = threading.Event()
     error: List[BaseException] = []
-
-    def _put(item: Any) -> bool:
-        while not stop.is_set():
-            try:
-                q.put(item, timeout=0.1)
-                return True
-            except queue.Full:
-                continue
-        return False
 
     sinks = runtime.current_sinks()
     tracer = observe.current_tracer()
@@ -128,7 +145,7 @@ def staged(
                             runtime.record_fault(injected=1)
                             out = _apply(item)
                             runtime.record_retry(1, 1, 0)
-                    if not _put(out):
+                    if not put_blocking(q, out, stop, "fold"):
                         return
                     items += 1
                 if stage_sp:
@@ -143,7 +160,7 @@ def staged(
                 except BaseException as e:  # noqa: BLE001
                     if not error:
                         error.append(e)
-            _put(_SENTINEL)
+            put_blocking(q, _SENTINEL, stop, "fold")
 
     tag = runtime.shard_tag()
     thread = threading.Thread(
@@ -152,7 +169,8 @@ def staged(
     thread.start()
     try:
         while True:
-            out = q.get()
+            with observe.waiting(name):
+                out = q.get()
             if out is _SENTINEL:
                 break
             yield out

@@ -2,7 +2,8 @@
 (examples/tracing_example.py, forensics_example.py, resume_example.py,
 drift_example.py, service_example.py and sharing_example.py) run on the
 port: each script's `deequ_tpu` imports renamed to `deequ_tpu_torch`,
-every run on the CPU (tests/torch_cpu.py). The tracing example's cross-process demo
+every run on the CPU (tests/torch_cpu.py); so does the port's own
+torch_device_clock_demo.py. The tracing example's cross-process demo
 runs too: its two shard workers are separate interpreters (the port's
 `procspawn`), each put on the CPU the way `cpu_default` puts this
 process, exchanging their state envelopes through files; their traces
@@ -61,6 +62,20 @@ def test_tracing_example_runs_on_the_port(capsys, monkeypatch):
     # the cross-process demo: both workers' traces merged, pids 0 and 1
     assert "shard processes (pids [0, 1])" in out
     assert "shard_allgather" in out and "shard_merge" in out
+
+
+def test_device_clock_demo_runs_on_the_port(capsys, monkeypatch):
+    """examples/torch_device_clock_demo.py, the port's own script: the
+    profiler's events joined on the span clock in one written document."""
+    import json
+
+    out = _run("torch_device_clock_demo.py", capsys, monkeypatch)
+    assert "verification: CheckStatus.SUCCESS" in out
+    line = next(ln for ln in out.splitlines() if "on one clock:" in ln)
+    assert "CUDA kernels)" in line
+    with open(line.split("on one clock: ", 1)[1], encoding="utf-8") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"verification_suite", "deequ.trace_epoch"} <= names
 
 
 def test_forensics_example_runs_on_the_port(capsys, monkeypatch):
