@@ -40,7 +40,13 @@ Phases, one JSON line each:
               one register and on unaligned views; counts and registers
               must match exactly, two launches must agree. For every
               kernel the device time from torch.profiler stands beside
-              the CUDA-event time; a launch the card refuses must raise;
+              the CUDA-event time; a launch the card refuses must raise.
+              classify_hash_dictionary (K5) on the strings corpus and on
+              one SF 1 batch of TPC-H comments from the benchmark's
+              generator, bit for bit, timed beside its bound; then the
+              default profile streamed over two such row groups, K5
+              launching once a batch for l_comment and every column's
+              histogram and HLL estimate those of "host-discrete";
   4. main_path  a VerificationSuite on a --rows table (float64 x and y
               with every 11th x null, int64 id, string cat, int64 grp)
               over the flagship analyzers, two approximate-quantile
@@ -717,6 +723,119 @@ def profiler_phase(torch, timer):
     return run
 
 
+SF1_BATCH = 1 << 20  # the benchmark's row group of TPC-H lineitem at SF 1
+
+
+def strings_phase(torch, ck, device, timer, profile, seed: int, card: str, power_limit: str):
+    """K5 (classify_hash_dictionary) against its plain version on the
+    card, bit for bit and two launches alike: the edge corpus
+    (deequ_tpu_torch/testing/strings_corpus.py) and one SF 1 batch of
+    TPC-H comments from the benchmark's generator (1,048,576 rows, about
+    910,000 dictionary entries), with its median time beside the least
+    time the card could take (the offsets, the UTF-8 bytes and the codes
+    read once, 5 B a row written) and the plain version's. Then the
+    default profile streamed over two such row groups: K5 launches once a
+    batch, for l_comment alone (`device_strings`), and every column's
+    DataType histogram and HLL estimate equal the host-discrete
+    placement's, whose host route computes them on the host. Returns the
+    kernel's row."""
+    import tempfile
+
+    import numpy as np
+
+    from benchmark.gen import lineitem as tpch
+    from deequ_tpu_torch import ColumnProfilerRunner, Table
+    from deequ_tpu_torch.ops import runtime
+    from deequ_tpu_torch.testing import strings_corpus
+
+    def on_card(offsets, data, codes):
+        return [torch.from_numpy(a).to(device) for a in (offsets, data, codes)]
+
+    values = strings_corpus.EDGE_CASES + strings_corpus.fuzz(20_000, seed)
+    offsets, data = strings_corpus.utf8_arrays(values)
+    edge = on_card(offsets, data,
+                   np.concatenate([np.arange(len(values)), [-1, 0, -1]]).astype(np.int32))
+    comments = tpch.generate(SF1_BATCH, seed).comments.arrow().dictionary_encode()
+    dictionary = comments.dictionary
+    raw = dictionary.buffers()
+    sf1_offsets = np.frombuffer(raw[1], dtype=np.int32)[: len(dictionary) + 1].astype(np.int64)
+    sf1_data = np.frombuffer(raw[2], dtype=np.uint8)[: int(sf1_offsets[-1])].copy()
+    sf1 = on_card(sf1_offsets, sf1_data, comments.indices.to_numpy().astype(np.int32))
+    for case, args in (("edge_corpus", edge), ("sf1_comments", sf1)):
+        got = ck.classify_hash_dictionary(*args)
+        again = ck.classify_hash_dictionary(*args)
+        want = ck.classify_hash_dictionary_plain(*args)
+        for g, a, w in zip(got, again, want):
+            if not (torch.equal(g, w) and torch.equal(g, a)):
+                raise AssertionError(
+                    f"classify_hash_dictionary {case}: rows differ from the plain version")
+        emit({"phase": "kernel_check", "kernel": "classify_hash_dictionary", "case": case,
+              "entries": args[0].numel() - 1, "rows": args[2].numel(), "bytes": args[1].numel(),
+              "classes": torch.bincount(got[0].long(), minlength=5).tolist()})
+    n, rows, text = len(dictionary), sf1[2].numel(), len(sf1_data)
+    ms = timer.ms(lambda: ck.classify_hash_dictionary(*sf1))
+    plain = timer.ms(lambda: ck.classify_hash_dictionary_plain(*sf1), reps=5)
+    bound, by = bound_ms(8 * (n + 1) + text + 4 * rows + 5 * rows, 0, INT32_OPS_PER_S)
+    for kernel in ("dict_strings_entries", "dict_strings_rows"):
+        profile("classify_hash_dictionary", lambda: ck.classify_hash_dictionary(*sf1), kernel, ms)
+
+    # the default profile streamed over two SF 1 row groups: K5 for
+    # l_comment in each batch, the host route's answers under host-discrete
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_strings_") as tmp:
+        path = tpch.write(tpch.generate(2 * SF1_BATCH, seed),
+                          os.path.join(tmp, "lineitem.parquet"), SF1_BATCH, "zstd")
+
+        def run():
+            with runtime.monitored() as stats:
+                ck.reset_launch_counts()
+                start = time.perf_counter()
+                profiles = ColumnProfilerRunner.on_data(
+                    Table.scan_parquet(path), device="cuda").run()
+                wall = time.perf_counter() - start
+            answers = {name: (p.approximate_num_distinct_values, getattr(p, "type_counts", None),
+                              p.data_type) for name, p in profiles.profiles.items()}
+            seen = (stats.device_strings, stats.device_strings_total)
+            return answers, wall, ck.launch_counts(), seen
+
+        device_runs = [run(), run()]
+        with env(DEEQU_TPU_PLACEMENT="host-discrete"):
+            host = run()
+    for answers, _wall, launches, strings_seen in device_runs:
+        if launches["classify_hash_dictionary"] != 2 or strings_seen[0] != 2:
+            raise AssertionError(
+                f"strings profile: launches {launches}, device strings {strings_seen}")
+        if answers != host[0]:
+            raise AssertionError("strings profile: the device route's histograms or HLL estimates "
+                                 "differ from the host route's")
+    if host[2]["classify_hash_dictionary"] or host[3][0]:
+        raise AssertionError(f"strings profile: host-discrete launched {host[2]}")
+    row = {
+        "name": "classify_hash_dictionary",
+        "route": "cuda",
+        "source": "deequ_tpu_torch/csrc/kernels.cu",
+        "replaces": "none: the JAX package classifies and hashes strings on the host "
+                    "(deequ_tpu/ops/strings.py)",
+        "entries": n,
+        "rows": rows,
+        "utf8_bytes": text,
+        "ms": ms,
+        "plain_ms": plain,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": None,
+        "held_against_plain": True,
+        "launches_profile": device_runs[1][2]["classify_hash_dictionary"],
+        "device_strings_profile": list(device_runs[1][3]),
+        "profile_rows": 2 * SF1_BATCH,
+        "profile_warm_run_s": device_runs[1][1],
+        "profile_host_discrete_run_s": host[1],
+        "card": card,
+        "power_limit": power_limit,
+    }
+    emit({"phase": "kernel", **row})
+    return row
+
+
 def refused_launch_phase(torch, ck, cuda_build, device):
     """A launch the card refuses (here: a grid of 0 blocks) comes back
     as a CUDA error from the C launcher, and the wrapper's check raises."""
@@ -898,6 +1017,7 @@ def flagship_launches(rows: int):
         "masked_centered_sumsq": batches,
         "hll_register_max": batches,
         "hist16": 2 * batches,  # one per batch and quantile analyzer
+        "classify_hash_dictionary": 0,  # no string dictionary past 65,536 entries
     }
 
 
@@ -944,6 +1064,7 @@ def incremental_launches(partitions: int, rows_per_partition: int):
         "masked_centered_sumsq": batches,
         "hll_register_max": batches,
         "hist16": batches,
+        "classify_hash_dictionary": 0,
     }
 
 
@@ -1843,6 +1964,7 @@ def profile_phase(torch, ck, rows: int, seed: int, card: str, power_limit: str):
         "masked_centered_sumsq": numeric * batches,
         "hll_register_max": columns * batches,
         "hist16": numeric * batches,
+        "classify_hash_dictionary": 0,  # an in-memory table has no Arrow dictionary
     }
     expected_passes = {"device_passes": 1, "group_passes": 0}
 
@@ -1995,7 +2117,7 @@ def suggest_phase(torch, ck, table, warm_profile_s: float):
     cpu = run("cpu")
     if gpu[:2] != cpu[:2]:
         raise AssertionError(f"suggest: cuda {gpu[:2]} vs cpu {cpu[:2]}")
-    if not gpu[0] or len(gpu[1]) != len(gpu[0]) or not all(launches.values()):
+    if not gpu[0] or len(gpu[1]) != len(gpu[0]) or not all(launches[k] for k in KERNEL_SYMBOLS):
         raise AssertionError(f"suggest: {len(gpu[0])} suggestions, {len(gpu[1])} verdicts, "
                              f"launches {launches}")
     emit({"phase": "suggest", "rows": rows,
@@ -2885,7 +3007,7 @@ def chaos_launches(rows: int):
     standard deviation, one HLL, one quantile)."""
     batches = -(-rows // BATCH)
     return {"masked_moments": 3 * batches, "masked_centered_sumsq": batches,
-            "hll_register_max": batches, "hist16": batches}
+            "hll_register_max": batches, "hist16": batches, "classify_hash_dictionary": 0}
 
 
 def chaos_counters_expected(spec: str, injected: int, got):
@@ -4573,6 +4695,7 @@ def main() -> int:
     rest = [hll_phase(torch, ck, hll, device, rng, timer, profile),
             hist16_phase(torch, ck, device, rng, timer, profile)]
     summary = moments_phase(torch, ck, device, rng, timer, profile) + rest
+    strings_phase(torch, ck, device, timer, profile, args.seed, card, power_limit)
     refused_launch_phase(torch, ck, cuda_build, device)
     del timer, profile  # frees the 256 MB L2 flush buffer before the main path
     launches, main_run = main_path_phase(torch, ck, args.rows, args.seed, card, power_limit)

@@ -33,9 +33,9 @@ from deequ_tpu_torch.data.table import (
     Column,
     ColumnType,
     LazyColumn,
-    _arrow_dictionary_digest,
     _arrow_logical_decimal,
     _column_from_arrow_fallback,
+    attach_arrow_dictionary,
     dictionary_uniques_fallback,
     gather_with_null,
     pool_empty,
@@ -269,6 +269,5 @@ def _decode_dictionary(name, chunks, shared):
         lambda codes=codes, uniques=uniques: gather_with_null(uniques, codes, ""),
         valid,
     )
-    col._cache["dict_encode"] = (codes, uniques)
-    col._dict_content_key = _arrow_dictionary_digest(arr.dictionary)
+    attach_arrow_dictionary(col, codes, uniques, arr.dictionary)
     return col

@@ -63,6 +63,9 @@ class Column:
     # decoded from: values derived from the dictionary itself (its parse,
     # classes, hashes) are shared by the batches whose dictionaries are equal
     _dict_content_key = None
+    # that Arrow dictionary itself, zero-copy: a large one ships to the
+    # device as UTF-8 bytes (`large_arrow_dictionary`)
+    _arrow_dictionary = None
 
     def __init__(self, name: str, ctype: ColumnType, values, valid: np.ndarray):
         if callable(values):
@@ -306,11 +309,18 @@ def cached_dictionary_encode(col: "Column", key: str, compute):
     return value
 
 
+# Above this many entries an Arrow string dictionary is its batch's own:
+# no derived value is shared across batches (`_arrow_dictionary_digest`),
+# and the fused pass classifies and hashes it on the device instead of on
+# the host (ops/fused.py `_BatchScan._dictionary_routes`).
+LARGE_DICTIONARY = 1 << 16
+
+
 def _arrow_dictionary_digest(dictionary):
     """The cross-batch memo key of an Arrow string dictionary: its length
     and a sha1 over its buffers. None (no sharing) for a sliced or an
     oversized dictionary, whose buffer bytes need not equal its content."""
-    if dictionary.offset != 0 or len(dictionary) > (1 << 16):
+    if dictionary.offset != 0 or len(dictionary) > LARGE_DICTIONARY:
         return None
     import hashlib
 
@@ -319,6 +329,30 @@ def _arrow_dictionary_digest(dictionary):
         if buf is not None:
             h.update(buf)
     return (len(dictionary), h.digest())
+
+
+def attach_arrow_dictionary(
+    col: "Column", codes: np.ndarray, uniques: np.ndarray, dictionary
+) -> None:
+    """A decoded string dictionary column's memos: its codes and entries
+    as its `dict_encode`, the content key of its Arrow dictionary and the
+    dictionary itself."""
+    col._cache["dict_encode"] = (codes, uniques)
+    col._dict_content_key = _arrow_dictionary_digest(dictionary)
+    col._arrow_dictionary = dictionary
+
+
+def large_arrow_dictionary(col: "Column"):
+    """The Arrow string dictionary a STRING column (or the column it was
+    sliced from) was decoded with, where it holds more than
+    LARGE_DICTIONARY entries and no null; else None."""
+    root = col
+    while getattr(root, "_parent", None) is not None:
+        root = root._parent[0]
+    dictionary = root._arrow_dictionary
+    if dictionary is None or len(dictionary) <= LARGE_DICTIONARY or dictionary.null_count:
+        return None
+    return dictionary
 
 
 def parsed_dictionary(col: "Column") -> Tuple[np.ndarray, np.ndarray]:
@@ -535,8 +569,7 @@ def _column_from_arrow_fallback(name, arr, arrow_table, shared) -> Column:
             lambda: gather_with_null(uniques, codes, ""),
             valid,
         )
-        col._cache["dict_encode"] = (codes, uniques)
-        col._dict_content_key = _arrow_dictionary_digest(arr.dictionary)
+        attach_arrow_dictionary(col, codes, uniques, arr.dictionary)
         return col
     if pa.types.is_string(t) or pa.types.is_large_string(t):
         vals = arr.to_numpy(zero_copy_only=False).astype(object, copy=False)

@@ -112,6 +112,17 @@ def record_wire_fused(fused: int, total: int) -> None:
         tracer.count("wire_cols_total", int(total))
 
 
+def record_device_strings(device: int, total: int) -> None:
+    """One batch's STRING columns with a DataType or ApproxCountDistinct
+    input: those whose classes and HLL codes were computed on the device
+    from their dictionary (K5) and all of them. Tracer-only, like
+    record_wire_fused; the run report prints the two."""
+    tracer = spans.current_tracer()
+    if tracer is not None:
+        tracer.count("device_strings", int(device))
+        tracer.count("device_strings_total", int(total))
+
+
 def record_reader_chunks(native: int, fallback: int, total: int) -> None:
     """Native-reader plan outcome of one fused scan: column chunks the
     native parquet reader decodes vs chunks that fall back to pyarrow,

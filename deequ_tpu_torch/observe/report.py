@@ -292,6 +292,10 @@ def render_report(
         value = (counters or {}).get(key, head.attrs.get(key))
         if value is not None:
             headline.append(f"{key} {value}")
+    strings_total = (counters or {}).get("device_strings_total")
+    if strings_total:
+        # STRING columns' DataType/HLL inputs a batch: computed on the device
+        headline.append(f"device_strings {counters.get('device_strings', 0)}/{strings_total}")
     lines.append(" | ".join(headline))
     for root in root_list:
         grouped = _aggregate(root.children)

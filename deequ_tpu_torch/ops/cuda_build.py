@@ -99,5 +99,9 @@ def load() -> ctypes.CDLL:
             lib.dq_hll_register_max.restype = i32
             lib.dq_hist16.argtypes = [ptr, ptr, i64, i32, i64, i32, ptr, ptr]
             lib.dq_hist16.restype = i32
+            lib.dq_dict_strings.argtypes = [
+                ptr, ptr, i64, ctypes.c_ulonglong, ptr, i64, ptr, ptr, ptr, ptr, ptr,
+            ]
+            lib.dq_dict_strings.restype = i32
             _LIB = lib
         return _LIB

@@ -21,6 +21,11 @@ kernel's sums to the bit. Nothing on the main path calls them.
 | masked_centered_sumsq | masked_centered_sumsq (:269)               |
 | hll_register_max      | hll_register_max (:58)                     |
 | hist16                | hist16 (:165), fed by f32_sortable_bin16   |
+
+K5, `classify_hash_dictionary`, replaces no TPU kernel: it moves the JAX
+package's host work (`deequ_tpu/ops/strings.py` classify and
+hash_strings) onto the card for a large string dictionary, with the same
+codes bit for bit.
 """
 
 from __future__ import annotations
@@ -32,7 +37,11 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from deequ_tpu_torch.ops import strings
+from deequ_tpu_torch.ops.sketches import hll
+
 N_REGISTERS = 512  # HLL++ p = 9 (ops/sketches/hll.M)
+HLL_SEED = int(hll.SEED)  # strings.hash_strings' seed for the HLL codes
 HIST_BINS = 65536  # the full 16-bit sortable-key space
 HIST_SENTINEL = HIST_BINS - 1  # the bin of excluded rows
 # K1 and K2 run blocks of this many threads (csrc/kernels.cu
@@ -425,7 +434,274 @@ def hist16(x: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
 
 hist16.launches = 0
 
-KERNELS = (masked_moments, masked_centered_sumsq, hll_register_max, hist16)
+# ---------------------------------------------------------------------------
+# K5: a dictionary's strings classified and hashed, gathered to rows
+# ---------------------------------------------------------------------------
+
+# ops/strings.py's length buckets: a string of at most STRINGS_CAP code
+# points hashes at the smallest bucket width that holds it; a longer one
+# hashes in chunks of STRINGS_CAP, each chunk's hash seeding the next.
+STRINGS_BUCKETS = strings._LENGTH_BUCKETS
+STRINGS_CAP = strings._BUCKET_CAP
+_LONE_TERMINATORS = (0x0D, 0x85, 0x2028, 0x2029)  # stripped alone; \n also after \r
+
+
+def _signed64(u) -> int:
+    """A uint64 constant as the int64 with its bits: the plain version
+    does the hash's modular arithmetic in int64, which wraps alike."""
+    u = int(u)
+    return u - (1 << 64) if u >= 1 << 63 else u
+
+
+_P1, _P2, _P3, _P4, _P5 = (
+    _signed64(p) for p in (hll._PRIME1, hll._PRIME2, hll._PRIME3, hll._PRIME4, hll._PRIME5)
+)
+
+
+def _lsr(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 bits by 1 <= s <= 63."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return (x << r) | _lsr(x, 64 - r)
+
+
+def _mix(acc: torch.Tensor, word) -> torch.Tensor:
+    """One round of strings.hash_strings over a word of two code points."""
+    k = _rotl(word * _P2, 31) * _P1
+    return _rotl(acc ^ k, 27) * _P1 + _P4
+
+
+def _avalanche(acc: torch.Tensor) -> torch.Tensor:
+    acc = acc ^ _lsr(acc, 33)
+    acc = acc * _P2
+    acc = acc ^ _lsr(acc, 29)
+    acc = acc * _P3
+    return acc ^ _lsr(acc, 32)
+
+
+def _code_points(offsets: torch.Tensor, data: torch.Tensor):
+    """The dictionary's UTF-8 decoded as K5 decodes it: every byte that is
+    not a continuation byte starts one code point, which takes up to the
+    continuation bytes its lead announces, within its entry. Returns
+    (code points, their entry, their index in it, code points per entry),
+    int64."""
+    off = offsets.to(torch.int64)
+    n = off.numel() - 1
+    b = data.to(torch.int64)
+    pos = torch.arange(b.numel(), device=b.device)
+    entry = torch.searchsorted(off, pos, right=True) - 1
+    inside = (entry >= 0) & (entry < n)
+    end = off[1:][entry.clamp(0, n - 1)]
+    cont = (b & 0xC0) == 0x80
+    more = torch.where(b < 0xC0, 0, torch.where(b < 0xE0, 1, torch.where(b < 0xF0, 2, 3)))
+    more = torch.where(b >= 0xF8, 0, more)
+    cp = torch.where(b < 0xF8, b & 0x07, b)
+    cp = torch.where(b < 0xF0, b & 0x0F, cp)
+    cp = torch.where(b < 0xE0, b & 0x1F, cp)
+    cp = torch.where(b < 0x80, b, cp)
+    b_pad = F.pad(b, (0, 3))
+    cont_pad = F.pad(cont, (0, 3))
+    taking = torch.ones_like(cont)
+    for q in (1, 2, 3):
+        taking = taking & (more >= q) & (pos + q < end) & cont_pad[q:q + b.numel()]
+        cp = torch.where(taking, (cp << 6) | (b_pad[q:q + b.numel()] & 0x3F), cp)
+    lead = inside & ~cont
+    cps, ent = cp[lead], entry[lead]
+    length = torch.bincount(ent, minlength=n)
+    first = torch.cumsum(length, 0) - length
+    k = torch.arange(cps.numel(), device=b.device) - first[ent]
+    return cps, ent, k, length
+
+
+def _chunk_hashes(cps, ent, k, ids, n: int, width: int, seeds: torch.Tensor) -> torch.Tensor:
+    """strings' `_hash_bucket` of one chunk of each entry in `ids`, of n:
+    the code points `cps` of entries `ent` at index `k` from the chunk's
+    start, `width` code points wide, each entry with its seed."""
+    row = torch.full((n,), -1, dtype=torch.int64, device=cps.device)
+    row[ids] = torch.arange(ids.numel(), device=cps.device)
+    mine = row[ent] >= 0
+    r, kk, v = row[ent[mine]], k[mine], cps[mine]
+    half = width // 2
+    words = torch.zeros(ids.numel() * half, dtype=torch.int64, device=cps.device)
+    low = kk % 2 == 0
+    words[r[low] * half + kk[low] // 2] = v[low]
+    at = r[~low] * half + kk[~low] // 2
+    words[at] = words[at] | (v[~low] << 32)
+    nonzero = torch.bincount(r[v != 0], minlength=ids.numel())
+    acc = seeds + _P5 + nonzero * _P2
+    words = words.view(ids.numel(), half)
+    for j in range(half):
+        acc = _mix(acc, words[:, j])
+    return _avalanche(acc)
+
+
+def _entry_hashes(cps, ent, k, length, seed: int) -> torch.Tensor:
+    """strings.hash_strings of every entry, as int64 bits."""
+    n = length.numel()
+    dev = length.device
+    hashes = torch.zeros(n, dtype=torch.int64, device=dev)
+    width = torch.full_like(length, STRINGS_BUCKETS[0])
+    for cap in STRINGS_BUCKETS[1:]:
+        width = torch.where(length > cap // 2, cap, width)
+    for cap in STRINGS_BUCKETS:
+        ids = torch.nonzero((length <= STRINGS_CAP) & (width == cap)).flatten()
+        if ids.numel():
+            seeds = torch.full((ids.numel(),), _signed64(seed), dtype=torch.int64, device=dev)
+            hashes[ids] = _chunk_hashes(cps, ent, k, ids, n, cap, seeds)
+    long_ids = torch.nonzero(length > STRINGS_CAP).flatten()
+    if long_ids.numel():
+        # over the cap: 128-code-point chunks, each hash the next one's seed
+        acc = torch.full((long_ids.numel(),), _signed64(seed), dtype=torch.int64, device=dev)
+        chunks = (length[long_ids] + STRINGS_CAP - 1) // STRINGS_CAP
+        chunk = k // STRINGS_CAP
+        for c in range(int(chunks.max())):
+            live = chunks > c
+            ids = long_ids[live]
+            mine = chunk == c
+            acc[live] = _chunk_hashes(
+                cps[mine], ent[mine], k[mine] - c * STRINGS_CAP, ids, n, STRINGS_CAP, acc[live]
+            )
+        hashes[long_ids] = acc
+    return hashes
+
+
+def _entry_classes(cps, ent, k, length) -> torch.Tensor:
+    """strings.classify of every entry (int8 class codes): within the cap,
+    trailing NULs fall away before one final Java line terminator is
+    stripped, as `_classify_bucket` does; past it, the terminator alone,
+    as `_classify_scalar` does."""
+    n = length.numel()
+    dev = length.device
+    first = torch.cumsum(length, 0) - length
+    last = max(cps.numel() - 1, 0)
+
+    def at(index, valid):
+        if cps.numel() == 0:
+            return torch.zeros(n, dtype=torch.int64, device=dev)
+        got = cps[(first + index.clamp(min=0)).clamp(max=last)]
+        return torch.where(valid, got, 0)
+
+    nz = cps != 0
+    last_nz = torch.zeros(n, dtype=torch.int64, device=dev).scatter_reduce(
+        0, ent[nz], k[nz] + 1, "amax"
+    )
+    capped = length <= STRINGS_CAP
+    base = torch.where(capped, last_nz, length)
+    l1 = at(base - 1, base >= 1)
+    l2 = at(base - 2, base >= 2)
+    newline = (base > 0) & (l1 == 0x0A)
+    lone = (base > 0) & ~newline & torch.isin(l1, torch.tensor(_LONE_TERMINATORS, device=dev))
+    body = base - newline.long() - (newline & (l2 == 0x0D)).long() - lone.long()
+    c0 = at(torch.zeros_like(length), length >= 1)
+    c1 = at(torch.ones_like(length), length >= 2)
+    sign = (c0 == ord("+")) | (c0 == ord("-"))
+    start = sign.long() + (torch.where(sign, c1, c0) == ord(" ")).long()
+    counted = k >= start[ent]
+    digit = (cps >= ord("0")) & (cps <= ord("9"))
+    dot = cps == ord(".")
+    # every code point past the body is a NUL or a terminator: not a
+    # digit or a dot, so the body's count is the whole count less them
+    bad = torch.bincount(ent[counted & ~digit & ~dot], minlength=n) - (length - body)
+    dots = torch.bincount(ent[counted & dot], minlength=n)
+    boolean = torch.zeros(n, dtype=torch.bool, device=dev)
+    for literal in ("true", "false"):
+        hit = body == len(literal)
+        for j, ch in enumerate(literal):
+            hit = hit & (at(torch.full_like(length, j), length > j) == ord(ch))
+        boolean = boolean | hit
+    out = torch.full((n,), strings.CODE_STRING, dtype=torch.int8, device=dev)
+    out[boolean] = strings.CODE_BOOLEAN
+    out[(bad == 0) & (dots == 0)] = strings.CODE_INTEGRAL
+    out[(bad == 0) & (dots == 1)] = strings.CODE_FRACTIONAL
+    return out
+
+
+def _packed_registers(hashes: torch.Tensor) -> torch.Tensor:
+    """hll.registers_from_hashes packed as `idx << 6 | rank` (int32):
+    rank is 1 + the leading zeros of the hash shifted past the index,
+    with bit P - 1 set, so it never passes 64 - P + 1."""
+    idx = _lsr(hashes, 64 - hll.P)
+    x = (hashes << hll.P) | (1 << (hll.P - 1))
+    zeros = torch.zeros_like(x)
+    for s in (32, 16, 8, 4, 2, 1):
+        empty = _lsr(x, 64 - s) == 0
+        zeros = zeros + torch.where(empty, s, 0)
+        x = torch.where(empty, x << s, x)
+    return ((idx << 6) | (zeros + 1)).to(torch.int32)
+
+
+def classify_hash_dictionary_plain(
+    offsets: torch.Tensor, data: torch.Tensor, codes: torch.Tensor, seed: int = HLL_SEED
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """classify_hash_dictionary in PyTorch: each of the n strings
+    data[offsets[i]:offsets[i + 1]] gets the class of strings.classify
+    (int8) and the `idx << 6 | rank` of
+    hll.registers_from_hashes(strings.hash_strings(..., seed)) (int32),
+    gathered to the rows through `codes`; a code outside the dictionary
+    (-1, a null row) gives CODE_NULL and 0."""
+    n = offsets.numel() - 1
+    live = (codes >= 0) & (codes < n)
+    if n <= 0:
+        return (torch.full_like(codes, strings.CODE_NULL, dtype=torch.int8),
+                torch.zeros_like(codes, dtype=torch.int32))
+    cps, ent, k, length = _code_points(offsets, data)
+    classes = _entry_classes(cps, ent, k, length)
+    packed = _packed_registers(_entry_hashes(cps, ent, k, length, seed))
+    idx = torch.where(live, codes, 0).long()
+    return (
+        torch.where(live, classes[idx], strings.CODE_NULL).to(torch.int8),
+        torch.where(live, packed[idx], 0).to(torch.int32),
+    )
+
+
+def classify_hash_dictionary(
+    offsets: torch.Tensor, data: torch.Tensor, codes: torch.Tensor, seed: int = HLL_SEED
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DataType's class code (int8) and ApproxCountDistinct's packed HLL
+    code (int32) of each row of a dictionary-coded string column: the
+    dictionary's n strings are data[offsets[i]:offsets[i + 1]] (int64
+    offsets, UTF-8 bytes), each row's entry is its int32 code, and a code
+    of -1 (a null row) gives CODE_NULL and 0. The same codes as
+    strings.classify and hll.registers_from_hashes(strings.hash_strings)
+    on the host."""
+    _check_1d("offsets", offsets, (torch.int64,))
+    _check_1d("data", data, (torch.uint8,))
+    _check_1d("codes", codes, (torch.int32,))
+    if offsets.numel() < 1:
+        raise ValueError("offsets must hold n + 1 >= 1 entries")
+    if not offsets.device == data.device == codes.device:
+        raise ValueError(
+            f"offsets on {offsets.device}, data on {data.device} and codes on "
+            f"{codes.device} must share a device"
+        )
+    if codes.device.type == "cpu":
+        return classify_hash_dictionary_plain(offsets, data, codes, seed)
+    _require_cuda(codes)
+    from deequ_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load()
+    n, rows = offsets.numel() - 1, codes.numel()
+    entry_classes = torch.empty(n, dtype=torch.int8, device=codes.device)
+    entry_packed = torch.empty(n, dtype=torch.int32, device=codes.device)
+    classes = torch.empty(rows, dtype=torch.int8, device=codes.device)
+    packed = torch.empty(rows, dtype=torch.int32, device=codes.device)
+    err = lib.dq_dict_strings(
+        offsets.data_ptr(), data.data_ptr(), n, seed, codes.data_ptr(), rows,
+        entry_classes.data_ptr(), entry_packed.data_ptr(), classes.data_ptr(),
+        packed.data_ptr(), _stream(codes),
+    )
+    _raise_on(err, "classify_hash_dictionary")
+    count_launch(classify_hash_dictionary)
+    return classes, packed
+
+
+classify_hash_dictionary.launches = 0
+
+KERNELS = (
+    masked_moments, masked_centered_sumsq, hll_register_max, hist16, classify_hash_dictionary,
+)
 
 # the service's workers, a pass's prep thread and the sharded scan launch
 # from several threads at once; `kernel.launches += 1` is a read, an add

@@ -77,9 +77,9 @@ from deequ_tpu_torch import observe
 from deequ_tpu_torch.analyzers.base import ScanShareableAnalyzer
 from deequ_tpu_torch.analyzers.states import State
 from deequ_tpu_torch.core.controller import StallWatchdog
-from deequ_tpu_torch.data.table import ColumnType, Table
+from deequ_tpu_torch.data.table import ColumnType, Table, large_arrow_dictionary
 from deequ_tpu_torch.observe.spans import _NOOP as _NO_SPAN
-from deequ_tpu_torch.ops import counts_family, pipeline, runtime
+from deequ_tpu_torch.ops import counts_family, cuda_kernels, pipeline, runtime
 
 DEFAULT_BATCH_SIZE = 1 << 22  # 4,194,304 rows, as the JAX package
 
@@ -1363,6 +1363,66 @@ def pack_batch_inputs(
     return buffers, layout
 
 
+def pack_dictionaries(
+    buffers: Dict[str, torch.Tensor],
+    layout,
+    dictionaries: Sequence[Tuple[str, Tuple[str, ...], Any]],
+    pin: bool = False,
+):
+    """Add to a batch's wire (`pack_batch_inputs`' buffers and layout) the
+    STRING columns whose `dtclass:` and `hll:` keys the device computes
+    from the batch's large Arrow dictionary (K5) instead of receiving
+    them. `dictionaries` lists (column, keys, Column); each ships as a
+    group `dict:<column>` of kind "dict", its rows' int32 codes, with its
+    dictionary's offsets and UTF-8 bytes beside it (`_pack_dictionary`).
+    Traced, the packing's seconds count as the keys' input builds.
+    Returns the layout with the groups added."""
+    groups, const_keys, padded = layout
+    groups = list(groups)
+    for column, keys, col in dictionaries:
+        sp = observe.current_span()
+        t0 = 0.0 if sp is None else time.perf_counter()
+        group_name = f"dict:{column}"
+        (
+            buffers[group_name], buffers[f"{group_name}:offsets"], buffers[f"{group_name}:bytes"]
+        ) = _pack_dictionary(col, padded, pin)
+        groups.append((group_name, tuple((key, "dict") for key in keys)))
+        if sp is not None:
+            seconds = (time.perf_counter() - t0) / len(keys)
+            for key in keys:
+                sp.add("build_s", seconds).add(f"build_s:{key}", seconds)
+    return (tuple(groups), const_keys, padded)
+
+
+def _pack_dictionary(col, padded: int, pin: bool):
+    """A STRING column's batch as K5's wire: its rows' int32 dictionary
+    codes (-1 for a null row and past the batch's end, `padded` in all),
+    its Arrow dictionary's offsets as int64 from 0 (string and
+    large_string, at the dictionary's slice offset) and its UTF-8 bytes.
+    The dictionary is read in place; each buffer is one copy."""
+    import pyarrow as pa
+
+    dictionary = large_arrow_dictionary(col)
+    codes = col.dict_encode()[0]
+    n = len(dictionary)
+    raw = dictionary.buffers()
+    wide = pa.types.is_large_string(dictionary.type)
+    offsets = np.frombuffer(raw[1], dtype=np.int64 if wide else np.int32)[
+        dictionary.offset : dictionary.offset + n + 1
+    ]
+    lo, hi = int(offsets[0]), int(offsets[-1])
+    codes_buf = torch.empty(padded, dtype=torch.int32, pin_memory=pin)
+    view = codes_buf.numpy()
+    view[: len(codes)] = codes
+    view[len(codes) :] = -1
+    offsets_buf = torch.empty(n + 1, dtype=torch.int64, pin_memory=pin)
+    np.subtract(offsets, lo, out=offsets_buf.numpy())
+    bytes_buf = torch.empty(hi - lo, dtype=torch.uint8, pin_memory=pin)
+    if hi > lo:
+        bytes_buf.numpy()[:] = np.frombuffer(raw[2], dtype=np.uint8)[lo:hi]
+    return codes_buf, offsets_buf, bytes_buf
+
+
 class FusedProgram:
     """One batch's device program for a plan shape: unpack the wire, run
     every analyzer's reduction, pack the partials into one float64 buffer.
@@ -1386,6 +1446,15 @@ class FusedProgram:
     def unpack(self, wire: Dict[str, torch.Tensor], num_rows: int) -> Dict[str, Any]:
         inputs: Dict[str, Any] = {}
         for group_name, entries in self.groups:
+            if entries[0][1] == "dict":
+                # a STRING column's classes and HLL codes from its
+                # dictionary (K5), gathered to the rows
+                classes, packed = cuda_kernels.classify_hash_dictionary(
+                    wire[f"{group_name}:offsets"], wire[f"{group_name}:bytes"], wire[group_name]
+                )
+                for key, _kind in entries:
+                    inputs[key] = classes if key.startswith("dtclass:") else packed
+                continue
             rows = wire[group_name].view(len(entries), -1)
             for i, (key, kind) in enumerate(entries):
                 row = rows[i]
@@ -1895,6 +1964,9 @@ class _Prepped:
     error: Optional[BaseException] = None
     precomputed: bool = False
     wire_bytes: int = 0  # the packed host buffers' bytes, for the dispatch span
+    # STRING column -> the `dtclass:`/`hll:` keys K5 computes from its
+    # dictionary on the device (`_BatchScan._dictionary_routes`)
+    dictionaries: Dict[str, Tuple[str, ...]] = field(default_factory=dict)
 
 
 def program_timer(device: torch.device) -> Optional[Tuple[Any, Any]]:
@@ -1918,9 +1990,20 @@ class _BatchScan:
     written by `prep` alone, in batch order, so both loops give the same
     bits.
 
+    A STRING column whose DataType classes and HLL codes only the device
+    program reads, and whose batch came with an Arrow dictionary of more
+    than LARGE_DICTIONARY entries (data/table.py), ships that dictionary
+    and its codes instead: K5 classifies and hashes it on the device.
+    Smaller dictionaries, shared across batches by the dictionary memo,
+    and columns with no Arrow dictionary build the keys on the host.
+
     Spans never synchronize with the card: a `dispatch` span times the
     host's launch of a batch's program, and the wait for the device falls
     into the `transfer` span of the fold that reads its partials."""
+
+    #: whether a batch's large dictionaries may ship for K5 (the mesh's
+    #: shards slice host rows, and keep the host route)
+    dictionary_route = True
 
     def __init__(self, device, controller, analyzers, plan: ScanMemberPlan):
         self.device = device
@@ -1947,6 +2030,13 @@ class _BatchScan:
         self.rows = 0
         self.forensics = None  # observe/forensics.ForensicsCapture
         self.progress = observe.heartbeat.NOOP_PROGRESS
+        # column -> its `dtclass:`/`hll:` keys, and of them those only the
+        # device program reads (the keys K5 may compute)
+        self.string_keys: Dict[str, List[str]] = {}
+        for key, spec in plan.specs.items():
+            if key.startswith(("dtclass:", "hll:")):
+                self.string_keys.setdefault(spec.columns[0], []).append(key)
+        self.device_only_keys = plan.packed_only_keys
 
     @property
     def host_count(self) -> int:
@@ -1962,11 +2052,17 @@ class _BatchScan:
                     streaming=True, family_memo=self.family_memo,
                 )
             item.precomputed = True
+        item.dictionaries = self._dictionary_routes(batch)
         if not self.use_device or self.device_down.is_set():
             return item
         wire_rows = getattr(batch, "wire_rows", None) or {}
+        routed = {key for keys in item.dictionaries.values() for key in keys}
         try:
-            items = [(key, None if key in wire_rows else built[key]) for key in self.device_keys]
+            items = [
+                (key, None if key in wire_rows else built[key])
+                for key in self.device_keys
+                if key not in routed
+            ]
         except NotImplementedError:
             raise
         except Exception as e:  # noqa: BLE001
@@ -1975,6 +2071,32 @@ class _BatchScan:
             return item
         self._ship(item, items, wire_rows)
         return item
+
+    def _dictionary_routes(self, batch: Table) -> Dict[str, Tuple[str, ...]]:
+        """The batch's STRING columns that take K5: column -> the keys K5
+        computes for it. Records the verdict (`runtime.record_device_strings`)
+        over every STRING column with a `dtclass:` or `hll:` key."""
+        if not self.string_keys:
+            return {}
+        routes: Dict[str, Tuple[str, ...]] = {}
+        total = 0
+        for column, keys in self.string_keys.items():
+            if not batch.has_column(column):
+                continue
+            col = batch.column(column)
+            if col.ctype != ColumnType.STRING:
+                continue
+            total += 1
+            served = tuple(key for key in keys if key in self.device_only_keys)
+            if (
+                served
+                and self.dictionary_route
+                and self.use_device
+                and large_arrow_dictionary(col) is not None
+            ):
+                routes[column] = served
+        runtime.record_device_strings(len(routes), total)
+        return routes
 
     def _copy_to(self, host: Dict[str, torch.Tensor], device: torch.device, stream):
         """-> (the wire copied to `device`, the copy's event): the copy
@@ -1994,10 +2116,17 @@ class _BatchScan:
         """Pack the batch's device inputs into its wire and copy it to the
         device (on the copy stream, when the pipeline made one)."""
         batch = item.batch
+        pin = self.device.type == "cuda"
         host, item.layout = pack_batch_inputs(
             items, runtime.wire_pad_size(batch.num_rows), self.sticky, batch.num_rows,
-            pin=self.device.type == "cuda", prepacked=wire_rows,
+            pin=pin, prepacked=wire_rows,
         )
+        if item.dictionaries:
+            item.layout = pack_dictionaries(
+                host, item.layout,
+                [(column, keys, batch.column(column)) for column, keys in item.dictionaries.items()],
+                pin=pin,
+            )
         item.wire_bytes = sum(int(v.nbytes) for v in host.values())
         item.wire, item.copied = self._copy_to(host, self.device, self.copy_stream)
 

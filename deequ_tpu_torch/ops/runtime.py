@@ -317,6 +317,10 @@ class ExecutionStats:
     wire_cols_total: int = 0
     wire_fused: List[str] = field(default_factory=list)
     wire_falloffs: List[Tuple[str, str, str]] = field(default_factory=list)
+    # (column, batch) pairs of STRING columns with a DataType or HLL
+    # input: classified and hashed on the device (K5), and all of them
+    device_strings: int = 0
+    device_strings_total: int = 0
     # encoded fold, the plan: columns approved and judged, the approved
     # names and the others' reasons
     encfold_cols: int = 0
@@ -435,6 +439,16 @@ def record_wire_fused(fused: Sequence[str], total: int, falloffs=()) -> None:
         sink.wire_fused.extend(fused)
         sink.wire_falloffs.extend(falloffs)
     _counters.record_wire_fused(len(fused), total)
+
+
+def record_device_strings(device: int, total: int) -> None:
+    """One batch's verdict on its STRING columns' DataType classes and HLL
+    codes: columns computed on the device from their dictionary (K5), and
+    all the columns with such an input."""
+    for sink in _sinks():
+        sink.device_strings += int(device)
+        sink.device_strings_total += int(total)
+    _counters.record_device_strings(device, total)
 
 
 def record_encfold_plan(cols: Sequence[str], total: int, falloffs=()) -> None:

@@ -1,11 +1,19 @@
 """Host-side string work: type classification, hashing for the HLL
 sketch, numeric parsing and regex matching.
 
-Strings never reach the device: a string column is dictionary-encoded
-once per table and every string operation runs over its unique values
-only, then gathers to rows. Hashing is vectorized over the UCS4
-code-point matrix of the uniques (a numpy 'U' array viewed as an
-(n_unique, max_len) uint32 matrix) — never a Python loop over rows.
+A string column is dictionary-encoded once per table and every string
+operation runs over its unique values only, then gathers to rows.
+Hashing is vectorized over the UCS4 code-point matrix of the uniques (a
+numpy 'U' array viewed as an (n_unique, max_len) uint32 matrix) — never a
+Python loop over rows.
+
+One route leaves the host: a streamed batch whose Arrow dictionary holds
+more than 65,536 entries (data/table.py LARGE_DICTIONARY) ships the
+dictionary's UTF-8 bytes to the device, where K5
+(ops/cuda_kernels.classify_hash_dictionary) computes `classify`'s class
+and the packed HLL code of `hash_strings`, bit for bit, for the fused
+pass's DataType and ApproxCountDistinct. Parsing and pattern matching
+stay here.
 """
 
 from __future__ import annotations

@@ -91,6 +91,8 @@ class _MeshBatchScan(_BatchScan):
     shard's slice of the batch to its device, `_launch` runs the fused
     program per shard and submits the stacked partials to the fold."""
 
+    dictionary_route = False
+
     def __init__(self, mesh: DeviceMesh, per_device: int, controller, analyzers, plan):
         super().__init__(mesh.devices[0], controller, analyzers, plan)
         self.mesh = mesh

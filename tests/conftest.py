@@ -46,3 +46,9 @@ import pytest  # noqa: E402
 @pytest.fixture
 def rng():
     return np.random.default_rng(42)
+
+
+def pytest_configure(config):
+    # tests/test_torch_strings_card.py: CUDA kernels with no CPU mode,
+    # skipped without a card
+    config.addinivalue_line("markers", "card: needs a CUDA device; skips without one")

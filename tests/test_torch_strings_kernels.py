@@ -8,6 +8,12 @@ classifier to agree on every value.
 
 Port-mapped from tests/test_strings_kernels.py: the same cases against deequ_tpu_torch,
 every run on the CPU (tests/torch_cpu.py).
+
+K5's plain version (ops/cuda_kernels.classify_hash_dictionary, which the
+CPU runs) gives every string the class and packed HLL code of
+strings.classify and hash_strings here and of the JAX package's, bit for
+bit; a Parquet stream with a large dictionary takes K5 in every batch and
+gives the host route's and the JAX package's histograms and registers.
 """
 
 from torch_cpu import cpu_default  # noqa: F401 - a fixture, used by pytestmark
@@ -16,8 +22,14 @@ import re
 
 import numpy as np
 import pytest
+import torch
 
-from deequ_tpu_torch.ops import strings
+from deequ_tpu.ops import strings as jax_strings
+from deequ_tpu.ops.sketches import hll as jax_hll
+from deequ_tpu_torch.ops import cuda_kernels as ck
+from deequ_tpu_torch.ops import runtime, strings
+from deequ_tpu_torch.ops.sketches import hll
+from deequ_tpu_torch.testing import strings_corpus
 
 pytestmark = pytest.mark.usefixtures("cpu_default")
 
@@ -264,3 +276,138 @@ class TestDecimalHalfUp:
         assert res.num_invalid_rows == 2  # ±9.995 -> ±10.00 overflow
         kept = res.valid_rows.column("d").values
         assert sorted(np.round(kept, 2).tolist()) == [1.01, 2.68]
+
+
+# -- K5's plain version against the host and the JAX package -----------------
+
+
+def _host_codes(values, strings_module, hll_module):
+    arr = np.array(values, dtype=object)
+    classes = strings_module.classify(arr).astype(np.int8)
+    idx, rank = hll_module.registers_from_hashes(strings_module.hash_strings(arr))
+    return classes, ((idx << 6) | rank).astype(np.int32)
+
+
+def _lineitem_comments(count: int):
+    from benchmark.gen import lineitem
+
+    return list(lineitem.generate(count, seed=12345).comments.values())
+
+
+K5_CORPORA = {
+    "adversarial": lambda: ADVERSARIAL,
+    "empty": lambda: ["", "", "a", ""],
+    "long_129_400": lambda: [c * n for n in range(129, 401, 17) for c in ("7", "x", "é", "😀")],
+    "multibyte_2_3_4": lambda: [
+        "é", "ñandú", "€", "中文字", "𝟓", "😀", "a😀é€b", "０１２", "١٢٣",
+    ],
+    "nul_inside": lambda: ["\x00", "5\x005", "\x005", "5\x00", "a\x00b", "1.5\x00\x00", "5\n\x00"],
+    "crlf_and_u2028": lambda: ["5\r\n", "5 ", "true ", "1.5\r\n", "x\r\n", "5\n\r", " "],
+    "signs_spaces_digits_dots": lambda: [
+        "+ 1", "- 1.", "+.", " 5", " +5", "+  5", "-. ", "+ .5", "5.5.", "- -1", " ", "+ ",
+    ],
+    "edge_and_fuzz": lambda: strings_corpus.EDGE_CASES + strings_corpus.fuzz(2000, seed=7),
+    "lineitem_comments_10000": lambda: _lineitem_comments(10_000),
+}
+
+
+@pytest.mark.parametrize("corpus", sorted(K5_CORPORA))
+def test_k5_plain_matches_host_and_jax(corpus):
+    values = K5_CORPORA[corpus]()
+    offsets, data = strings_corpus.utf8_arrays(values)
+    # through the wrapper, which the CPU serves with the plain version:
+    # every entry's row, then rows that gather an entry again or are null
+    codes = np.array([*range(len(values)), 0, -1], dtype=np.int32)
+    classes, packed = ck.classify_hash_dictionary(
+        torch.from_numpy(offsets), torch.from_numpy(data), torch.from_numpy(codes)
+    )
+    assert classes.dtype == torch.int8 and packed.dtype == torch.int32
+    want_classes, want_packed = _host_codes(values, strings, hll)
+    jax_classes, jax_packed = _host_codes(values, jax_strings, jax_hll)
+    assert np.array_equal(want_classes, jax_classes) and np.array_equal(want_packed, jax_packed)
+    for i, value in enumerate(values):
+        assert classes[i].item() == want_classes[i], repr(value)
+        assert packed[i].item() == want_packed[i], repr(value)
+    assert classes[-2:].tolist() == [want_classes[0], strings.CODE_NULL]
+    assert packed[-2:].tolist() == [want_packed[0], 0]
+
+
+def _large_dictionary_file(path, rows_per_group=70_000, groups=2):
+    """Row groups each with a string column of more than 65,536 distinct
+    values (nulls and multi-byte text among them) and one of a small
+    dictionary, plain-encoded so that each group's decode makes its own
+    dictionary."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rng = np.random.default_rng(11)
+    rows = rows_per_group * groups
+    big = np.array(
+        [f"{i}" if i % 7 == 0 else f"c-{i}-é{'x' * (i % 9)}" for i in range(rows)], dtype=object
+    )
+    big[rng.random(rows) < 0.02] = None
+    big[5] = "true"
+    big[6] = " 1.5\r\n"
+    small = np.array(["1", "2.5", "true", "abc", None], dtype=object)[rng.integers(0, 5, rows)]
+    table = pa.table(
+        {"big": pa.array(big, type=pa.string()), "small": pa.array(small, type=pa.string())}
+    )
+    pq.write_table(table, path, row_group_size=rows_per_group, use_dictionary=False)
+    return big, small
+
+
+def _string_analyzers(module):
+    return [
+        module.DataType("big"), module.ApproxCountDistinct("big"),
+        module.DataType("small"), module.ApproxCountDistinct("small"),
+    ]
+
+
+def _states(results):
+    """Each result's registers (HLL) or its histogram's counts."""
+    out = []
+    for r in results:
+        state = r.state_or_raise()
+        registers = getattr(state, "registers", None)
+        out.append(np.asarray(registers) if registers is not None else repr(state))
+    return out
+
+
+def test_large_dictionary_stream_takes_k5_and_matches_host_route_and_jax(tmp_path, monkeypatch):
+    from deequ_tpu import analyzers as jax_analyzers
+    from deequ_tpu.data.table import Table as JTable
+    from deequ_tpu.ops.fused import FusedScanPass as JPass
+    from deequ_tpu_torch import analyzers, observe
+    from deequ_tpu_torch.data.table import Table
+    from deequ_tpu_torch.ops.fused import FusedScanPass
+
+    path = str(tmp_path / "strings.parquet")
+    big, small = _large_dictionary_file(path)
+
+    def run(placement):
+        monkeypatch.setenv("DEEQU_TPU_PLACEMENT", placement)
+        source = Table.scan_parquet(path, batch_rows=70_000)
+        with runtime.monitored() as stats, observe.tracing() as tracer:
+            results = FusedScanPass(_string_analyzers(analyzers)).run(source)
+        return _states(results), stats, tracer
+
+    device_states, device_stats, tracer = run("device")
+    host_states, host_stats, _tracer = run("host-discrete")
+    # the large column in each of the two batches, the small one in none
+    assert (device_stats.device_strings, device_stats.device_strings_total) == (2, 4)
+    assert host_stats.device_strings == 0
+    assert tracer.counters["device_strings"] == 2 and tracer.counters["device_strings_total"] == 4
+    assert "device_strings 2/4" in observe.render_report(tracer, counters=tracer.counters)
+    # the dictionary's packing counts as the two keys' input builds
+    builds = observe.report.build_seconds(tracer)
+    assert builds["dtclass:big"] > 0 and builds["hll:big"] > 0
+    jax_states = _states(
+        JPass(_string_analyzers(jax_analyzers)).run(
+            JTable.from_pydict({"big": list(big), "small": list(small)})
+        )
+    )
+    for got, host_state, jax_state in zip(device_states, host_states, jax_states):
+        if isinstance(got, np.ndarray):
+            assert np.array_equal(got, host_state) and np.array_equal(got, jax_state)
+        else:
+            assert got == host_state == jax_state
