@@ -257,27 +257,15 @@ class Completeness(_RatioAnalyzer):
         return f"Completeness({self.column},{render_where(self.where)})"
 
 
-def _pred_spec(predicate: str) -> InputSpec:
+def _pred_specs(predicate: str) -> List[InputSpec]:
+    """A predicate's row mask (`pred:`, NULL counting as False) and its
+    non-NULL rows (`prednn:`), from one parse."""
     pred = Predicate(predicate)
-    return InputSpec(
-        key=f"pred:{predicate}",
-        build=pred.eval_mask,
-        columns=tuple(sorted(set(pred.referenced_columns()))),
-    )
-
-
-def _pred_nonnull_spec(predicate: str) -> InputSpec:
-    pred = Predicate(predicate)
-
-    def build(t: Table) -> np.ndarray:
-        _, null, _ = pred.eval(t)
-        return ~null
-
-    return InputSpec(
-        key=f"prednn:{predicate}",
-        build=build,
-        columns=tuple(sorted(set(pred.referenced_columns()))),
-    )
+    columns = tuple(sorted(set(pred.referenced_columns())))
+    return [
+        InputSpec(key=f"pred:{predicate}", build=pred.eval_mask, columns=columns),
+        InputSpec(key=f"prednn:{predicate}", build=pred.eval_nonnull, columns=columns),
+    ]
 
 
 @dataclass(frozen=True)
@@ -301,7 +289,7 @@ class Compliance(_RatioAnalyzer):
         return f"pred:{self.predicate}"
 
     def _extra_specs(self) -> List[InputSpec]:
-        return [_pred_spec(self.predicate), _pred_nonnull_spec(self.predicate)]
+        return _pred_specs(self.predicate)
 
     def _guard(self, inputs: Dict[str, Any]) -> torch.Tensor:
         # criterion NULL on where-misses and NULL predicate results

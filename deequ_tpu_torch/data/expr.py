@@ -24,7 +24,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from deequ_tpu_torch.data.table import Column, ColumnType, Table
+from deequ_tpu_torch.data.table import Column, ColumnType, Table, cached_dictionary_encode
+from deequ_tpu_torch.ops import runtime
 
 
 class ExpressionParseError(ValueError):
@@ -684,19 +685,72 @@ def _eval_func(node: Func, table: Table, n: int) -> Series:
 
 
 class Predicate:
-    """A parsed SQL-ish expression evaluable over a Table."""
+    """A parsed SQL-ish expression evaluable over a Table.
+
+    A predicate that reads one STRING column builds its masks from the
+    column's dictionary: evaluation is row-wise, so the AST evaluated once
+    over the dictionary's entries and a NULL row gives every row the value
+    of its code, and the row masks are gathers through the codes."""
 
     def __init__(self, expression: str):
         self.expression = expression
         self.ast = parse(expression)
+        names = set(self.referenced_columns())
+        self._only_column = names.pop() if len(names) == 1 else None
 
     def eval_mask(self, table: Table) -> np.ndarray:
         """Boolean row mask; NULL -> False (SQL WHERE semantics)."""
+        route = self._dictionary_route(table)
+        if route is not None:
+            codes, (mask, _nonnull) = route
+            return mask[codes]
         v, null, kind = _eval(self.ast, table, table.num_rows)
         return np.asarray(v, dtype=bool) & ~null
 
+    def eval_nonnull(self, table: Table) -> np.ndarray:
+        """Row mask of the rows where the predicate is not NULL."""
+        route = self._dictionary_route(table)
+        if route is not None:
+            codes, (_mask, nonnull) = route
+            return nonnull[codes]
+        _, null, _ = _eval(self.ast, table, table.num_rows)
+        return ~null
+
     def eval(self, table: Table) -> Series:
         return _eval(self.ast, table, table.num_rows)
+
+    def _dictionary_route(self, table: Table):
+        """(codes, (mask, non-null) per dictionary entry) where the
+        predicate reads one STRING column, else None. The entry tables
+        end in the NULL row's, which the null code (-1) indexes; they are
+        memoized per dictionary (`cached_dictionary_encode`), so both masks
+        of a batch, and later batches with an equal dictionary, share one
+        evaluation. Records the build (`runtime.record_dictionary_predicates`)."""
+        name = self._only_column
+        col = table.column(name) if name is not None and table.has_column(name) else None
+        codes = col.dict_encode()[0] if col is not None and col.ctype == ColumnType.STRING else None
+        # the null code must mark exactly the null rows: a valid None in an
+        # object column (a taken row of a null dictionary entry) encodes as
+        # null, and only the row path gives it its value's masks
+        if codes is None or np.count_nonzero(codes < 0) != col.null_count:
+            runtime.record_dictionary_predicates(0, 1)
+            return None
+
+        def entry_masks(root: Column) -> Tuple[np.ndarray, np.ndarray]:
+            uniques = root.dict_encode()[1]
+            k = len(uniques)
+            values = np.empty(k + 1, dtype=object)
+            values[:k] = uniques
+            values[k] = ""
+            valid = np.ones(k + 1, dtype=bool)
+            valid[k] = False
+            entries = Table([Column(name, ColumnType.STRING, values, valid)])
+            v, null, _ = _eval(self.ast, entries, k + 1)
+            return np.asarray(v, dtype=bool) & ~null, ~null
+
+        luts = cached_dictionary_encode(col, f"pred:{self.expression}", entry_masks)
+        runtime.record_dictionary_predicates(1, 1)
+        return codes, luts
 
     def referenced_columns(self) -> List[str]:
         out: List[str] = []

@@ -123,6 +123,16 @@ def record_device_strings(device: int, total: int) -> None:
         tracer.count("device_strings_total", int(total))
 
 
+def record_dictionary_predicates(engaged: int, total: int) -> None:
+    """Predicate mask builds (`pred:`, `prednn:`, `where:`): those served
+    from a STRING column's dictionary and all of them. Tracer-only, like
+    record_device_strings; the run report prints the two."""
+    tracer = spans.current_tracer()
+    if tracer is not None:
+        tracer.count("dictionary_predicates", int(engaged))
+        tracer.count("dictionary_predicates_total", int(total))
+
+
 def record_reader_chunks(native: int, fallback: int, total: int) -> None:
     """Native-reader plan outcome of one fused scan: column chunks the
     native parquet reader decodes vs chunks that fall back to pyarrow,

@@ -296,6 +296,12 @@ def render_report(
     if strings_total:
         # STRING columns' DataType/HLL inputs a batch: computed on the device
         headline.append(f"device_strings {counters.get('device_strings', 0)}/{strings_total}")
+    predicates_total = (counters or {}).get("dictionary_predicates_total")
+    if predicates_total:
+        # predicate mask builds served from a STRING column's dictionary
+        headline.append(
+            f"dictionary_predicates {counters.get('dictionary_predicates', 0)}/{predicates_total}"
+        )
     lines.append(" | ".join(headline))
     for root in root_list:
         grouped = _aggregate(root.children)

@@ -321,6 +321,10 @@ class ExecutionStats:
     # input: classified and hashed on the device (K5), and all of them
     device_strings: int = 0
     device_strings_total: int = 0
+    # predicate mask builds (`pred:`, `prednn:`, `where:`): those served
+    # from a STRING column's dictionary, and all of them
+    dictionary_predicates: int = 0
+    dictionary_predicates_total: int = 0
     # encoded fold, the plan: columns approved and judged, the approved
     # names and the others' reasons
     encfold_cols: int = 0
@@ -449,6 +453,16 @@ def record_device_strings(device: int, total: int) -> None:
         sink.device_strings += int(device)
         sink.device_strings_total += int(total)
     _counters.record_device_strings(device, total)
+
+
+def record_dictionary_predicates(engaged: int, total: int) -> None:
+    """Predicate mask builds: those served from a STRING column's
+    dictionary (one evaluation over its entries, gathered through the
+    codes), and all of them."""
+    for sink in _sinks():
+        sink.dictionary_predicates += int(engaged)
+        sink.dictionary_predicates_total += int(total)
+    _counters.record_dictionary_predicates(engaged, total)
 
 
 def record_encfold_plan(cols: Sequence[str], total: int, falloffs=()) -> None:
