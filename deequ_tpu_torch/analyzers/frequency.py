@@ -30,7 +30,7 @@ from deequ_tpu_torch.analyzers.states import State
 from deequ_tpu_torch.core.maybe import Success
 from deequ_tpu_torch.core.metrics import DoubleMetric, Entity, Metric
 from deequ_tpu_torch.data.table import ColumnType, Table
-from deequ_tpu_torch.ops import runtime
+from deequ_tpu_torch.observe import counters
 
 
 # ---------------------------------------------------------------------------
@@ -167,7 +167,7 @@ def compute_frequencies(
     groups is counted row-sharded on its devices (`sharded_bincount`).
     Traced, the `group_pass` span says whether the groups `spilled`."""
     with observe.span("group_pass", cat="group", columns=",".join(grouping_columns)) as sp:
-        runtime.record_group_pass(",".join(grouping_columns))
+        counters.record_group_pass(",".join(grouping_columns))
         state = _compute_frequencies(data, grouping_columns, num_rows, mesh)
         if sp:
             # whether the disk spill (its `spill_*` spans) holds the groups
@@ -446,7 +446,7 @@ class MutualInformation(FrequencyBasedAnalyzer):
     def compute_metric_from(self, state: Optional[FrequenciesAndNumRows], device=None) -> Metric:
         if state is None or state.num_groups == 0:
             return self.empty_state_failure()
-        runtime.record_pass("freq-agg:MutualInformation")
+        counters.record_pass("freq-agg:MutualInformation")
         total = state.num_rows
         # state columns may be sorted differently than self.columns
         ia = state.columns.index(self.columns[0])

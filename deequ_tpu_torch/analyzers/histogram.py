@@ -29,7 +29,7 @@ from deequ_tpu_torch.core.metrics import (
     Metric,
 )
 from deequ_tpu_torch.data.table import ColumnType, Table
-from deequ_tpu_torch.ops import runtime
+from deequ_tpu_torch.observe import counters
 
 NULL_FIELD_REPLACEMENT = "NullValue"
 MAXIMUM_ALLOWED_DETAIL_BINS = 1000
@@ -91,7 +91,7 @@ class Histogram(Analyzer):
         return [param_check, Preconditions.has_column(self.column)]
 
     def compute_state_from(self, table: Table, device=None) -> Optional[FrequenciesAndNumRows]:
-        runtime.record_group_pass(f"histogram:{self.column}")
+        counters.record_group_pass(f"histogram:{self.column}")
         if hasattr(table, "with_columns"):
             table = table.with_columns([self.column])
         if getattr(table, "is_streaming", False):

@@ -25,7 +25,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from deequ_tpu_torch.data.table import Column, ColumnType, Table, cached_dictionary_encode
-from deequ_tpu_torch.ops import runtime
+from deequ_tpu_torch.observe import counters
 
 
 class ExpressionParseError(ValueError):
@@ -725,7 +725,7 @@ class Predicate:
         end in the NULL row's, which the null code (-1) indexes; they are
         memoized per dictionary (`cached_dictionary_encode`), so both masks
         of a batch, and later batches with an equal dictionary, share one
-        evaluation. Records the build (`runtime.record_dictionary_predicates`)."""
+        evaluation. Records the build (`counters.record_dictionary_predicates`)."""
         name = self._only_column
         col = table.column(name) if name is not None and table.has_column(name) else None
         codes = col.dict_encode()[0] if col is not None and col.ctype == ColumnType.STRING else None
@@ -733,7 +733,7 @@ class Predicate:
         # object column (a taken row of a null dictionary entry) encodes as
         # null, and only the row path gives it its value's masks
         if codes is None or np.count_nonzero(codes < 0) != col.null_count:
-            runtime.record_dictionary_predicates(0, 1)
+            counters.record_dictionary_predicates(0, 1)
             return None
 
         def entry_masks(root: Column) -> Tuple[np.ndarray, np.ndarray]:
@@ -749,7 +749,7 @@ class Predicate:
             return np.asarray(v, dtype=bool) & ~null, ~null
 
         luts = cached_dictionary_encode(col, f"pred:{self.expression}", entry_masks)
-        runtime.record_dictionary_predicates(1, 1)
+        counters.record_dictionary_predicates(1, 1)
         return codes, luts
 
     def referenced_columns(self) -> List[str]:

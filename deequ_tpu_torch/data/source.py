@@ -43,7 +43,7 @@ from typing import TYPE_CHECKING, Callable, Dict, Iterator, List, Optional, Sequ
 import numpy as np
 
 from deequ_tpu_torch.data.table import NUMPY_BACKING, Column, ColumnType, Table
-from deequ_tpu_torch.observe import heartbeat
+from deequ_tpu_torch.observe import counters, heartbeat
 from deequ_tpu_torch.observe import spans as _spans
 from deequ_tpu_torch.ops import runtime
 from deequ_tpu_torch.ops.pipeline import put_blocking
@@ -130,15 +130,15 @@ class _WorkerContext:
     is not attached twice: an inline redo runs on the scan's own thread."""
 
     def __init__(self):
-        self.sinks = runtime.current_sinks()
+        self.sinks = counters.current_sinks()
         self.tracer = _spans.current_tracer()
         self.parent = _spans.current_span()
 
     @contextlib.contextmanager
     def __call__(self) -> Iterator[None]:
-        have = runtime.current_sinks()
+        have = counters.current_sinks()
         sinks = [s for s in self.sinks if not any(s is h for h in have)]
-        with runtime.attached_sinks(sinks), _spans.attached(self.tracer, self.parent):
+        with counters.attached_sinks(sinks), _spans.attached(self.tracer, self.parent):
             yield
 
 
@@ -173,9 +173,9 @@ def _ordered_decode(count: int, workers: int, decode, release=None) -> Iterator[
             try:
                 tables = fut.result()
             except Exception:  # noqa: BLE001 - contained: one inline redo
-                runtime.record_fault(injected=1)
+                counters.record_fault(injected=1)
                 tables = decode(i)
-                runtime.record_retry(1, 1, 0)
+                counters.record_retry(1, 1, 0)
             yield from tables
     finally:
         for _, fut in pending:
@@ -298,14 +298,14 @@ class DataSource:
         stop = threading.Event()
         error: List[BaseException] = []
 
-        sinks = runtime.current_sinks()
+        sinks = counters.current_sinks()
         tracer = _spans.current_tracer()
         parent = _spans.current_span()
         # the stage that takes the batches: the consumer's innermost span
         consumer = parent.attrs.get("stage", parent.name) if parent is not None else "consumer"
 
         def producer() -> None:
-            with runtime.attached_sinks(sinks), _spans.attached(tracer, parent):
+            with counters.attached_sinks(sinks), _spans.attached(tracer, parent):
                 _produce()
 
         def _produce() -> None:
@@ -873,7 +873,7 @@ class ParquetSource(DataSource):
                 # at nothing, and sent no unit anywhere
                 if not stop.is_set():
                     with context():
-                        runtime.record_fault(injected=1, fallback_units=1)
+                        counters.record_fault(injected=1, fallback_units=1)
             finally:
                 if not fetched[i].done():
                     _resolve_quietly_fallback(fetched[i])
@@ -994,11 +994,11 @@ class ParquetSource(DataSource):
                     bytes_read=sum(len(data) for data in raw.values() if data is not None),
                 )
         if tally["retries"] or tally["exhausted"]:
-            runtime.record_retry(tally["retries"], tally["recovered"], tally["exhausted"])
+            counters.record_retry(tally["retries"], tally["recovered"], tally["exhausted"])
         if tally["observed"]:
-            runtime.record_fault(injected=tally["observed"])
+            counters.record_fault(injected=tally["observed"])
         if lost:
-            runtime.record_fault(injected=1, fallback_units=1)
+            counters.record_fault(injected=1, fallback_units=1)
             return None
         return raw
 
@@ -1135,7 +1135,7 @@ class ParquetSource(DataSource):
                 chunks_runs=len(unit) * len(run_cols),
             )
         if enc_specs and (run_cols or enc_fallback):
-            runtime.record_encfold(
+            counters.record_encfold(
                 chunks=len(unit) * len(run_cols),
                 fallback=enc_fallback,
                 runs=enc_runs,

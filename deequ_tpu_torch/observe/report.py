@@ -19,6 +19,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
+from deequ_tpu_torch.observe.counters import HEADLINE_RATIOS
 from deequ_tpu_torch.observe.spans import WAIT_SPAN, Span, Tracer
 
 # The headline buckets (always present in phase_seconds, even at 0.0):
@@ -292,16 +293,10 @@ def render_report(
         value = (counters or {}).get(key, head.attrs.get(key))
         if value is not None:
             headline.append(f"{key} {value}")
-    strings_total = (counters or {}).get("device_strings_total")
-    if strings_total:
-        # STRING columns' DataType/HLL inputs a batch: computed on the device
-        headline.append(f"device_strings {counters.get('device_strings', 0)}/{strings_total}")
-    predicates_total = (counters or {}).get("dictionary_predicates_total")
-    if predicates_total:
-        # predicate mask builds served from a STRING column's dictionary
-        headline.append(
-            f"dictionary_predicates {counters.get('dictionary_predicates', 0)}/{predicates_total}"
-        )
+    for key, total_key in HEADLINE_RATIOS:
+        total = (counters or {}).get(total_key)
+        if total:
+            headline.append(f"{key} {counters.get(key, 0)}/{total}")
     lines.append(" | ".join(headline))
     for root in root_list:
         grouped = _aggregate(root.children)

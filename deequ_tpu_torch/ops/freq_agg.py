@@ -17,7 +17,7 @@ import torch
 
 from deequ_tpu_torch import observe
 from deequ_tpu_torch.core.metrics import Metric
-from deequ_tpu_torch.ops import runtime
+from deequ_tpu_torch.observe import counters
 
 if TYPE_CHECKING:
     from deequ_tpu_torch.analyzers.frequency import (
@@ -48,11 +48,11 @@ def run_shared_freq_agg(
 
 
 def _run_shared_freq_agg(state, analyzers, device: torch.device) -> List[Metric]:
-    runtime.record_pass("freq-agg:" + ",".join(a.name for a in analyzers))
+    counters.record_pass("freq-agg:" + ",".join(a.name for a in analyzers))
     num_rows = torch.tensor(float(state.num_rows), dtype=torch.float64, device=device)
 
     def reduce(counts) -> Tuple[list, np.ndarray]:
-        runtime.record_launch()
+        counters.record_launch()
         counts = torch.tensor(np.asarray(counts), dtype=torch.float64, device=device)
         outs = [a.freq_reduce(counts, num_rows) for a in analyzers]
         leaves = [value for out in outs for value in out.values()]

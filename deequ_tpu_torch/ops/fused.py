@@ -78,6 +78,7 @@ from deequ_tpu_torch.analyzers.base import ScanShareableAnalyzer
 from deequ_tpu_torch.analyzers.states import State
 from deequ_tpu_torch.core.controller import StallWatchdog
 from deequ_tpu_torch.data.table import ColumnType, Table, large_arrow_dictionary
+from deequ_tpu_torch.observe import counters
 from deequ_tpu_torch.observe.spans import _NOOP as _NO_SPAN
 from deequ_tpu_torch.ops import counts_family, cuda_kernels, pipeline, runtime
 
@@ -215,7 +216,7 @@ def apply_prune_plan(table, prune, specs: Dict[str, Any]):
         wheres_elided=elided,
     ):
         pass
-    runtime.record_pruned_groups(
+    counters.record_pruned_groups(
         prune.skipped_groups, prune.total_groups, prune.skipped_rows, elided
     )
     if prune.skip:
@@ -716,7 +717,7 @@ def apply_decode_plan(table, plan: DecodePlan):
         workers=workers,
     ):
         pass
-    runtime.record_decode_fastpath(len(plan.fast), plan.total, workers)
+    counters.record_decode_fastpath(len(plan.fast), plan.total, workers)
     if plan.reader_planned:
         # chunks are static: the scanned columns of every row group the
         # scan reads
@@ -727,11 +728,11 @@ def apply_decode_plan(table, plan: DecodePlan):
         )
         native_chunks = len(plan.reader_chunks)
         total_chunks = max(plan.total * groups, native_chunks)
-        runtime.record_reader_chunks(native_chunks, total_chunks - native_chunks, total_chunks)
+        counters.record_reader_chunks(native_chunks, total_chunks - native_chunks, total_chunks)
     if plan.wire_planned:
-        runtime.record_wire_fused(sorted(plan.wire_specs), plan.total, plan.wire_falloffs)
+        counters.record_wire_fused(sorted(plan.wire_specs), plan.total, plan.wire_falloffs)
     if plan.enc_planned:
-        runtime.record_encfold_plan(sorted(plan.enc_specs), plan.total, plan.enc_falloffs)
+        counters.record_encfold_plan(sorted(plan.enc_specs), plan.total, plan.enc_falloffs)
     if plan.fast:
         table = table.with_decode_fastpath(plan.fast)
     if plan.wire_specs:
@@ -1211,7 +1212,7 @@ def _precompute_family_kernels(
             _family_hll_mode(batch, job.column) if job.want_regs and streaming else (0, None)
         )
         inputs[job.qkey] = (x, valid, warr, hll_mode, hashvals)
-    runtime.record_family(shortcuts=shortcuts)
+    counters.record_family(shortcuts=shortcuts)
     groups = [
         group for _key, group in group_family_jobs([j for j in planned if j.qkey in inputs])
     ]
@@ -1262,7 +1263,7 @@ def _precompute_family_kernels(
         for job, out in zip(group, outs):
             if out is not None:
                 _publish_family(built, job, out, len(inputs[job.qkey][0]))
-    runtime.record_family(kernels=kernels)
+    counters.record_family(kernels=kernels)
 
 
 def plan_shape_key(
@@ -1495,7 +1496,7 @@ def get_fused_fn(
     key = (plan_shape_key(analyzers, layout, assisted), str(device))
     with _PLAN_CACHE_LOCK:
         program = _PLAN_CACHE.get(key)
-        runtime.record_plan_cache(program is not None)
+        counters.record_plan_cache(program is not None)
         if program is None:
             program = FusedProgram(analyzers, layout, device, assisted)
             _PLAN_CACHE[key] = program
@@ -1793,7 +1794,7 @@ class FusedScanPass:
                 if merged is None
                 else [_merge_partition_results(m, r) for m, r in zip(merged, results)]
             )
-        runtime.record_state_cache(cached_n, scanned_n, len(parts))
+        counters.record_state_cache(cached_n, scanned_n, len(parts))
         return merged
 
     def _run_single(self, table: Table) -> List[AnalyzerRunResult]:
@@ -1817,7 +1818,7 @@ class FusedScanPass:
         live_idx = plan.merge_idx + plan.assisted_idx + plan.host_idx + plan.host_assisted_idx
         if not live_idx:
             return [results[i] for i in range(len(self.analyzers))]
-        runtime.record_placement(
+        counters.record_placement(
             plan.mode,
             len(plan.merge_idx) + len(plan.assisted_idx),
             len(plan.host_idx) + len(plan.host_assisted_idx),
@@ -1907,7 +1908,7 @@ class FusedScanPass:
         reports the scan's progress while it runs."""
         scan = self._new_scan(plan)
         scan.forensics = self._forensics
-        runtime.record_pass(self._pass_label(scan))
+        counters.record_pass(self._pass_label(scan))
         streaming = bool(getattr(table, "is_streaming", False))
         batch_size = self.batch_size
         if not scan.use_device and not streaming and not self._batch_size_explicit:
@@ -2074,7 +2075,7 @@ class _BatchScan:
 
     def _dictionary_routes(self, batch: Table) -> Dict[str, Tuple[str, ...]]:
         """The batch's STRING columns that take K5: column -> the keys K5
-        computes for it. Records the verdict (`runtime.record_device_strings`)
+        computes for it. Records the verdict (`counters.record_device_strings`)
         over every STRING column with a `dtclass:` or `hll:` key."""
         if not self.string_keys:
             return {}
@@ -2095,7 +2096,7 @@ class _BatchScan:
                 and large_arrow_dictionary(col) is not None
             ):
                 routes[column] = served
-        runtime.record_device_strings(len(routes), total)
+        counters.record_device_strings(len(routes), total)
         return routes
 
     def _copy_to(self, host: Dict[str, torch.Tensor], device: torch.device, stream):
@@ -2147,7 +2148,7 @@ class _BatchScan:
         events on the program's stream."""
         self._await_copy(item.wire, item.copied, self.device)
         program = get_fused_fn(self.analyzers, item.layout, self.device, self.assisted)
-        runtime.record_launch()
+        counters.record_launch()
         timing = program_timer(self.device)
         if timing is not None:
             stream = torch.cuda.current_stream(self.device)

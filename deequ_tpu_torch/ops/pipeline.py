@@ -34,6 +34,7 @@ import threading
 from typing import Any, Callable, Iterable, Iterator, List, Optional
 
 from deequ_tpu_torch import observe
+from deequ_tpu_torch.observe import counters
 from deequ_tpu_torch.ops import runtime
 from deequ_tpu_torch.testing import faults
 
@@ -105,7 +106,7 @@ def staged(
     stop = threading.Event()
     error: List[BaseException] = []
 
-    sinks = runtime.current_sinks()
+    sinks = counters.current_sinks()
     tracer = observe.current_tracer()
     parent = observe.current_span()
 
@@ -114,7 +115,7 @@ def staged(
         return fn(item)
 
     def worker() -> None:
-        with runtime.attached_sinks(sinks), observe.attached(tracer, parent):
+        with counters.attached_sinks(sinks), observe.attached(tracer, parent):
             _work()
 
     def _work() -> None:
@@ -142,9 +143,9 @@ def staged(
                             # a contained stage fault: one redo in place;
                             # a second failure is a real error and ends
                             # the stage
-                            runtime.record_fault(injected=1)
+                            counters.record_fault(injected=1)
                             out = _apply(item)
-                            runtime.record_retry(1, 1, 0)
+                            counters.record_retry(1, 1, 0)
                     if not put_blocking(q, out, stop, "fold"):
                         return
                     items += 1

@@ -1,8 +1,8 @@
 """Execution runtime: the device a run uses, its compute dtype, where
 reductions are placed (the bandwidth probe and its disk cache), the
 fold-arithmetic tag a plan signature hashes, the knobs of the host fast
-paths, the decode-to-wire records, and the pass accounting
-(`monitored()`).
+paths and the decode-to-wire records. `monitored()` and `ExecutionStats`
+are observe/counters.py's, importable from here too.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``. With
 no device given and no CUDA device present a run raises: it never moves
@@ -17,13 +17,13 @@ import json
 import os
 import threading
 import time
-from dataclasses import dataclass, field
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
+from dataclasses import dataclass
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
 
-from deequ_tpu_torch.observe import counters as _counters
+from deequ_tpu_torch.observe.counters import ExecutionStats, monitored  # noqa: F401 - re-exported
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -285,295 +285,6 @@ def wire_pad_size(n: int) -> int:
     return max(-(-n // 8) * 8, 8)
 
 
-# -- pass accounting -----------------------------------------------------------
-
-
-@dataclass
-class ExecutionStats:
-    """Counts of engine work during a `monitored()` block."""
-
-    device_passes: int = 0  # one per fused scan over a table
-    device_launches: int = 0  # one per device program run (per batch)
-    group_passes: int = 0  # one per group-by frequency computation
-    # one label per device pass ("scan:...", "freq-agg:...") and group
-    # pass ("group:..."), in the order they ran
-    pass_labels: List[str] = field(default_factory=list)
-    # partitioned scans: partitions whose states loaded from a state
-    # repository, partitions that scanned, and all of them
-    partitions_cached: int = 0
-    partitions_scanned: int = 0
-    partitions_total: int = 0
-    # placement of each pass's members: the mode, members folded in the
-    # device program, members folded on the host
-    placements: List[str] = field(default_factory=list)
-    device_members: int = 0
-    host_members: int = 0
-    # family kernels of host-folded sketches: C traversals run (one per
-    # batched group or solo column) and families served by counts
-    family_kernels: int = 0
-    family_shortcuts: int = 0
-    # decode-to-wire: columns fused and columns the planner judged
-    wire_fused_cols: int = 0
-    wire_cols_total: int = 0
-    wire_fused: List[str] = field(default_factory=list)
-    wire_falloffs: List[Tuple[str, str, str]] = field(default_factory=list)
-    # (column, batch) pairs of STRING columns with a DataType or HLL
-    # input: classified and hashed on the device (K5), and all of them
-    device_strings: int = 0
-    device_strings_total: int = 0
-    # predicate mask builds (`pred:`, `prednn:`, `where:`): those served
-    # from a STRING column's dictionary, and all of them
-    dictionary_predicates: int = 0
-    dictionary_predicates_total: int = 0
-    # encoded fold, the plan: columns approved and judged, the approved
-    # names and the others' reasons
-    encfold_cols: int = 0
-    encfold_cols_total: int = 0
-    encfold_planned: List[str] = field(default_factory=list)
-    encfold_falloffs: List[Tuple[str, str]] = field(default_factory=list)
-    # encoded fold, the decode: chunks folded over runs, chunks that fell
-    # back to row width, runs and values folded, dictionary codes rolled
-    # up, row-width bytes never built
-    encfold_chunks: int = 0
-    encfold_chunks_fallback: int = 0
-    encfold_runs: int = 0
-    encfold_values: int = 0
-    encfold_codes_folded: int = 0
-    encfold_bytes_saved: int = 0
-    # mesh-sharded passes (parallel/distributed.py) and their shards in
-    # all: each shard of each batch is one device program run
-    mesh_passes: int = 0
-    mesh_shards: int = 0
-    # sharded streaming scan (parallel/multihost.py), this process's
-    # shard: its partitions, the gathered envelope bytes that crossed
-    # the process boundary, and the rows of its partitions
-    shard_partitions_local: int = 0
-    shard_merge_bytes: int = 0
-    shard_rows_local: int = 0
-    # row-group pruning (lint/pushdown.py), summed over the pruned
-    # scans: groups skipped unread, groups in the files, the rows of the
-    # skipped groups, and where filters swapped for a constant mask
-    rg_skipped: int = 0
-    rg_total: int = 0
-    rg_rows_skipped: int = 0
-    wheres_elided: int = 0
-
-    @property
-    def jobs(self) -> int:
-        return self.device_passes + self.group_passes
-
-
-def _sinks() -> List[ExecutionStats]:
-    return _counters._sinks()
-
-
-@contextlib.contextmanager
-def monitored() -> Iterator[ExecutionStats]:
-    """Count the passes of everything run on this thread inside the block.
-    The counting lives in `observe.counters` (a thread-local sink stack
-    that also feeds the thread's tracer), so a traced run's counters and
-    these stats are the same numbers."""
-    stats = ExecutionStats()
-    with _counters.collect(stats):
-        yield stats
-
-
-def current_sinks() -> List[ExecutionStats]:
-    """The `monitored()` blocks this thread counts into, for a stage
-    thread that works for it (`attached_sinks`)."""
-    return list(_sinks())
-
-
-@contextlib.contextmanager
-def attached_sinks(sinks: Sequence[ExecutionStats]) -> Iterator[None]:
-    """Count this thread's work into `sinks` as well: a decode or prep
-    thread of a monitored pass records into its caller's blocks."""
-    with contextlib.ExitStack() as stack:
-        for sink in sinks:
-            stack.enter_context(_counters.collect(sink))
-        yield
-
-
-def record_pass(label: str) -> None:
-    """One fused scan over a table, or one shared frequency aggregation."""
-    _counters.record_pass(label)
-
-
-def record_launch() -> None:
-    """One run of a batch's device program, or of a frequency aggregation."""
-    _counters.record_launch()
-
-
-def record_group_pass(label: str) -> None:
-    """One group-by counting pass over a table."""
-    _counters.record_group_pass(label)
-
-
-def record_state_cache(cached: int, scanned: int, total: int) -> None:
-    """The split of one partitioned scan: loaded, scanned, all partitions."""
-    for sink in _sinks():
-        sink.partitions_cached += int(cached)
-        sink.partitions_scanned += int(scanned)
-        sink.partitions_total += int(total)
-    _counters.record_state_cache(cached, scanned, total)
-
-
-def record_placement(mode: str, device_members: int, host_members: int) -> None:
-    """One fused pass's placement and its member split."""
-    for sink in _sinks():
-        sink.placements.append(mode)
-        sink.device_members += int(device_members)
-        sink.host_members += int(host_members)
-
-
-def record_family(kernels: int = 0, shortcuts: int = 0) -> None:
-    """Family kernels run for one host batch, and families served from
-    counts instead."""
-    for sink in _sinks():
-        sink.family_kernels += int(kernels)
-        sink.family_shortcuts += int(shortcuts)
-
-
-def record_wire_fused(fused: Sequence[str], total: int, falloffs=()) -> None:
-    """One pass's decode-to-wire verdict: the fused columns, the columns
-    judged, and the others' (column, reason, key) records."""
-    for sink in _sinks():
-        sink.wire_fused_cols += len(fused)
-        sink.wire_cols_total += int(total)
-        sink.wire_fused.extend(fused)
-        sink.wire_falloffs.extend(falloffs)
-    _counters.record_wire_fused(len(fused), total)
-
-
-def record_device_strings(device: int, total: int) -> None:
-    """One batch's verdict on its STRING columns' DataType classes and HLL
-    codes: columns computed on the device from their dictionary (K5), and
-    all the columns with such an input."""
-    for sink in _sinks():
-        sink.device_strings += int(device)
-        sink.device_strings_total += int(total)
-    _counters.record_device_strings(device, total)
-
-
-def record_dictionary_predicates(engaged: int, total: int) -> None:
-    """Predicate mask builds: those served from a STRING column's
-    dictionary (one evaluation over its entries, gathered through the
-    codes), and all of them."""
-    for sink in _sinks():
-        sink.dictionary_predicates += int(engaged)
-        sink.dictionary_predicates_total += int(total)
-    _counters.record_dictionary_predicates(engaged, total)
-
-
-def record_encfold_plan(cols: Sequence[str], total: int, falloffs=()) -> None:
-    """One pass's encoded-fold verdict: the approved columns, the columns
-    judged, and the others' (column, reason) records."""
-    for sink in _sinks():
-        sink.encfold_cols += len(cols)
-        sink.encfold_cols_total += int(total)
-        sink.encfold_planned.extend(cols)
-        sink.encfold_falloffs.extend(falloffs)
-    _counters.record_encfold_plan(len(cols), total)
-
-
-_ENCFOLD_LOCK = threading.Lock()
-
-
-def record_encfold(
-    chunks: int, fallback: int, runs: int, values: int, codes: int, bytes_saved: int
-) -> None:
-    """One decode unit's encoded fold (the counts the JAX package keeps as
-    its `encfold_*` trace counters). Decode workers record at once, so
-    the sinks are added to under a lock."""
-    with _ENCFOLD_LOCK:
-        for sink in _sinks():
-            sink.encfold_chunks += int(chunks)
-            sink.encfold_chunks_fallback += int(fallback)
-            sink.encfold_runs += int(runs)
-            sink.encfold_values += int(values)
-            sink.encfold_codes_folded += int(codes)
-            sink.encfold_bytes_saved += int(bytes_saved)
-    _counters.record_encfold(chunks, fallback, runs, values, codes, bytes_saved)
-
-
-def record_mesh_pass(shards: int) -> None:
-    """One mesh-sharded pass over `shards` shards."""
-    for sink in _sinks():
-        sink.mesh_passes += 1
-        sink.mesh_shards += int(shards)
-
-
-def record_shard_scan(
-    shard: int,
-    num_shards: int,
-    partitions_local: int,
-    partitions_max: int,
-    partitions_total: int,
-    merge_bytes: int,
-    rows_local: int,
-) -> None:
-    """This process's part of one sharded streaming scan: its shard of
-    how many, its partitions against the largest shard's and the
-    dataset's, the gathered envelope bytes and its rows. `monitored()`
-    keeps the local counts; the tracer gets every field (`shard.*`)."""
-    for sink in _sinks():
-        sink.shard_partitions_local += int(partitions_local)
-        sink.shard_merge_bytes += int(merge_bytes)
-        sink.shard_rows_local += int(rows_local)
-    _counters.record_shard_scan(
-        shard, num_shards, partitions_local, partitions_max, partitions_total,
-        merge_bytes, rows_local,
-    )
-
-
-def record_pruned_groups(skipped: int, total: int, rows_skipped: int, wheres_elided: int) -> None:
-    """One scan's row-group prune decision (ops/fused.py:apply_prune_plan)."""
-    for sink in _sinks():
-        sink.rg_skipped += int(skipped)
-        sink.rg_total += int(total)
-        sink.rg_rows_skipped += int(rows_skipped)
-        sink.wheres_elided += int(wheres_elided)
-    _counters.record_pruned_groups(skipped, total)
-
-
-def record_decode_fastpath(fast: int, total: int, workers: int) -> None:
-    """One scan's decode routing: the columns on the C decode, the
-    columns scanned and the decode threads (a tracer counter only)."""
-    _counters.record_decode_fastpath(fast, total, workers)
-
-
-def record_reader_chunks(native: int, fallback: int, total: int) -> None:
-    """One scan's C reader plan: column chunks the reader takes, chunks
-    left to pyarrow, and all chunks scanned (a tracer counter only)."""
-    _counters.record_reader_chunks(native, fallback, total)
-
-
-def record_plan_cache(hit: bool) -> None:
-    """One device-program lookup, and whether its plan shape was cached
-    (a tracer counter only)."""
-    _counters.record_plan_cache(hit)
-
-
-def record_retry(attempts: int, recovered: int, exhausted: int) -> None:
-    """One transient-IO operation's retries: backoff sleeps taken, whether
-    it recovered after one or more, whether its budget ran dry (a tracer
-    counter only, `engine.retry.*`)."""
-    _counters.record_retry(attempts, recovered, exhausted)
-
-
-def record_fault(injected: int = 0, fallback_units: int = 0) -> None:
-    """Faults seen at the engine's fault points, and decode units that
-    went to pyarrow because of one (a tracer counter only, `fault.*`)."""
-    _counters.record_fault(injected, fallback_units)
-
-
-def record_window(segments: int, hits: int, built: int, rescanned: int, partitions: int) -> None:
-    """One window query's merge: cover spans merged, of them segment
-    hits and segments built, partitions rescanned, and the window's
-    partitions (a tracer counter only, `window.*`)."""
-    _counters.record_window(segments, hits, built, rescanned, partitions)
-
-
 def shard_tag() -> str:
     """This process's shard in a sharded scan (``DEEQU_TPU_SHARD``, set
     by the launcher for each worker), which the pipeline's thread names
@@ -586,6 +297,8 @@ def shard_tag() -> str:
 
 
 def _env_number(name: str, default, cast):
+    """The variable `name` read by `cast` and held at 0 or above;
+    `default` when it is unset, empty or not a number."""
     raw = os.environ.get(name, "")
     if not raw:
         return default
@@ -665,12 +378,7 @@ def pipeline_depth() -> int:
     many prepped batches, their buffers already copied to the device,
     wait for the fold. Depth 1 is double buffering; a deeper queue
     smooths decode jitter for one resident batch more each."""
-    raw = os.environ.get("DEEQU_TPU_PIPELINE_DEPTH", "")
-    try:
-        depth = int(raw)
-    except ValueError:
-        return DEFAULT_PIPELINE_DEPTH
-    return max(1, min(depth, 64))
+    return max(1, min(_env_number("DEEQU_TPU_PIPELINE_DEPTH", DEFAULT_PIPELINE_DEPTH, int), 64))
 
 
 def decode_workers() -> int:
@@ -679,13 +387,7 @@ def decode_workers() -> int:
     serial decode). pyarrow and the C decode release the GIL, so workers
     overlap; their batches merge back in file order, so every count
     gives the same bits. The workers never touch the device."""
-    try:
-        workers = int(os.environ.get("DEEQU_TPU_DECODE_WORKERS", ""))
-    except ValueError:
-        workers = 0
-    if workers < 1:
-        workers = min(os.cpu_count() or 1, 4)
-    return workers
+    return _env_number("DEEQU_TPU_DECODE_WORKERS", 0, int) or min(os.cpu_count() or 1, 4)
 
 
 def source_stall_s() -> float:
@@ -696,13 +398,7 @@ def source_stall_s() -> float:
     measurement can see how much source wait the decode workers, the C
     reader's read-ahead and the pipeline hide. It changes no result;
     never set it for a throughput number of a local file."""
-    raw = os.environ.get("DEEQU_TPU_SOURCE_STALL_MS", "")
-    if not raw:
-        return 0.0
-    try:
-        return max(0.0, float(raw)) / 1000.0
-    except ValueError:
-        return 0.0
+    return _env_number("DEEQU_TPU_SOURCE_STALL_MS", 0.0, float) / 1000.0
 
 
 def state_cache_enabled() -> bool:
@@ -732,25 +428,14 @@ def share_group_max() -> int:
     """The most participants of one shared scan
     (``DEEQU_TPU_SHARE_GROUP_MAX``, default 8, at least 1): it bounds one
     worker's fan-out and what one preemption re-queues."""
-    raw = os.environ.get("DEEQU_TPU_SHARE_GROUP_MAX", "")
-    try:
-        n = int(raw) if raw else 8
-    except ValueError:
-        return 8
-    return max(1, n)
+    return max(1, _env_number("DEEQU_TPU_SHARE_GROUP_MAX", 8, int))
 
 
 def service_workers() -> int:
     """The DQService's worker threads (``DEEQU_TPU_SERVICE_WORKERS``,
     default 2, at least 1): how many suites run at once. On one card each
     worker's fused pass launches on its own thread's current stream."""
-    raw = os.environ.get("DEEQU_TPU_SERVICE_WORKERS", "")
-    if not raw:
-        return 2
-    try:
-        return max(1, int(raw))
-    except ValueError:
-        return 2
+    return max(1, _env_number("DEEQU_TPU_SERVICE_WORKERS", 2, int))
 
 
 def service_drain_s() -> float:
@@ -759,13 +444,7 @@ def service_drain_s() -> float:
     running suites get this long to commit their in-flight partition and
     end at a boundary (DQ407) before the drain cancels them outright.
     Queued work is returned with DQ414 at once either way."""
-    raw = os.environ.get("DEEQU_TPU_SERVICE_DRAIN_S", "")
-    if not raw:
-        return 30.0
-    try:
-        return max(0.0, float(raw))
-    except ValueError:
-        return 30.0
+    return _env_number("DEEQU_TPU_SERVICE_DRAIN_S", 30.0, float)
 
 
 def pushdown_enabled() -> bool:

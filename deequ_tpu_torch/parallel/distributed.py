@@ -34,6 +34,7 @@ import torch
 from deequ_tpu_torch import observe
 from deequ_tpu_torch.analyzers.base import ScanShareableAnalyzer
 from deequ_tpu_torch.data.table import Table
+from deequ_tpu_torch.observe import counters
 from deequ_tpu_torch.ops import runtime
 from deequ_tpu_torch.ops.fused import (
     AnalyzerRunResult,
@@ -133,7 +134,7 @@ class _MeshBatchScan(_BatchScan):
             with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
                 self._await_copy(wire, copied, device)
                 program = get_fused_fn(self.analyzers, layout, device, self.assisted)
-                runtime.record_launch()
+                counters.record_launch()
                 flat, meta = program(wire, hi - lo)
             flats.append(flat.to(self.device))
             bounds.append((lo, hi))
@@ -170,7 +171,7 @@ class DistributedScanPass(FusedScanPass):
         )
 
     def run(self, table: Table) -> List[AnalyzerRunResult]:
-        runtime.record_mesh_pass(self.mesh.size)
+        counters.record_mesh_pass(self.mesh.size)
         with observe.span(
             "dist_scan", cat="scan", devices=self.mesh.size, analyzers=len(self.analyzers)
         ):
@@ -204,7 +205,7 @@ def sharded_bincount(codes: np.ndarray, nbins: int, mesh: DeviceMesh) -> np.ndar
         for d, device in enumerate(mesh.devices):
             shard = torch.from_numpy(codes[d * per_dev : (d + 1) * per_dev]).to(device)
             counts = torch.bincount(shard, minlength=nbins + 1).to(mesh.devices[0])
-            runtime.record_launch()
+            counters.record_launch()
             total = counts if total is None else total + counts
         return total[:nbins].cpu().numpy().astype(np.int64)
 

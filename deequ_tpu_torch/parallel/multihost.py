@@ -51,6 +51,7 @@ from deequ_tpu_torch.analyzers.state_provider import (
     serialize_state,
 )
 from deequ_tpu_torch.data.table import Table
+from deequ_tpu_torch.observe import counters
 from deequ_tpu_torch.testing import faults
 from deequ_tpu_torch.runners.context import AnalyzerContext
 
@@ -501,7 +502,7 @@ def run_sharded_analysis(
                 metrics[a] = a.to_failure_metric(scan_errors[a])
             else:
                 metrics[a] = a.compute_metric_from(state, device)
-        runtime.record_state_cache(cached_n, scanned_n, mine.num_partitions)
+        counters.record_state_cache(cached_n, scanned_n, mine.num_partitions)
 
     if rest:
         local_provider = InMemoryStateProvider()
@@ -549,7 +550,7 @@ def run_sharded_analysis(
         for path in mine.paths:
             with pq.ParquetFile(path) as pf:
                 rows_local += int(pf.metadata.num_rows)
-    runtime.record_shard_scan(
+    counters.record_shard_scan(
         shard, num_shards, mine.num_partitions, plan.max_partitions, len(plan.order),
         merge_bytes, rows_local,
     )

@@ -46,6 +46,7 @@ from deequ_tpu_torch.analyzers import (
 from deequ_tpu_torch.analyzers.scan import DataTypeInstances, determine_type
 from deequ_tpu_torch.core.metrics import Distribution, DistributionValue
 from deequ_tpu_torch.data.table import Column, ColumnType, Table
+from deequ_tpu_torch.observe import counters
 from deequ_tpu_torch.ops import runtime
 from deequ_tpu_torch.profiles.column_profile import (
     ColumnProfiles,
@@ -407,7 +408,7 @@ def _compute_histograms(
     so host memory is O(distinct values)."""
     if not target_columns:
         return {}
-    runtime.record_group_pass("profiler-histograms:" + ",".join(target_columns))
+    counters.record_group_pass("profiler-histograms:" + ",".join(target_columns))
     if hasattr(data, "with_columns"):
         data = data.with_columns(list(target_columns))
     totals: Dict[str, Dict[str, int]] = {name: {} for name in target_columns}

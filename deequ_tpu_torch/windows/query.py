@@ -36,6 +36,7 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
 from deequ_tpu_torch import observe
 from deequ_tpu_torch.lint.diagnostics import Diagnostic, Severity
+from deequ_tpu_torch.observe import counters
 from deequ_tpu_torch.ops import runtime
 from deequ_tpu_torch.repository.states import (
     StateDecodeError,
@@ -395,7 +396,7 @@ class WindowQuery:
                     self._rescan(bad)
                     continue
                 sp.set(hits=hits, built=built)
-                runtime.record_window(
+                counters.record_window(
                     segments=plan.segments_merged,
                     hits=hits,
                     built=built,

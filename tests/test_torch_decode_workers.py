@@ -32,6 +32,7 @@ import pytest
 
 import test_suite_differential_fuzz as fuzz
 from deequ_tpu_torch.data.source import JOIN_TIMEOUT_S, ParquetSource
+from deequ_tpu_torch.observe import counters
 from deequ_tpu_torch.ops import native, pipeline, runtime
 from torch_stream_helpers import assert_metric_equal, bits, plain_route, port_random_check
 
@@ -578,7 +579,7 @@ def test_decode_workers_count_into_one_monitored_block_without_losing_an_update(
             def work():
                 with context():
                     for _ in range(calls):
-                        runtime.record_encfold(1, 1, 1, 1, 1, 1)
+                        counters.record_encfold(1, 1, 1, 1, 1, 1)
 
             threads = [threading.Thread(target=work) for _ in range(threads_n)]
             for t in threads:
