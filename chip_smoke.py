@@ -47,6 +47,9 @@ Phases, one JSON line each:
               default profile streamed over two such row groups, K5
               launching once a batch for l_comment and every column's
               histogram and HLL estimate those of "host-discrete";
+              hist16_select (K6) on the eight numeric lineitem columns
+              and on one float32 bin holding 1,048,576 rows, bit for bit,
+              timed beside its bound and by kernel;
   4. main_path  a VerificationSuite on a --rows table (float64 x and y
               with every 11th x null, int64 id, string cat, int64 grp)
               over the flagship analyzers, two approximate-quantile
@@ -677,6 +680,120 @@ def hist16_phase(torch, ck, device, rng, timer, profile):
     return row
 
 
+SELECT_ROWS = 1 << 20  # a row group of the benchmark's TPC-H lineitem at SF 1
+SELECT_CAP = 460  # ApproxQuantiles' sample at relative error 0.01
+
+
+def lineitem_numeric(name: str, rows: int, rng):
+    """A numeric TPC-H lineitem column in its Clause 4.2.3 value domain."""
+    import numpy as np
+
+    if name == "l_quantity":
+        return rng.integers(1, 51, rows).astype(np.float64)
+    if name == "l_discount":
+        return rng.integers(0, 11, rows) / 100.0
+    if name == "l_tax":
+        return rng.integers(0, 9, rows) / 100.0
+    if name == "l_partkey":
+        return rng.integers(1, 200_001, rows).astype(np.float64)
+    if name == "l_suppkey":
+        return rng.integers(1, 10_001, rows).astype(np.float64)
+    if name == "l_linenumber":
+        return np.minimum(rng.geometric(0.25, rows), 7).astype(np.float64)
+    if name == "l_extendedprice":
+        return rng.integers(1, 51, rows) * rng.integers(90_000, 210_000, rows) / 100.0
+    if name == "l_orderkey":  # sorted and sparse
+        return np.sort(rng.integers(1, 6_000_000, rows)).astype(np.float64)
+    raise ValueError(name)
+
+
+def select_phase(torch, ck, device, rng, timer, card: str, power_limit: str):
+    """hist16_select (K6) against its plain version on one row group of
+    SELECT_ROWS rows: the eight numeric TPC-H lineitem columns in their
+    value domains, and the worst case, one float32 bin holding every row
+    (values in [1, 1 + 2^-7)). Sample bits, n and level must match
+    exactly, and two launches must agree. Times K6 alone (K4's counts made
+    first), its plain version and its bound: 9 bytes a row read, and the
+    wanted rows' (key, row) pairs written and read once, 24 bytes each.
+    One traced call a case gives K6's device time by kernel. Returns the
+    kernel's row."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    def wanted_rows(counts):
+        c = counts.cpu().numpy().astype(np.int64)
+        c[ck.SELECT_VALUE_BINS:] = 0
+        level, kept = ck.decimation(int(c.sum()), SELECT_CAP)
+        stride = 1 << level
+        ranks = stride // 2 + stride * np.arange(kept)
+        wanted = np.zeros(ck.HIST_BINS, dtype=bool)
+        wanted[np.searchsorted(np.cumsum(c), ranks, side="right")] = True
+        zero = list(ck.ZERO_BINS)
+        wanted[zero] = wanted[zero].any()
+        return int(c[wanted].sum())
+
+    def device_ms_by_kernel(fn):
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
+                if "select_" in e.key}
+    names = ("l_orderkey", "l_partkey", "l_suppkey", "l_linenumber", "l_quantity",
+             "l_extendedprice", "l_discount", "l_tax")
+    cases = [(name, lineitem_numeric(name, SELECT_ROWS, rng)) for name in names]
+    cases.append(("one-float32-bin",
+                  1.0 + rng.random(SELECT_ROWS) * (2.0 ** -7) * (1 - 2 ** -20)))
+    live = torch.ones(SELECT_ROWS, dtype=torch.bool, device=device)
+    timed = {}
+    for name, values in cases:
+        x = torch.from_numpy(values).to(device)
+        counts = ck.hist16(x, live)
+
+        def call():
+            return ck.hist16_select(x, live, counts, SELECT_CAP)
+
+        got, again = call(), call()
+        want = ck.hist16_select_plain(x, live, counts, SELECT_CAP)
+        for a, b, w in zip(got, again, want):
+            if not (torch.equal(a.view(torch.int64), w.view(torch.int64))
+                    and torch.equal(a.view(torch.int64), b.view(torch.int64))):
+                raise AssertionError(f"hist16_select {name}: differs from the plain version")
+        m = wanted_rows(counts)
+        bound, by = bound_ms(9 * SELECT_ROWS + 24 * m, 0, INT32_OPS_PER_S)
+        timed[name] = {
+            "ms": timer.ms(call),
+            "plain_ms": timer.ms(lambda: ck.hist16_select_plain(x, live, counts, SELECT_CAP),
+                                 reps=5),
+            "bound_ms": bound,
+            "bound_by": by,
+            "wanted_rows": m,
+            "level": int(got[2]),
+            "device_ms_by_kernel": device_ms_by_kernel(call),
+        }
+        emit({"phase": "kernel_check", "kernel": "hist16_select", "case": name,
+              "rows": SELECT_ROWS, **timed[name]})
+    lineitem = [timed[name] for name in names]
+    row = {
+        "name": "hist16_select",
+        "route": "cuda",
+        "source": "deequ_tpu_torch/csrc/kernels.cu",
+        "replaces": "none: the JAX package selects the sample on the host "
+                    "(deequ_tpu/analyzers/sketch.py host_finish_batch)",
+        "rows": SELECT_ROWS,
+        "cap": SELECT_CAP,
+        "ms_lineitem_mean": statistics.fmean(t["ms"] for t in lineitem),
+        "plain_ms_lineitem_mean": statistics.fmean(t["plain_ms"] for t in lineitem),
+        "bound_ms_lineitem_mean": statistics.fmean(t["bound_ms"] for t in lineitem),
+        "worst_case": timed["one-float32-bin"],
+        "library_ms": None,  # no single PyTorch call selects it
+        "held_against_plain": True,
+        "card": card,
+        "power_limit": power_limit,
+    }
+    emit({"phase": "kernel", **row})
+    return row
+
+
 def profiler_phase(torch, timer):
     """A `profile(name, fn, kernel, event_ms)` that runs fn under
     torch.profiler, the L2 evicted before each call as the event timer
@@ -1018,6 +1135,7 @@ def flagship_launches(rows: int):
         "hll_register_max": batches,
         "hist16": 2 * batches,  # one per batch and quantile analyzer
         "classify_hash_dictionary": 0,  # no string dictionary past 65,536 entries
+        "hist16_select": 2 * batches,  # one per hist16: each selects its sample
     }
 
 
@@ -1065,6 +1183,7 @@ def incremental_launches(partitions: int, rows_per_partition: int):
         "hll_register_max": batches,
         "hist16": batches,
         "classify_hash_dictionary": 0,
+        "hist16_select": batches,
     }
 
 
@@ -1955,7 +2074,7 @@ def profile_phase(torch, ck, rows: int, seed: int, card: str, power_limit: str):
     setup_s = time.perf_counter() - t0
     # the plan: one fused pass (no string column looks numeric, and every
     # low-cardinality column is counted inside it); per batch one K1, K2
-    # and K4 launch for each numeric column and one K3 launch per column
+    # K4 and K6 launch for each numeric column and one K3 launch per column
     batches = -(-rows // BATCH)
     numeric = sum(1 for _name, ctype in table.schema if ctype != ColumnType.STRING)
     columns = len(table.schema)
@@ -1965,6 +2084,7 @@ def profile_phase(torch, ck, rows: int, seed: int, card: str, power_limit: str):
         "hll_register_max": columns * batches,
         "hist16": numeric * batches,
         "classify_hash_dictionary": 0,  # an in-memory table has no Arrow dictionary
+        "hist16_select": numeric * batches,
     }
     expected_passes = {"device_passes": 1, "group_passes": 0}
 
@@ -3007,7 +3127,8 @@ def chaos_launches(rows: int):
     standard deviation, one HLL, one quantile)."""
     batches = -(-rows // BATCH)
     return {"masked_moments": 3 * batches, "masked_centered_sumsq": batches,
-            "hll_register_max": batches, "hist16": batches, "classify_hash_dictionary": 0}
+            "hll_register_max": batches, "hist16": batches, "classify_hash_dictionary": 0,
+            "hist16_select": batches}
 
 
 def chaos_counters_expected(spec: str, injected: int, got):
@@ -4696,6 +4817,7 @@ def main() -> int:
             hist16_phase(torch, ck, device, rng, timer, profile)]
     summary = moments_phase(torch, ck, device, rng, timer, profile) + rest
     strings_phase(torch, ck, device, timer, profile, args.seed, card, power_limit)
+    select_phase(torch, ck, device, rng, timer, card, power_limit)
     refused_launch_phase(torch, ck, cuda_build, device)
     del timer, profile  # frees the 256 MB L2 flush buffer before the main path
     launches, main_run = main_path_phase(torch, ck, args.rows, args.seed, card, power_limit)

@@ -6,8 +6,9 @@ into 512 HLL registers (`cuda_kernels.hll_register_max`), and merging is
 a register-wise max (reference: analyzers/ApproxCountDistinct.scala:47).
 
 ApproxQuantile(s): per-batch KLL partial sketches. The device counts a
-batch's sortable-key histogram (`cuda_kernels.hist16`); the host selects
-the decimated sample from it and folds the sketches (reference:
+batch's sortable-key histogram (`cuda_kernels.hist16`) and selects the
+decimated sample through it (`cuda_kernels.hist16_select`); the host
+folds the samples into sketches (reference:
 analyzers/ApproxQuantile.scala:49, ApproxQuantiles.scala:39).
 
 Under a host-fold placement (ops/runtime.py:placement_mode) both fold on
@@ -26,7 +27,6 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from deequ_tpu_torch.analyzers.base import (
     InputSpec,
@@ -54,6 +54,7 @@ from deequ_tpu_torch.data.table import (
     gather_with_null,
     hashed_dictionary,
 )
+from deequ_tpu_torch.observe import counters
 from deequ_tpu_torch.ops import cuda_kernels, native
 from deequ_tpu_torch.ops.sketches import hll
 from deequ_tpu_torch.ops.sketches.kll import KLLSketch, k_for_error
@@ -263,23 +264,20 @@ def _batch_seed(sample: np.ndarray, n: int, level: int) -> int:
     return (h ^ (int(n) * 0x9E3779B1) ^ (int(level) << 17)) & 0x7FFFFFFF
 
 
-_ZERO_BINS = [0x7FFF, 0x8000]  # the bins of -0.0 and +0.0
-
-
 class _QuantileAnalyzerBase(ScanShareableAnalyzer):
-    """Device-assisted member of the fused scan: the device counts the
-    batch's 65536-bin histogram of sortable-key bins (`hist16`), the host
-    walks the counts to the bins that own a decimation rank, gathers and
-    sorts only those bins' float64 values from the batch it still holds,
-    and inserts the decimated sample into a KLL sketch at its level
-    (reference: catalyst/StatefulApproxQuantile.scala:28 — the mergeable
-    digest role).
+    """Device-assisted member of the fused scan: on the device, `hist16`
+    (K4) counts the batch's 65536-bin histogram of sortable-key bins and
+    `hist16_select` (K6) reads the decimated sample off it, the values at
+    the decimation ranks of a stable sort of the batch's live values; the
+    host inserts the sample into a KLL sketch at its level (reference:
+    catalyst/StatefulApproxQuantile.scala:28 — the mergeable digest role).
 
     One route on every device, and exact: rounding to float32 never
     reverses the order of two values, so bin order is value order, every
     rank's row lies in its bin, and the sample is the one a full float64
-    sort of the batch would decimate — value for value. On the CPU the
-    same route runs with `hist16`'s plain version."""
+    stable sort of the batch would decimate — value for value, -0.0 and
+    +0.0 in row order. On the CPU the same route runs with the kernels'
+    plain versions."""
 
     device_assisted = True
 
@@ -299,55 +297,23 @@ class _QuantileAnalyzerBase(ScanShareableAnalyzer):
         ]
 
     def device_batch(self, inputs: Dict[str, Any]) -> Dict[str, Any]:
-        """This batch's histogram, left on the device for the packed copy."""
+        """This batch's decimated sample (a fixed `_sample_size()` buffer),
+        its live count and its level, left on the device for the packed
+        copy."""
+        x = inputs[f"num:{self.column}"]
         live = inputs[f"valid:{self.column}"] & inputs[where_key(self._where)]
-        return {"hist16": cuda_kernels.hist16(inputs[f"num:{self.column}"], live)}
+        sample, n, level = cuda_kernels.hist16_select(
+            x, live, cuda_kernels.hist16(x, live), self._sample_size()
+        )
+        counters.record_device_quantile_samples(1, 1)
+        return {"sample": sample, "n": n, "level": level}
 
-    def host_finish_batch(self, out: Dict[str, Any], host_inputs: Dict[str, np.ndarray]):
-        """Walk the 65536 counts to the wanted decimation ranks, gather
-        ONLY the owning bins' float64 values from the host batch, sort that
-        sliver and read the sample off."""
-        counts = np.asarray(out["hist16"], dtype=np.float64).reshape(cuda_kernels.HIST_BINS)
-        # bins 65409..65535: the positive-NaN key region (no valid row
-        # lands there: NaN is NULL) and the excluded rows' sentinel.
-        # Bin 65408 is exactly +inf: kept.
-        counts[65409:] = 0.0
-        counts = counts.astype(np.int64)
-        n = int(counts.sum())
-        if n <= 0:
-            return {"sample": np.zeros(0, dtype=np.float64), "n": 0, "level": 0}
-        cap = self._sample_size()
-        level = max(0, int(np.ceil(np.log2(max(n, 1) / cap))))
-        stride = 1 << level
-        offset = stride // 2
-        kept = max(0, -(-(n - offset) // stride))
-        ranks = offset + stride * np.arange(kept, dtype=np.int64)
-
-        cum = np.cumsum(counts)
-        bins_of_rank = np.searchsorted(cum, ranks, side="right")
-        wanted = np.zeros(cuda_kernels.HIST_BINS, dtype=bool)
-        wanted[bins_of_rank] = True
-        # -0.0 and +0.0 are equal values in adjacent bins: take both, so
-        # the stable sort below leaves zeros in row order, as a full
-        # stable sort of the batch does
-        wanted[_ZERO_BINS] = wanted[_ZERO_BINS].any()
-
-        x = np.asarray(host_inputs[f"num:{self.column}"], dtype=np.float64)
-        live = np.asarray(host_inputs[f"valid:{self.column}"], dtype=bool)
-        if self._where is not None:
-            live = live & np.asarray(host_inputs[where_key(self._where)], dtype=bool)
-        # the kernel's binning, on the host: excluded rows land in bin
-        # 65535, which owns no rank
-        bins = cuda_kernels.f32_sortable_bin16_plain(
-            torch.from_numpy(x).to(torch.float32), torch.from_numpy(live)
-        ).numpy()
-        gathered = np.sort(x[wanted[bins]], kind="stable")
-
-        # rank within the gathered (wanted-bins-only) ordering: subtract
-        # the mass of the unwanted bins below each rank's bin
-        unwanted_cum = np.cumsum(counts * ~wanted)
-        below = np.where(bins_of_rank > 0, unwanted_cum[bins_of_rank - 1], 0)
-        return {"sample": gathered[ranks - below], "n": n, "level": level}
+    def host_finish_batch(self, out: Dict[str, Any]) -> Dict[str, Any]:
+        """The device's sample, cut to the ranks it kept."""
+        n = int(out["n"])
+        kept = cuda_kernels.decimation(n, self._sample_size())[1]
+        sample = np.asarray(out["sample"], dtype=np.float64)[:kept]
+        return {"sample": sample, "n": n, "level": int(out["level"])}
 
     def host_batch(self, inputs: Dict[str, Any]) -> Dict[str, Any]:
         """This batch's decimated sample from its host arrays (the
@@ -355,6 +321,7 @@ class _QuantileAnalyzerBase(ScanShareableAnalyzer):
         this (column, where) and sample size, else the C
         `masked_select_decimate`, else a sort of the live rows. All three
         give the sample the device route gives."""
+        counters.record_device_quantile_samples(0, 1)
         cap = self._sample_size()
         memo = inputs.get(f"__qsample:{self.column}:{where_key(self._where)}:{cap}")
         if memo is not None:

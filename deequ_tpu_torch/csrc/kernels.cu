@@ -19,6 +19,10 @@
 //                          (deequ_tpu/ops/strings.py classify and
 //                          hash_strings). It runs that work over a large
 //                          dictionary's UTF-8 bytes on the card.
+// K6 dq_hist16_select      replaces no TPU kernel: the JAX package selects
+//                          a quantile sketch's decimated sample from K4's
+//                          bins on the host (deequ_tpu/analyzers/sketch.py
+//                          host_finish_batch). It selects it on the card.
 //
 // Bound on the H100 (3.35 TB/s HBM3): every kernel reads each input once
 // and does a handful of operations per row, so each is bound by bytes.
@@ -145,6 +149,39 @@
 //   side by side, so its lanes' bytes share cache lines. The host work
 //   this replaces took about 1-2 s a batch, so the first design stops at
 //   one thread an entry.
+//
+// K6 (hist16_select) gives a quantile sketch's decimated sample of a batch:
+// the values at ranks offset + stride * j of a stable sort of the live
+// float64 rows, bit for bit those the host took from K4's bins (its bins
+// again, the owning bins' rows, a stable sort, the ranks). Its bound is
+// bytes: one read of x and the mask (9 B a row) and the sort of the rows
+// of the bins that own a rank. Those are not a sliver: on TPC-H lineitem
+// they are 63-100% of a batch (a column of few values puts every row in
+// a rank's bin). So the sort is a real sort, and the design keeps each of
+// its passes a streaming pass over at most n 12-byte (key, row) pairs:
+// - A plan block reads K4's 65536 counts once: the count n of value bins,
+//   the level, each rank's bin (a binary search of the cumulative
+//   counts), the wanted bins (the two zero bins together) and each rank's
+//   place among the wanted rows (its rank less the unwanted rows below
+//   its bin). Nothing comes back to the host: every later launch reads
+//   its sizes from the plan's state, so the batch stays asynchronous.
+// - Compaction: one pass counts each block's wanted rows, a second writes
+//   them, in row order, as (order-preserving 64-bit key, row index) pairs
+//   (ballot and popc within a warp, the warps' counts scanned in shared
+//   memory). -0.0 and +0.0 take one key, so among zeros row order decides,
+//   as in a stable sort.
+// - A stable LSD radix sort of the pairs by key, 8 bits a pass: each
+//   block counts its contiguous share's digits, one block scans the
+//   (digit, block) counts, and each block scatters its share in order
+//   (__match_any_sync ranks a lane among its warp's equal digits; the
+//   warps' counts are scanned in shared memory). A pass whose digit is
+//   the same in every key (the compaction ORs and ANDs the keys) is
+//   skipped, and with it the copy: integer-valued columns sort in two to
+//   four passes.
+// - A gather reads each rank's row and writes x at it, so the sample
+//   keeps the row's own bits (a -0.0 stays -0.0).
+// No torch.sort, CUB or thrust: the scratch (two pair buffers, the plan's
+// tables, the per-block counts) is one allocation of the wrapper's.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -845,6 +882,414 @@ dict_strings_rows(const int32_t* __restrict__ codes, long long rows,
   }
 }
 
+// ---- K6: a quantile sketch's decimated sample ---------------------------
+
+constexpr int kSelectThreads = 1024;
+constexpr int kSelectWarps = kSelectThreads / 32;
+constexpr int kSelectValueBins = 65409;  // cuda_kernels.SELECT_VALUE_BINS
+constexpr int kSelectWarpBins = kHistBins / kSelectWarps;  // a plan warp's run of bins
+constexpr int kSelectWantedWords = kHistBins / 32;  // the wanted bins, one bit each
+constexpr int kSelectDigits = 256;
+constexpr int kSelectPasses = 8;  // 8-bit digits of a 64-bit key
+constexpr int kZeroBinNeg = 0x7FFF;  // -0.0's bin
+constexpr int kZeroBinPos = 0x8000;  // +0.0's bin
+
+// What the plan block and the compaction leave for the later launches.
+struct SelectState {
+  unsigned long long n;     // live rows of the value bins
+  unsigned long long kept;  // ranks sampled
+  unsigned long long m;     // rows of the wanted bins
+  unsigned long long key_or;   // over the wanted rows' keys
+  unsigned long long key_and;
+  int parity[kSelectPasses + 1];  // the pair buffer holding the rows before pass p
+};
+
+// An exclusive prefix sum over the block's threads in thread order, and
+// the block's total. Every thread of the block calls it.
+__device__ __forceinline__ unsigned long long block_exclusive_sum(unsigned long long v,
+                                                                  unsigned long long& total) {
+  __shared__ unsigned long long s_warp[32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  unsigned long long x = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned long long y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) s_warp[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    unsigned long long w = lane < warps ? s_warp[lane] : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned long long y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    s_warp[lane] = w;
+  }
+  __syncthreads();
+  total = s_warp[warps - 1];
+  const unsigned long long before = (warp ? s_warp[warp - 1] : 0) + x - v;
+  __syncthreads();  // s_warp is free for the next call
+  return before;
+}
+
+// The prefix sums of f(bin) over the 65536 bins, in bin order, written to
+// out (inclusive or exclusive), and their total. Warp w takes bins
+// [w * kSelectWarpBins, ...), 32 consecutive bins a step, so every load is
+// coalesced and no step waits on a barrier. One block of kSelectThreads.
+template <typename F>
+__device__ __forceinline__ void bins_prefix_sum(F f, bool inclusive, unsigned long long* out,
+                                                unsigned long long& total) {
+  const int lane = threadIdx.x & 31;
+  const int first = (threadIdx.x >> 5) * kSelectWarpBins;
+  unsigned long long mine = 0;
+#pragma unroll 8
+  for (int b = first + lane; b < first + kSelectWarpBins; b += 32) mine += f(b);
+  for (int o = 16; o > 0; o >>= 1) mine += __shfl_xor_sync(0xffffffffu, mine, o);
+  // lane 0 of warp w gets the warps before w, and passes it to its lanes
+  unsigned long long base = block_exclusive_sum(lane == 0 ? mine : 0, total);
+  base = __shfl_sync(0xffffffffu, base, 0);
+#pragma unroll 4
+  for (int b = first + lane; b < first + kSelectWarpBins; b += 32) {
+    const unsigned long long v = f(b);
+    unsigned long long x = v;
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned long long y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    out[b] = base + (inclusive ? x : x - v);
+    base += __shfl_sync(0xffffffffu, x, 31);
+  }
+}
+
+__device__ __forceinline__ unsigned long long value_count(const int32_t* counts, int bin) {
+  // a count is below 2^32 (hist16_plan), so read it unsigned
+  return bin < kSelectValueBins ? (unsigned long long)(uint32_t)counts[bin] : 0ull;
+}
+
+__device__ __forceinline__ bool is_wanted(const uint32_t* wanted, int bin) {
+  return (wanted[bin >> 5] >> (bin & 31)) & 1u;
+}
+
+__device__ __forceinline__ void load_wanted(const uint32_t* wanted, uint32_t* s_wanted) {
+  for (int w = threadIdx.x; w < kSelectWantedWords; w += blockDim.x) s_wanted[w] = wanted[w];
+  __syncthreads();
+}
+
+__device__ __forceinline__ bool select_row(const double* x, const uint8_t* live,
+                                           const uint32_t* s_wanted, long long i) {
+  return live[i] && is_wanted(s_wanted, sortable_bin16(x[i]));
+}
+
+// The 64-bit order-preserving key of a float64. -0.0 and +0.0 are equal
+// values and take one key, so a stable sort keeps them in row order.
+__device__ __forceinline__ unsigned long long sortable_key64(double v) {
+  const unsigned long long u = (unsigned long long)__double_as_longlong(v == 0.0 ? 0.0 : v);
+  return (u >> 63) ? ~u : (u | 0x8000000000000000ull);
+}
+
+// Whether pass p's digit differs between two wanted rows' keys.
+__device__ __forceinline__ bool pass_runs(const SelectState* st, int pass) {
+  return ((st->key_or ^ st->key_and) >> (8 * pass)) & 0xFFull;
+}
+
+// Rows [b * chunk, b * chunk + chunk) of the m pairs are block b's: whole
+// tiles of kSelectThreads, the same for the count and the scatter.
+__device__ __forceinline__ long long pair_chunk(unsigned long long m) {
+  const unsigned long long share = (m + gridDim.x - 1) / gridDim.x;
+  return (long long)((share + kSelectThreads - 1) / kSelectThreads * kSelectThreads);
+}
+
+// One block. The sizes, each rank's place among the wanted rows (pos,
+// which first holds its bin) and the wanted bins.
+__global__ void __launch_bounds__(kSelectThreads)
+select_plan(const int32_t* __restrict__ counts, long long cap, SelectState* __restrict__ st,
+            unsigned long long* __restrict__ cum, uint32_t* __restrict__ wanted,
+            uint32_t* __restrict__ pos, double* __restrict__ stats) {
+  __shared__ uint32_t s_wanted[kSelectWantedWords];
+  unsigned long long n;
+  bins_prefix_sum([&](int bin) { return value_count(counts, bin); }, true, cum, n);
+  for (int w = threadIdx.x; w < kSelectWantedWords; w += kSelectThreads) s_wanted[w] = 0;
+  __syncthreads();
+  int level = 0;
+  while (n > ((unsigned long long)cap << level)) ++level;
+  const unsigned long long stride = 1ull << level;
+  const unsigned long long offset = stride >> 1;
+  const unsigned long long kept = n > offset ? (n - offset + stride - 1) / stride : 0;
+  // each rank's bin: the first whose cumulative count passes the rank
+  for (unsigned long long j = threadIdx.x; j < kept; j += kSelectThreads) {
+    const unsigned long long rank = offset + stride * j;
+    int lo = 0, hi = kHistBins - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (cum[mid] > rank) {
+        hi = mid;
+      } else {
+        lo = mid + 1;
+      }
+    }
+    pos[j] = (uint32_t)lo;
+    atomicOr(&s_wanted[lo >> 5], 1u << (lo & 31));
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 &&
+      (is_wanted(s_wanted, kZeroBinNeg) || is_wanted(s_wanted, kZeroBinPos))) {
+    s_wanted[kZeroBinNeg >> 5] |= 1u << (kZeroBinNeg & 31);
+    s_wanted[kZeroBinPos >> 5] |= 1u << (kZeroBinPos & 31);
+  }
+  __syncthreads();
+  // the unwanted rows below each bin, over cum
+  unsigned long long unwanted;
+  bins_prefix_sum(
+      [&](int bin) { return is_wanted(s_wanted, bin) ? 0ull : value_count(counts, bin); },
+      false, cum, unwanted);
+  __syncthreads();
+  for (unsigned long long j = threadIdx.x; j < kept; j += kSelectThreads)
+    pos[j] = (uint32_t)(offset + stride * j - cum[pos[j]]);
+  for (int w = threadIdx.x; w < kSelectWantedWords; w += kSelectThreads) wanted[w] = s_wanted[w];
+  if (threadIdx.x == 0) {
+    st->n = n;
+    st->kept = kept;
+    st->m = n - unwanted;
+    st->key_or = 0;
+    st->key_and = ~0ull;
+    st->parity[0] = 0;
+    stats[0] = (double)n;
+    stats[1] = (double)level;
+  }
+}
+
+// The wanted rows of block b's rows [b * chunk, b * chunk + chunk).
+__global__ void __launch_bounds__(kSelectThreads)
+select_count(const double* __restrict__ x, const uint8_t* __restrict__ live, long long n,
+             long long chunk, const uint32_t* __restrict__ wanted,
+             uint32_t* __restrict__ block_rows) {
+  __shared__ uint32_t s_wanted[kSelectWantedWords];
+  load_wanted(wanted, s_wanted);
+  const long long begin = (long long)blockIdx.x * chunk;
+  const long long end = min(n, begin + chunk);
+  unsigned long long mine = 0;
+  for (long long i = begin + threadIdx.x; i < end; i += kSelectThreads)
+    mine += select_row(x, live, s_wanted, i);
+  unsigned long long total;
+  block_exclusive_sum(mine, total);
+  if (threadIdx.x == 0) block_rows[blockIdx.x] = (uint32_t)total;
+}
+
+// The wanted rows as (key, row) pairs in row order: block b writes its
+// rows after the earlier blocks' (gridDim.x <= kSelectThreads).
+__global__ void __launch_bounds__(kSelectThreads)
+select_compact(const double* __restrict__ x, const uint8_t* __restrict__ live, long long n,
+               long long chunk, const uint32_t* __restrict__ wanted,
+               const uint32_t* __restrict__ block_rows, SelectState* __restrict__ st,
+               unsigned long long* __restrict__ keys, uint32_t* __restrict__ rows) {
+  __shared__ uint32_t s_wanted[kSelectWantedWords];
+  __shared__ uint32_t s_warp_rows[kSelectWarps];
+  load_wanted(wanted, s_wanted);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  unsigned long long base;
+  block_exclusive_sum(threadIdx.x < blockIdx.x ? block_rows[threadIdx.x] : 0, base);
+  const long long begin = (long long)blockIdx.x * chunk;
+  const long long end = min(n, begin + chunk);
+  unsigned long long key_or = 0, key_and = ~0ull;
+  for (long long tile = begin; tile < end; tile += kSelectThreads) {
+    const long long i = tile + threadIdx.x;
+    const bool take = i < end && select_row(x, live, s_wanted, i);
+    const uint32_t ballot = __ballot_sync(0xffffffffu, take);
+    if (lane == 0) s_warp_rows[warp] = __popc(ballot);
+    __syncthreads();
+    uint32_t before = 0, tile_rows = 0;
+    for (int w = 0; w < kSelectWarps; ++w) {
+      const uint32_t c = s_warp_rows[w];
+      before += w < warp ? c : 0;
+      tile_rows += c;
+    }
+    if (take) {
+      const long long at = (long long)base + before + __popc(ballot & ((1u << lane) - 1));
+      const unsigned long long key = sortable_key64(x[i]);
+      keys[at] = key;
+      rows[at] = (uint32_t)i;
+      key_or |= key;
+      key_and &= key;
+    }
+    base += tile_rows;
+    __syncthreads();
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    key_or |= __shfl_xor_sync(0xffffffffu, key_or, o);
+    key_and &= __shfl_xor_sync(0xffffffffu, key_and, o);
+  }
+  if (lane == 0) {
+    if (key_or) atomicOr(&st->key_or, key_or);
+    if (~key_and) atomicAnd(&st->key_and, key_and);
+  }
+}
+
+// Pass p: each block's count of each digit of its pairs, digit-major.
+__global__ void __launch_bounds__(kSelectThreads)
+select_digit_count(const SelectState* __restrict__ st, int pass,
+                   const unsigned long long* __restrict__ keys, long long n,
+                   uint32_t* __restrict__ digit_rows) {
+  if (!pass_runs(st, pass)) return;
+  __shared__ uint32_t s_rows[kSelectDigits];
+  const unsigned long long* src = keys + (long long)st->parity[pass] * n;
+  const unsigned long long m = st->m;
+  const long long chunk = pair_chunk(m);
+  const long long begin = (long long)blockIdx.x * chunk;
+  const long long end = min((long long)m, begin + chunk);
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x < kSelectDigits) s_rows[threadIdx.x] = 0;
+  __syncthreads();
+  for (long long tile = begin; tile < end; tile += kSelectThreads) {
+    const long long i = tile + threadIdx.x;
+    const bool valid = i < end;
+    // a lane past the end takes a digit of its own, so it adds nowhere
+    const uint32_t digit =
+        valid ? (uint32_t)(src[i] >> (8 * pass)) & 0xFFu : kSelectDigits + lane;
+    const uint32_t peers = __match_any_sync(0xffffffffu, digit);
+    if (valid && lane == __ffs(peers) - 1) atomicAdd(&s_rows[digit], (uint32_t)__popc(peers));
+  }
+  __syncthreads();
+  if (threadIdx.x < kSelectDigits)
+    digit_rows[threadIdx.x * gridDim.x + blockIdx.x] = s_rows[threadIdx.x];
+}
+
+// Pass p: block d turns digit d's per-block counts into each block's
+// first place among the digit's pairs, in place, and writes the digit's
+// total. One block a digit; grid <= kSelectThreads.
+__global__ void __launch_bounds__(kSelectThreads)
+select_digit_scan(SelectState* __restrict__ st, int pass, uint32_t* __restrict__ digit_rows,
+                  uint32_t* __restrict__ digit_total, int grid) {
+  if (!pass_runs(st, pass)) {
+    if (blockIdx.x == 0 && threadIdx.x == 0) st->parity[pass + 1] = st->parity[pass];
+    return;
+  }
+  uint32_t* row = digit_rows + (long long)blockIdx.x * grid;
+  unsigned long long total;
+  const unsigned long long before =
+      block_exclusive_sum(threadIdx.x < grid ? row[threadIdx.x] : 0u, total);
+  if (threadIdx.x < grid) row[threadIdx.x] = (uint32_t)before;
+  if (threadIdx.x == 0) {
+    digit_total[blockIdx.x] = (uint32_t)total;
+    if (blockIdx.x == 0) st->parity[pass + 1] = st->parity[pass] ^ 1;
+  }
+}
+
+// Pass p: each block's pairs to their digit's place, in their order.
+__global__ void __launch_bounds__(kSelectThreads)
+select_digit_scatter(const SelectState* __restrict__ st, int pass,
+                     unsigned long long* __restrict__ keys, uint32_t* __restrict__ rows,
+                     long long n, const uint32_t* __restrict__ digit_rows,
+                     const uint32_t* __restrict__ digit_total) {
+  if (!pass_runs(st, pass)) return;
+  __shared__ uint32_t s_base[kSelectDigits];
+  __shared__ uint32_t s_tile[kSelectDigits];
+  __shared__ uint32_t s_warp[kSelectWarps][kSelectDigits];
+  const long long from = st->parity[pass];
+  const unsigned long long* src_keys = keys + from * n;
+  const uint32_t* src_rows = rows + from * n;
+  unsigned long long* dst_keys = keys + (from ^ 1) * n;
+  uint32_t* dst_rows = rows + (from ^ 1) * n;
+  const unsigned long long m = st->m;
+  const long long chunk = pair_chunk(m);
+  const long long begin = (long long)blockIdx.x * chunk;
+  const long long end = min((long long)m, begin + chunk);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  // the digit's first place (the smaller digits' pairs) and this block's
+  // first place within it
+  unsigned long long unused;
+  const unsigned long long digit_first =
+      block_exclusive_sum(threadIdx.x < kSelectDigits ? digit_total[threadIdx.x] : 0u, unused);
+  if (threadIdx.x < kSelectDigits)
+    s_base[threadIdx.x] =
+        (uint32_t)digit_first + digit_rows[threadIdx.x * gridDim.x + blockIdx.x];
+  for (long long tile = begin; tile < end; tile += kSelectThreads) {
+    for (int c = threadIdx.x; c < kSelectWarps * kSelectDigits; c += kSelectThreads)
+      s_warp[c / kSelectDigits][c % kSelectDigits] = 0;
+    const long long i = tile + threadIdx.x;
+    const bool valid = i < end;
+    unsigned long long key = 0;
+    uint32_t row = 0;
+    if (valid) {
+      key = src_keys[i];
+      row = src_rows[i];
+    }
+    const uint32_t digit = valid ? (uint32_t)(key >> (8 * pass)) & 0xFFu : kSelectDigits + lane;
+    const uint32_t peers = __match_any_sync(0xffffffffu, digit);
+    const uint32_t rank = __popc(peers & ((1u << lane) - 1));  // among the warp's equal digits
+    __syncthreads();
+    if (valid && rank == 0) s_warp[warp][digit] = __popc(peers);
+    __syncthreads();
+    if (threadIdx.x < kSelectDigits) {  // the warps' counts of one digit, scanned
+      uint32_t run = 0;
+      for (int w = 0; w < kSelectWarps; ++w) {
+        const uint32_t c = s_warp[w][threadIdx.x];
+        s_warp[w][threadIdx.x] = run;
+        run += c;
+      }
+      s_tile[threadIdx.x] = run;
+    }
+    __syncthreads();
+    if (valid) {
+      const long long at = (long long)s_base[digit] + s_warp[warp][digit] + rank;
+      dst_keys[at] = key;
+      dst_rows[at] = row;
+    }
+    __syncthreads();
+    if (threadIdx.x < kSelectDigits) s_base[threadIdx.x] += s_tile[threadIdx.x];
+  }
+}
+
+// The value at each rank's place in the sorted pairs, from its row of x.
+__global__ void __launch_bounds__(256)
+select_gather(const SelectState* __restrict__ st, const double* __restrict__ x,
+              const uint32_t* __restrict__ rows, long long n, const uint32_t* __restrict__ pos,
+              long long cap, double* __restrict__ sample) {
+  const long long j = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (j >= cap) return;
+  const uint32_t* sorted = rows + (long long)st->parity[kSelectPasses] * n;
+  sample[j] = j < (long long)st->kept ? x[sorted[pos[j]]] : 0.0;
+}
+
+// K6's scratch, carved from one allocation at `base` (null: sizes only).
+struct SelectScratch {
+  SelectState* state;
+  unsigned long long* cum;
+  uint32_t* wanted;
+  uint32_t* pos;
+  uint32_t* block_rows;
+  uint32_t* digit_rows;
+  uint32_t* digit_total;
+  unsigned long long* keys;  // two buffers of n
+  uint32_t* rows;            // two buffers of n
+  size_t bytes;
+};
+
+SelectScratch select_scratch(void* base, long long n, long long cap, int grid) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(base);
+  size_t at = 0;
+  auto take = [&](size_t bytes) {
+    const size_t here = at;
+    at += (bytes + 255) & ~size_t(255);
+    return p + here;
+  };
+  SelectScratch s;
+  s.state = reinterpret_cast<SelectState*>(take(sizeof(SelectState)));
+  s.cum = reinterpret_cast<unsigned long long*>(take(sizeof(unsigned long long) * kHistBins));
+  s.wanted = reinterpret_cast<uint32_t*>(take(sizeof(uint32_t) * kSelectWantedWords));
+  s.pos = reinterpret_cast<uint32_t*>(take(sizeof(uint32_t) * cap));
+  s.block_rows = reinterpret_cast<uint32_t*>(take(sizeof(uint32_t) * grid));
+  s.digit_rows = reinterpret_cast<uint32_t*>(take(sizeof(uint32_t) * kSelectDigits * grid));
+  s.digit_total = reinterpret_cast<uint32_t*>(take(sizeof(uint32_t) * kSelectDigits));
+  s.keys = reinterpret_cast<unsigned long long*>(take(sizeof(unsigned long long) * 2 * n));
+  s.rows = reinterpret_cast<uint32_t*>(take(sizeof(uint32_t) * 2 * n));
+  s.bytes = at;
+  return s;
+}
+
 }  // namespace
 
 extern "C" {
@@ -946,6 +1391,43 @@ int dq_dict_strings(const void* offsets, const void* data, long long n,
         (const int32_t*)codes, rows, (const int8_t*)entry_classes,
         (const int32_t*)entry_packed, n, (int8_t*)classes, (int32_t*)packed);
   }
+  return (int)cudaGetLastError();
+}
+
+// Bytes of dq_hist16_select's scratch for n rows, a sample of cap and
+// `grid` blocks (the wrapper's select_grid).
+long long dq_hist16_select_scratch(long long n, long long cap, int grid) {
+  return (long long)select_scratch(nullptr, n, cap, grid).bytes;
+}
+
+// x: n doubles, live: n bools, counts: hist16's 65536 int32 counts of the
+// same rows. sample: cap doubles, zero past the kept ranks; stats: n and
+// the level, as 2 doubles. scratch: dq_hist16_select_scratch bytes,
+// 256-byte aligned. 1 <= grid <= kSelectThreads.
+int dq_hist16_select(const void* x, const void* live, long long n, const void* counts,
+                     long long cap, int grid, void* scratch, void* sample, void* stats,
+                     void* stream) {
+  if (grid < 1 || grid > kSelectThreads || cap < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const SelectScratch w = select_scratch(scratch, n, cap, grid);
+  const double* xd = (const double*)x;
+  const uint8_t* lv = (const uint8_t*)live;
+  const long long share = (n + grid - 1) / grid;
+  const long long chunk = (share + kSelectThreads - 1) / kSelectThreads * kSelectThreads;
+  select_plan<<<1, kSelectThreads, 0, s>>>((const int32_t*)counts, cap, w.state, w.cum,
+                                           w.wanted, w.pos, (double*)stats);
+  select_count<<<grid, kSelectThreads, 0, s>>>(xd, lv, n, chunk, w.wanted, w.block_rows);
+  select_compact<<<grid, kSelectThreads, 0, s>>>(xd, lv, n, chunk, w.wanted, w.block_rows,
+                                                 w.state, w.keys, w.rows);
+  for (int pass = 0; pass < kSelectPasses; ++pass) {
+    select_digit_count<<<grid, kSelectThreads, 0, s>>>(w.state, pass, w.keys, n, w.digit_rows);
+    select_digit_scan<<<kSelectDigits, kSelectThreads, 0, s>>>(w.state, pass, w.digit_rows,
+                                                               w.digit_total, grid);
+    select_digit_scatter<<<grid, kSelectThreads, 0, s>>>(w.state, pass, w.keys, w.rows, n,
+                                                         w.digit_rows, w.digit_total);
+  }
+  select_gather<<<(unsigned)((cap + 255) / 256), 256, 0, s>>>(w.state, xd, w.rows, n, w.pos,
+                                                               cap, (double*)sample);
   return (int)cudaGetLastError();
 }
 

@@ -69,6 +69,10 @@ class ExecutionStats:
     # from a STRING column's dictionary, and all of them
     dictionary_predicates: int = 0
     dictionary_predicates_total: int = 0
+    # quantile sketches' per-batch samples (one per member, batch and
+    # mesh shard): selected in the device program (K6), and all of them
+    device_quantile_samples: int = 0
+    device_quantile_samples_total: int = 0
     # encoded fold, the plan: columns approved and judged, the approved
     # names and the others' reasons
     encfold_cols: int = 0
@@ -113,6 +117,7 @@ class ExecutionStats:
 HEADLINE_RATIOS = (
     ("device_strings", "device_strings_total"),
     ("dictionary_predicates", "dictionary_predicates_total"),
+    ("device_quantile_samples", "device_quantile_samples_total"),
 )
 
 _local = threading.local()
@@ -248,6 +253,15 @@ def record_dictionary_predicates(engaged: int, total: int) -> None:
     gathered through the codes), and all of them. Sinks and tracer
     alike, zeros too; a headline pair of the run report."""
     counts = {"dictionary_predicates": engaged, "dictionary_predicates_total": total}
+    _record(counts, counts)
+
+
+def record_device_quantile_samples(device: int, total: int) -> None:
+    """A quantile sketch's samples of one batch (one a mesh shard): those
+    selected in the device program (K6, `hist16_select`), and all of
+    them, host-folded ones too. Sinks and tracer alike; a headline pair of
+    the run report."""
+    counts = {"device_quantile_samples": device, "device_quantile_samples_total": total}
     _record(counts, counts)
 
 

@@ -103,5 +103,9 @@ def load() -> ctypes.CDLL:
                 ptr, ptr, i64, ctypes.c_ulonglong, ptr, i64, ptr, ptr, ptr, ptr, ptr,
             ]
             lib.dq_dict_strings.restype = i32
+            lib.dq_hist16_select_scratch.argtypes = [i64, i64, i32]
+            lib.dq_hist16_select_scratch.restype = i64
+            lib.dq_hist16_select.argtypes = [ptr, ptr, i64, ptr, i64, i32, ptr, ptr, ptr, ptr]
+            lib.dq_hist16_select.restype = i32
             _LIB = lib
         return _LIB

@@ -26,6 +26,11 @@ K5, `classify_hash_dictionary`, replaces no TPU kernel: it moves the JAX
 package's host work (`deequ_tpu/ops/strings.py` classify and
 hash_strings) onto the card for a large string dictionary, with the same
 codes bit for bit.
+
+K6, `hist16_select`, replaces no TPU kernel either: it moves the JAX
+package's host selection of a quantile sketch's decimated sample from
+K4's bins (`deequ_tpu/analyzers/sketch.py` `host_finish_batch`) onto the
+card, with the same sample bit for bit.
 """
 
 from __future__ import annotations
@@ -435,6 +440,109 @@ def hist16(x: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
 hist16.launches = 0
 
 # ---------------------------------------------------------------------------
+# K6: a quantile sketch's decimated sample, selected through K4's bins
+# ---------------------------------------------------------------------------
+
+# bins from here on hold no value: the positive-NaN keys (NaN is NULL, so
+# no live row lands there) and the excluded rows' sentinel; bin 65408 is
+# exactly +inf and holds values
+SELECT_VALUE_BINS = 65409
+ZERO_BINS = (0x7FFF, 0x8000)  # the bins of -0.0 and +0.0
+
+
+def decimation(n: int, cap: int) -> Tuple[int, int]:
+    """(level, kept) of a batch of `n` live values sampled into at most
+    `cap`: level is the smallest L >= 0 with n <= cap * 2^L, and the
+    sample keeps ranks stride // 2, stride // 2 + stride, ... of the
+    sorted values (stride 2^L), `kept` of them, at most `cap`."""
+    if n <= 0:
+        return 0, 0
+    level = (-(-n // cap) - 1).bit_length() if n > cap else 0
+    stride = 1 << level
+    return level, -(-(n - stride // 2) // stride)
+
+
+def select_grid(n: int, sms: int) -> int:
+    """Blocks of a K6 launch over `n` rows: four tiles of 1024 rows a
+    block at least, at most two blocks per SM. Every pass of one launch
+    shares it, so its order depends on n and the card alone."""
+    return max(1, min(2 * sms, _cdiv(n, 4 * BLOCK_THREADS)))
+
+
+def hist16_select_plain(
+    x: torch.Tensor, live: torch.Tensor, counts: torch.Tensor, cap: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """hist16_select in PyTorch: the bins of float32(x) where `live`
+    (`f32_sortable_bin16_plain`), every row of a bin that owns a rank
+    (the two zero bins together), a stable sort of those rows and the
+    ranks read off it."""
+    c = counts.to(torch.int64).clone()
+    c[SELECT_VALUE_BINS:] = 0
+    n = int(c.sum())
+    level, kept = decimation(n, cap)
+    sample = torch.zeros(cap, dtype=torch.float64, device=x.device)
+    if kept:
+        stride = 1 << level
+        ranks = stride // 2 + stride * torch.arange(kept, device=x.device)
+        cum = torch.cumsum(c, 0)
+        bins_of_rank = torch.searchsorted(cum, ranks, right=True)
+        wanted = torch.zeros(HIST_BINS, dtype=torch.bool, device=x.device)
+        wanted[bins_of_rank] = True
+        # -0.0 and +0.0 are equal values in adjacent bins: take both, so
+        # the stable sort leaves zeros in row order, as a stable sort of
+        # the whole batch does
+        zero_bins = list(ZERO_BINS)
+        wanted[zero_bins] = bool(wanted[zero_bins].any())
+        bins = f32_sortable_bin16_plain(x.to(torch.float32), live).long()
+        gathered = torch.sort(x.to(torch.float64)[wanted[bins]], stable=True).values
+        # a rank's place among the wanted rows: less the unwanted rows below its bin
+        below = torch.cumsum(torch.where(wanted, 0, c), 0) - torch.where(wanted, 0, c)
+        sample[:kept] = gathered[ranks - below[bins_of_rank]]
+    as_f64 = functools.partial(torch.tensor, dtype=torch.float64, device=x.device)
+    return sample, as_f64(float(n)), as_f64(float(level))
+
+
+def hist16_select(
+    x: torch.Tensor, live: torch.Tensor, counts: torch.Tensor, cap: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A quantile sketch's decimated sample of x (float64) where `live`,
+    from `counts`, hist16's histogram of the same rows: the values at
+    ranks stride // 2 + stride * j of a stable sort of the live values
+    (`decimation(n, cap)`), -0.0 and +0.0 in row order. Returns (sample:
+    `cap` float64, zero past the kept ranks; n; level), n and level as
+    0-d float64, all on x's device, with no host sync."""
+    _check_pair(x, live, (torch.float64,))
+    _check_1d("counts", counts, (torch.int32,))
+    if counts.numel() != HIST_BINS or counts.device != x.device:
+        raise ValueError(f"counts must be hist16's {HIST_BINS} bins on {x.device}")
+    if cap < 1:
+        raise ValueError(f"cap must be positive, got {cap}")
+    if x.numel() > HIST_MAX_ROWS:
+        raise ValueError(f"hist16_select takes at most {HIST_MAX_ROWS} rows a call")
+    if x.device.type == "cpu":
+        return hist16_select_plain(x, live, counts, cap)
+    _require_cuda(x)
+    from deequ_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load()
+    n = x.numel()
+    grid = select_grid(n, sm_count(x.device))
+    scratch = torch.empty(lib.dq_hist16_select_scratch(n, cap, grid), dtype=torch.uint8,
+                          device=x.device)
+    sample = torch.empty(cap, dtype=torch.float64, device=x.device)
+    stats = torch.empty(2, dtype=torch.float64, device=x.device)  # n, level
+    err = lib.dq_hist16_select(
+        x.data_ptr(), live.data_ptr(), n, counts.data_ptr(), cap, grid,
+        scratch.data_ptr(), sample.data_ptr(), stats.data_ptr(), _stream(x),
+    )
+    _raise_on(err, "hist16_select")
+    count_launch(hist16_select)
+    return sample, stats[0], stats[1]
+
+
+hist16_select.launches = 0
+
+# ---------------------------------------------------------------------------
 # K5: a dictionary's strings classified and hashed, gathered to rows
 # ---------------------------------------------------------------------------
 
@@ -701,6 +809,7 @@ classify_hash_dictionary.launches = 0
 
 KERNELS = (
     masked_moments, masked_centered_sumsq, hll_register_max, hist16, classify_hash_dictionary,
+    hist16_select,
 )
 
 # the service's workers, a pass's prep thread and the sharded scan launch

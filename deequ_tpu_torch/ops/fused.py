@@ -11,9 +11,9 @@ device-to-host copy. `PipelinedAggFold` starts that copy into pinned
 memory and folds batch N-1 on the host while the device runs batch N.
 
 Device-assisted members (the quantile sketches) ride the same program:
-their `device_batch` output (a histogram) joins the packed buffer, and
-the fold finishes each against the batch's host inputs, which stay alive
-until that batch folds (`host_finish_batch`, then `host_consume`).
+their `device_batch` output (the batch's decimated sample, selected on
+the device) joins the packed buffer, and the fold consumes it into the
+member's sketch (`host_finish_batch`, then `host_consume`).
 
 Host-only members (the profiler's exact value counts and its speculative
 numeric statistics of string columns) work on strings and dictionary
@@ -760,8 +760,10 @@ class ScanMemberPlan:
     members fold their partials on the host (`host_reduce`);
     `host_assisted_idx` members fold each batch on the host (`host_batch`,
     then `host_consume`). `device_keys` are the inputs the device program
-    reads, `assisted_keys` those of them an assisted member's host finish
-    reads again, `host_keys` each host member's inputs."""
+    reads, `assisted_keys` those of them an assisted member reads (kept
+    off the straight-to-wire decode, as in the JAX package's plan, whose
+    assisted members finish against them on the host), `host_keys` each
+    host member's inputs."""
 
     mode: str = "device"
     merge_idx: List[int] = field(default_factory=list)
@@ -1531,31 +1533,18 @@ def unpack_outputs(flat: np.ndarray, meta, n_analyzers: int) -> List[Dict[str, n
     return outs
 
 
-class _ShardInputs:
-    """One shard's rows [`lo`, `hi`) of a batch's host inputs: what an
-    assisted member's host finish reads for that shard's output."""
-
-    def __init__(self, built, lo: int, hi: int):
-        self._built, self._lo, self._hi = built, lo, hi
-
-    def __getitem__(self, key):
-        return np.asarray(self._built[key])[self._lo : self._hi]
-
-
 class PipelinedAggFold:
     """Cross-batch host fold that overlaps device work with host work:
     `submit` starts the batch's device-to-host copy into pinned memory
     behind a CUDA event, then folds the PREVIOUS batch, whose copy has had
     a batch of device time to land. Partials merge in float64 through
     each analyzer's `merge_agg`, in batch order. Each assisted member's
-    output is finished against the batch's host inputs (`host_ctx`, kept
-    alive until the batch folds) and consumed into its host state.
+    output (its sample) is consumed into its host state.
 
     Under a mesh (parallel/distributed.py) a batch's output holds its
     `n_dev` shards' packed partials, one row each: the merge partials
     fold in shard order 0..n_dev-1 into the batch's, and each assisted
-    member finishes and consumes each shard's output against that
-    shard's rows of the batch (`shard_bounds`), in shard order."""
+    member consumes each shard's sample, in shard order."""
 
     def __init__(
         self,
@@ -1576,8 +1565,6 @@ class PipelinedAggFold:
         self,
         flat: torch.Tensor,
         meta,
-        host_ctx: Optional[Dict[str, np.ndarray]] = None,
-        shard_bounds: Optional[Sequence[Tuple[int, int]]] = None,
         timing: Optional[Tuple[Any, Any]] = None,
     ) -> None:
         """`timing`: the (start, end) CUDA events around the batch's
@@ -1591,7 +1578,7 @@ class PipelinedAggFold:
             host, landed = flat, None
         if self._pending is not None:
             self._fold(self._pending)
-        self._pending = (host, landed, meta, host_ctx, shard_bounds, timing)
+        self._pending = (host, landed, meta, timing)
 
     def _fold(self, pending) -> None:
         """Wait for a batch's packed partials to land on the host (the
@@ -1600,7 +1587,7 @@ class PipelinedAggFold:
         timed batch's program time goes on the transfer span as
         `device_ms`: its end event came before the copy's, so reading it
         waits for nothing more."""
-        host, landed, meta, host_ctx, shard_bounds, timing = pending
+        host, landed, meta, timing = pending
         with observe.span("transfer", cat="transfer", bytes=int(host.nbytes)) as sp:
             if landed is not None:
                 landed.synchronize()
@@ -1608,19 +1595,16 @@ class PipelinedAggFold:
                 sp.set(device_ms=timing[0].elapsed_time(timing[1]))
             rows = host.numpy().reshape(self.n_dev, -1)
         with observe.span("merge", cat="merge"):
-            self._merge(rows, meta, host_ctx, shard_bounds)
+            self._merge(rows, meta)
 
-    def _merge(self, rows: np.ndarray, meta, host_ctx, shard_bounds) -> None:
+    def _merge(self, rows: np.ndarray, meta) -> None:
         n_merge = len(self.analyzers)
         batch_aggs = None
         for d in range(self.n_dev):
             outs = unpack_outputs(rows[d], meta, n_merge + len(self.assisted))
-            ctx = host_ctx
-            if shard_bounds is not None and host_ctx is not None:
-                ctx = _ShardInputs(host_ctx, *shard_bounds[d])
             for i, (analyzer, out) in enumerate(zip(self.assisted, outs[n_merge:])):
                 self._assisted_states[i] = analyzer.host_consume(
-                    self._assisted_states[i], analyzer.host_finish_batch(out, ctx)
+                    self._assisted_states[i], analyzer.host_finish_batch(out)
                 )
             shard_aggs = outs[:n_merge]
             batch_aggs = (
@@ -2156,8 +2140,7 @@ class _BatchScan:
         flat, meta = program(item.wire, item.batch.num_rows)
         if timing is not None:
             timing[1].record(stream)
-        # assisted members finish against the batch's host inputs
-        self.fold.submit(flat, meta, item.built if self.assisted else None, timing=timing)
+        self.fold.submit(flat, meta, timing=timing)
 
     def fold_item(self, item: _Prepped) -> bool:
         """Fold one prepped batch; False once every member has failed."""

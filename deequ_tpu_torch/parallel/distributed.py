@@ -13,10 +13,10 @@ packed partials come to the mesh's first device (a peer copy across
 cards, none on one card), are stacked and copied to the host in one
 copy, and fold there with `merge_agg` in shard order 0..n-1, then
 across batches in batch order (ops/fused.py:PipelinedAggFold, n_dev).
-An assisted member (a quantile sketch) finishes each shard's histogram
-against that shard's rows of the host batch, so it samples each shard
-as the JAX mesh does. Host-placed members fold each whole batch on the
-host under every placement (`fold_host_batch`), as in the single pass.
+An assisted member (a quantile sketch) selects each shard's sample on
+that shard's device, so it samples each shard as the JAX mesh does.
+Host-placed members fold each whole batch on the host under every
+placement (`fold_host_batch`), as in the single pass.
 
 Processes meet only in parallel/multihost.py, which moves serialized
 states between them. The JAX counterpart is
@@ -128,7 +128,7 @@ class _MeshBatchScan(_BatchScan):
         return {"devices": self.mesh.size}
 
     def _launch(self, item: _Prepped) -> None:
-        flats, bounds, meta = [], [], None
+        flats, meta = [], None
         for device, wire, copied, layout, lo, hi in item.wire:
             # the kernels launch on the current device's stream
             with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
@@ -137,11 +137,7 @@ class _MeshBatchScan(_BatchScan):
                 counters.record_launch()
                 flat, meta = program(wire, hi - lo)
             flats.append(flat.to(self.device))
-            bounds.append((lo, hi))
-        self.fold.submit(
-            torch.stack(flats).reshape(-1), meta,
-            item.built if self.assisted else None, shard_bounds=bounds,
-        )
+        self.fold.submit(torch.stack(flats).reshape(-1), meta)
 
 
 class DistributedScanPass(FusedScanPass):

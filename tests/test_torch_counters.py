@@ -87,6 +87,20 @@ CASES = [
         {"dictionary_predicates": 0, "dictionary_predicates_total": 0},
     ),
     (
+        "device_quantile_samples",
+        (3, 4),
+        {},
+        {"device_quantile_samples": 3, "device_quantile_samples_total": 4},
+        {"device_quantile_samples": 3, "device_quantile_samples_total": 4},
+    ),
+    (
+        "device_quantile_samples",
+        (0, 0),
+        {},
+        {},
+        {"device_quantile_samples": 0, "device_quantile_samples_total": 0},
+    ),
+    (
         "encfold_plan",
         (["a"], 4, [("b", "reason")]),
         {},

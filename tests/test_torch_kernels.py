@@ -42,7 +42,7 @@ def _zero_counts():
     # every call in this file is on the CPU: no kernel may have launched
     assert ck.launch_counts() == {
         "masked_moments": 0, "masked_centered_sumsq": 0, "hll_register_max": 0,
-        "hist16": 0, "classify_hash_dictionary": 0,
+        "hist16": 0, "classify_hash_dictionary": 0, "hist16_select": 0,
     }
 
 
