@@ -92,6 +92,8 @@ class ExecutionStats:
     # all: each shard of each batch is one device program run
     mesh_passes: int = 0
     mesh_shards: int = 0
+    # the bytes of partials copied from other devices to the mesh's first
+    mesh_peer_bytes: int = 0
     # sharded streaming scan (parallel/multihost.py), this process's
     # shard: its partitions, the gathered envelope bytes that crossed
     # the process boundary, and the rows of its partitions
@@ -297,6 +299,13 @@ def record_encfold(
 def record_mesh_pass(shards: int) -> None:
     """One mesh-sharded pass over `shards` shards. Sinks only."""
     _record({"mesh_passes": 1, "mesh_shards": shards})
+
+
+def record_mesh_gather(peer_bytes: int) -> None:
+    """One mesh batch's partials gathered on the mesh's first device:
+    the bytes copied there from other devices. Sinks and tracer alike,
+    zeros too."""
+    _record({"mesh_peer_bytes": peer_bytes}, {"mesh_peer_bytes": peer_bytes})
 
 
 def record_shard_scan(

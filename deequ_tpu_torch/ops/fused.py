@@ -1565,10 +1565,12 @@ class PipelinedAggFold:
         self,
         flat: torch.Tensor,
         meta,
-        timing: Optional[Tuple[Any, Any]] = None,
+        timings: Sequence[Tuple[Any, Tuple[Any, Any]]] = (),
     ) -> None:
-        """`timing`: the (start, end) CUDA events around the batch's
-        program, read once its partials have landed."""
+        """`timings`: (span, (start, end)) pairs of CUDA events around the
+        batch's program (one) or each mesh shard's, read into the span's
+        `device_ms` once the partials have landed; a span of None is the
+        batch's `transfer` span."""
         if self.device.type == "cuda":
             host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
             host.copy_(flat, non_blocking=True)
@@ -1578,21 +1580,23 @@ class PipelinedAggFold:
             host, landed = flat, None
         if self._pending is not None:
             self._fold(self._pending)
-        self._pending = (host, landed, meta, timing)
+        self._pending = (host, landed, meta, timings)
 
     def _fold(self, pending) -> None:
         """Wait for a batch's packed partials to land on the host (the
         `transfer` span: under asynchronous launches this is where the
         host waits for the device) and fold them (the `merge` span). A
-        timed batch's program time goes on the transfer span as
-        `device_ms`: its end event came before the copy's, so reading it
-        waits for nothing more."""
-        host, landed, meta, timing = pending
+        timed program's time goes on its span as `device_ms` (a batch's on
+        the transfer span, each mesh shard's on its own): its end event
+        came before the copy's (a shard's partials reach the mesh's first
+        card behind it), so reading it waits for nothing more."""
+        host, landed, meta, timings = pending
         with observe.span("transfer", cat="transfer", bytes=int(host.nbytes)) as sp:
             if landed is not None:
                 landed.synchronize()
-            if timing is not None and sp:
-                sp.set(device_ms=timing[0].elapsed_time(timing[1]))
+            for target, (start, end) in timings if sp else ():
+                end.synchronize()
+                (target or sp).set(device_ms=start.elapsed_time(end))
             rows = host.numpy().reshape(self.n_dev, -1)
         with observe.span("merge", cat="merge"):
             self._merge(rows, meta)
@@ -1963,6 +1967,19 @@ def program_timer(device: torch.device) -> Optional[Tuple[Any, Any]]:
     return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
 
+def run_program(program, wire: Dict[str, torch.Tensor], num_rows: int, device: torch.device):
+    """-> (flat partials, meta, timing): `program` run on its wire; under
+    a live span on a CUDA device, between two timing events on the
+    device's current stream (`program_timer`), else `timing` is None."""
+    timing = program_timer(device)
+    if timing is not None:
+        timing[0].record(torch.cuda.current_stream(device))
+    flat, meta = program(wire, num_rows)
+    if timing is not None:
+        timing[1].record(torch.cuda.current_stream(device))
+    return flat, meta, timing
+
+
 class _BatchScan:
     """One pass's per-batch loop: `prep` builds a batch's device inputs,
     packs them (splicing in the rows the decode wrote straight to the
@@ -2133,14 +2150,8 @@ class _BatchScan:
         self._await_copy(item.wire, item.copied, self.device)
         program = get_fused_fn(self.analyzers, item.layout, self.device, self.assisted)
         counters.record_launch()
-        timing = program_timer(self.device)
-        if timing is not None:
-            stream = torch.cuda.current_stream(self.device)
-            timing[0].record(stream)
-        flat, meta = program(item.wire, item.batch.num_rows)
-        if timing is not None:
-            timing[1].record(stream)
-        self.fold.submit(flat, meta, timing=timing)
+        flat, meta, timing = run_program(program, item.wire, item.batch.num_rows, self.device)
+        self.fold.submit(flat, meta, () if timing is None else ((None, timing),))
 
     def fold_item(self, item: _Prepped) -> bool:
         """Fold one prepped batch; False once every member has failed."""

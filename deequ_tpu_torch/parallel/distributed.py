@@ -46,6 +46,7 @@ from deequ_tpu_torch.ops.fused import (
     pack_batch_inputs,
     plan_decode_fastpath,
     PipelinedAggFold,
+    run_program,
 )
 
 class DeviceMesh:
@@ -90,7 +91,18 @@ def data_mesh(devices: Optional[Sequence] = None) -> DeviceMesh:
 class _MeshBatchScan(_BatchScan):
     """The pass's per-batch loop over a mesh: `_ship` packs and copies each
     shard's slice of the batch to its device, `_launch` runs the fused
-    program per shard and submits the stacked partials to the fold."""
+    program per shard and submits the stacked partials to the fold.
+
+    Traced, each shard of each batch has a `mesh_ship` span (its slice
+    packed and its copy enqueued) and a `mesh_launch` span (its program
+    launched, under its card's device context; on a CUDA device between
+    two timing events on that card's stream, read into the span's
+    `device_ms` once the batch's partials have landed), both with the
+    shard's `card` (its place in the mesh) and `device`; each batch has
+    a `mesh_gather` span over the partials' copies to the first device,
+    their stack and the copy to the host. Each span is its own category,
+    so its self time reads by category. Untraced, no span or event is
+    made."""
 
     dictionary_route = False
 
@@ -113,14 +125,20 @@ class _MeshBatchScan(_BatchScan):
         for d, device in enumerate(self.mesh.devices):
             lo = min(d * per_dev, n)
             hi = min(lo + per_dev, n)
-            # a shard past the batch's end is all padding: every mask of
-            # it is False, so it folds to the identity
-            host, layout = pack_batch_inputs(
-                [(key, arr[lo:hi]) for key, arr in items], per_dev, self.sticky, hi - lo,
-                pin=device.type == "cuda",
-            )
-            item.wire_bytes += sum(int(v.nbytes) for v in host.values())
-            wire, copied = self._copy_to(host, device, self.copy_streams.get(device))
+            with observe.span(
+                "mesh_ship", cat="mesh_ship", card=d, device=str(device), rows=hi - lo
+            ) as sp:
+                # a shard past the batch's end is all padding: every mask
+                # of it is False, so it folds to the identity
+                host, layout = pack_batch_inputs(
+                    [(key, arr[lo:hi]) for key, arr in items], per_dev, self.sticky, hi - lo,
+                    pin=device.type == "cuda",
+                )
+                nbytes = sum(int(v.nbytes) for v in host.values())
+                wire, copied = self._copy_to(host, device, self.copy_streams.get(device))
+                if sp:
+                    sp.set(bytes=nbytes)
+            item.wire_bytes += nbytes
             shards.append((device, wire, copied, layout, lo, hi))
         item.wire = shards
 
@@ -128,16 +146,27 @@ class _MeshBatchScan(_BatchScan):
         return {"devices": self.mesh.size}
 
     def _launch(self, item: _Prepped) -> None:
-        flats, meta = [], None
-        for device, wire, copied, layout, lo, hi in item.wire:
+        flats, meta, timed = [], None, []
+        for d, (device, wire, copied, layout, lo, hi) in enumerate(item.wire):
             # the kernels launch on the current device's stream
-            with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
+            current = (
+                torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+            )
+            with observe.span(
+                "mesh_launch", cat="mesh_launch", card=d, device=str(device), rows=hi - lo
+            ) as sp, current:
                 self._await_copy(wire, copied, device)
                 program = get_fused_fn(self.analyzers, layout, device, self.assisted)
                 counters.record_launch()
-                flat, meta = program(wire, hi - lo)
-            flats.append(flat.to(self.device))
-        self.fold.submit(torch.stack(flats).reshape(-1), meta)
+                flat, meta, timing = run_program(program, wire, hi - lo, device)
+            if timing is not None:
+                timed.append((sp, timing))
+            flats.append(flat)
+        with observe.span("mesh_gather", cat="mesh_gather", shards=len(flats)):
+            peer_bytes = sum(int(f.nbytes) for f in flats if f.device != self.device)
+            counters.record_mesh_gather(peer_bytes)
+            gathered = torch.stack([f.to(self.device) for f in flats]).reshape(-1)
+            self.fold.submit(gathered, meta, timed)
 
 
 class DistributedScanPass(FusedScanPass):

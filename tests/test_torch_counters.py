@@ -137,6 +137,8 @@ CASES = [
     ("encfold", (0, 0, 0, 0, 0, 0), {}, {}, {"encfold_chunks": 0}),
     ("mesh_pass", (4,), {}, {"mesh_passes": 1, "mesh_shards": 4}, {}),
     ("mesh_pass", (0,), {}, {"mesh_passes": 1}, {}),
+    ("mesh_gather", (4096,), {}, {"mesh_peer_bytes": 4096}, {"mesh_peer_bytes": 4096}),
+    ("mesh_gather", (0,), {}, {}, {"mesh_peer_bytes": 0}),
     (
         "shard_scan",
         (1, 4, 3, 5, 17, 100, 1000),

@@ -168,3 +168,39 @@ class TestErrors:
         t = tbl(a=[1.0])
         with pytest.raises(Exception):
             Predicate("a >>> 1").eval_mask(t)
+
+
+class TestMasksOwnTheirRows:
+    """A row mask from `eval_mask` is right over columns with and without
+    nulls, literals and their combinations, and is an array of its own:
+    writable, and never a view of a literal or of the column's backing."""
+
+    CASES = [
+        ("true", [True, True, True]),
+        ("false OR b", [True, False, True]),
+        ("b", [True, False, True]),
+        ("x < 2", [True, False, False]),
+        ("x >= 2 AND x < 3", [False, True, False]),
+        ("x < 2 OR x > 2", [True, False, True]),
+        ("y < 2", [True, False, False]),
+        ("y >= 1 AND y < 3", [True, False, False]),
+        ("NOT (y < 2)", [False, False, True]),
+        ("x IN (1, 3)", [True, False, True]),
+        ("s = 'a' AND x < 3", [True, False, False]),
+    ]
+
+    @pytest.mark.parametrize("expr,expected", CASES)
+    def test_mask(self, expr, expected):
+        t = Table.from_numpy(
+            {
+                "x": np.array([1, 2, 3], dtype=np.int64),
+                "y": np.array([1.0, np.nan, 3.0]),
+                "b": np.array([True, False, True]),
+                "s": np.array(["a", "b", "a"], dtype=object),
+            }
+        )
+        out = Predicate(expr).eval_mask(t)
+        assert out.tolist() == expected
+        assert out.flags.writeable and out.flags.owndata
+        out[:] = False  # the table's own columns stay as they were
+        assert t.column("b").values.tolist() == [True, False, True]
